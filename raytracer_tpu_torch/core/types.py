@@ -1,0 +1,189 @@
+"""Scene representation: dataclasses of tensors.
+
+Port of raytracer_tpu/core/types.py. Tensor fields are the scene's arrays
+(the JAX package's pytree leaves); the static flags that the JAX package
+marks pytree_node=False stay Python values here. Every dataclass moves to a
+device with an explicit `.to(device)`.
+
+Left out on purpose: `Materials.kt` and `RenderSettings.num_paths` (nothing
+reads them) and `RenderSettings.remat` (a JAX-only checkpointing switch).
+Left out until their features are ported: the motion-blur pose and flags,
+alpha maps and the adaptive-sampling and dome settings (ROADMAP queue 1
+#11), the BVH, instance and edge tables and the single_level flag (#12,
+#13); a Scene here is always single-level, static and without alpha maps.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+
+class TensorData:
+    """Mixin: `.to(device)` maps over tensor and nested TensorData fields."""
+
+    def to(self, device):
+        kw = {}
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if isinstance(v, (torch.Tensor, TensorData)):
+                v = v.to(device)
+            kw[f.name] = v
+        return type(self)(**kw)
+
+
+@dataclass
+class Geometry(TensorData):
+    """Triangle soup over shared vertex pools (src/TriangleMesh.h:8-62)."""
+    vertices: torch.Tensor      # (V, 3) f32
+    normals: torch.Tensor       # (N, 3) f32
+    texcoords: torch.Tensor     # (U, 2) f32
+    tangents: torch.Tensor      # (N, 3) f32
+    bitangents: torch.Tensor    # (N, 3) f32
+    face_v: torch.Tensor        # (T, 3) i32
+    face_n: torch.Tensor        # (T, 3) i32
+    face_t: torch.Tensor        # (T, 3) i32
+    face_mat: torch.Tensor      # (T,) i32
+    face_has_uv: torch.Tensor   # (T,) bool
+
+    @property
+    def num_tris(self) -> int:
+        return self.face_v.shape[0]
+
+
+MAT_LAMBERT = 0
+MAT_BLINN = 1
+
+
+@dataclass
+class Materials(TensorData):
+    """SoA material table (src/Material.h, src/Blinn.h)."""
+    kind: torch.Tensor          # (M,) i32
+    kd: torch.Tensor            # (M, 3)
+    ka: torch.Tensor            # (M, 3)
+    ks: torch.Tensor            # (M, 3)
+    ior: torch.Tensor           # (M, 3)
+    spec_exp: torch.Tensor      # (M,)
+    spec_amt: torch.Tensor
+    reflect_amt: torch.Tensor
+    refract_amt: torch.Tensor
+    spec_gloss: torch.Tensor
+    translucency: torch.Tensor
+    emitted_power: torch.Tensor
+    le: torch.Tensor            # (M, 3)
+    disperse: torch.Tensor      # (M,) bool
+    sample_env: torch.Tensor    # (M,) bool
+    env_exposure: torch.Tensor
+    tex_color: torch.Tensor     # (M,) i32 texture id or -1
+    tex_normal: torch.Tensor
+    tex_spec: torch.Tensor
+    tex_reflect: torch.Tensor
+    tex_refract: torch.Tensor
+    tex_env: torch.Tensor
+
+
+@dataclass
+class TexturePack(TensorData):
+    """All textures flattened into one texel pool; rows are
+    (offset, width, height, channels)."""
+    data: torch.Tensor          # (D,) f32
+    offset: torch.Tensor        # (K,) i32
+    width: torch.Tensor
+    height: torch.Tensor
+    channels: torch.Tensor
+
+
+@dataclass
+class PointLights(TensorData):
+    """src/PointLight.{h,cpp}."""
+    position: torch.Tensor      # (L, 3)
+    power: torch.Tensor         # (L,)
+    color: torch.Tensor         # (L, 3)
+    cast_shadows: tuple = ()
+    fast_shadows: tuple = ()
+
+
+@dataclass
+class RectLights(TensorData):
+    """Parallelogram area light (src/RectangleLight.{h,cpp}); `power` is the
+    raw wattage, normalised by area at sample time."""
+    v1: torch.Tensor            # (L, 3)
+    v2: torch.Tensor
+    v3: torch.Tensor
+    power: torch.Tensor         # (L,)
+    color: torch.Tensor         # (L, 3)
+    cast_shadows: tuple = ()
+    fast_shadows: tuple = ()
+    num_samples: int = 1
+
+
+EPS_SHUTTER = 1e-3  # reference Camera ctor m_shutterSpeed = epsilon
+
+
+@dataclass
+class Camera(TensorData):
+    """Thin-lens camera (src/Camera.h:9-76); fov in degrees."""
+    eye: torch.Tensor           # (3,)
+    view_dir: torch.Tensor      # (3,)
+    up: torch.Tensor            # (3,)
+    fov: torch.Tensor           # ()
+    focus_plane: torch.Tensor   # ()
+    aperture: torch.Tensor      # ()
+    shutter: torch.Tensor       # ()
+
+    @classmethod
+    def make(cls, eye, look_at=None, view_dir=None, up=(0.0, 1.0, 0.0),
+             fov=45.0, focus_plane=1.0, aperture=0.0, shutter=EPS_SHUTTER):
+        eye = np.asarray(eye, np.float32)
+        if view_dir is None:
+            view_dir = np.asarray(look_at, np.float32) - eye
+        view_dir = np.asarray(view_dir, np.float32)
+        view_dir = view_dir / np.linalg.norm(view_dir)
+        up = np.asarray(up, np.float32)
+        up = up / np.linalg.norm(up)
+        f = lambda x: torch.as_tensor(np.asarray(x, np.float32))
+        return cls(eye=f(eye), view_dir=f(view_dir), up=f(up), fov=f(fov),
+                   focus_plane=f(focus_plane), aperture=f(aperture),
+                   shutter=f(shutter))
+
+
+@dataclass(frozen=True)
+class RenderSettings:
+    """Static render parameters (src/Scene.h:60-64 plus wavefront sizing);
+    field meanings as in raytracer_tpu.core.types.RenderSettings."""
+    width: int = 256
+    height: int = 256
+    path_trace: bool = False
+    max_bounces: int = 5
+    spec_bounce_cap: int = 5                 # src/Blinn.cpp:248
+    max_wavefront_steps: int = 8
+    shadow_segments: int = 4
+    light_noise_cutoff: float = 0.0
+    use_schlick: bool = False
+    intersector: str = 'auto'                # 'auto' | 'brute'
+    ray_tile: int = 8 * 128
+    sort_rays: bool = True
+
+
+@dataclass
+class Scene(TensorData):
+    """The full scene (single-level, as this package renders it)."""
+    geom: Geometry
+    materials: Materials
+    textures: TexturePack
+    point_lights: PointLights
+    rect_lights: RectLights
+    env_exposure: torch.Tensor           # ()
+    bg_color: torch.Tensor               # (3,)
+    clusters: Optional[object] = None    # geometry.clusters.Clusters
+    env_tex: int = -1
+    has_material_env: bool = False
+    has_dispersion: bool = False
+    has_translucency: bool = False
+
+    @property
+    def num_tris(self) -> int:
+        return self.geom.face_v.shape[0]

@@ -1,0 +1,112 @@
+"""Batched 3-vector math on tensors whose last axis is the vector axis.
+
+Port of raytracer_tpu/core/vecmath.py (the reference's SSE vector layer,
+src/Vector3.h, as elementwise tensor math). Dot products are written out
+component by component, so the sum order is fixed on every device.
+"""
+from __future__ import annotations
+
+import torch
+
+# Reference constants (src/Miro.h:35-68)
+MIRO_TMAX = 1e12
+EPSILON = 1e-3            # src/Miro.h:56
+PI = 3.1415926535897932
+INV_PI = 1.0 / PI
+INV_4PI = 0.25 / PI
+TWO_PI_SQ = 2.0 * PI * PI
+GAMMA = 2.2               # src/Image.cpp:14
+
+
+def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Dot product over the last axis, which is dropped."""
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+
+
+def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    ax, ay, az = a[..., 0], a[..., 1], a[..., 2]
+    bx, by, bz = b[..., 0], b[..., 1], b[..., 2]
+    return torch.stack([ay * bz - az * by, az * bx - ax * bz,
+                        ax * by - ay * bx], dim=-1)
+
+
+def length2(a: torch.Tensor) -> torch.Tensor:
+    return dot(a, a)
+
+
+def normalize(a: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
+    """Safe normalize: a * rsqrt(max(|a|^2, eps))."""
+    return a * torch.rsqrt(torch.clamp(length2(a), min=eps))[..., None]
+
+
+def refract(d, n, v_dot_n, eta):
+    """Refraction direction (src/Blinn.cpp:305-307); under total internal
+    reflection the sqrt clamps to 0, as the reference's max(0, .)."""
+    sqrt_part = torch.sqrt(torch.clamp(
+        1.0 - (eta * eta) * (1.0 - v_dot_n * v_dot_n), min=0.0))
+    t = eta[..., None] * d + n * (eta * v_dot_n - sqrt_part)[..., None]
+    return normalize(t)
+
+
+def fresnel(n1, n2, cos_theta_i):
+    """Full Fresnel reflectance, s-polarisation form (src/Material.h:47-54)."""
+    cos_theta_i = torch.clamp(cos_theta_i, 0.0, 1.0)
+    sin_theta_i = torch.sqrt(torch.clamp(1.0 - cos_theta_i * cos_theta_i,
+                                         min=0.0))
+    n1_cos = n1 * cos_theta_i
+    s = n1 * sin_theta_i / n2
+    n2_cos = n2 * torch.sqrt(torch.clamp(1.0 - s * s, min=0.0))
+    rs = (n1_cos - n2_cos) / torch.clamp(n1_cos + n2_cos, min=1e-12)
+    return rs * rs
+
+
+def schlick_fresnel(n1, n2, cos_theta_i):
+    """Schlick approximation with TIR handling (src/Material.h:55-67)."""
+    r0 = (n1 - n2) / (n1 + n2)
+    r0 = r0 * r0
+    n = n1 / n2
+    sin_t2 = n * n * (1.0 - cos_theta_i * cos_theta_i)
+    tir = (n1 > n2) & (sin_t2 > 1.0)
+    cos_x = torch.where(n1 > n2, torch.sqrt(torch.clamp(1.0 - sin_t2, min=0.0)),
+                        cos_theta_i)
+    x = 1.0 - cos_x
+    out = r0 + (1.0 - r0) * x * x * x * x * x
+    return torch.where(tir, torch.ones_like(out), out)
+
+
+def build_onb(n: torch.Tensor):
+    """Orthonormal basis (u, v) around n (src/Material.cpp:26-27)."""
+    pick_y = n[..., 0:1].abs() > 0.1
+    ey = n.new_tensor([0.0, 1.0, 0.0])
+    ex = n.new_tensor([1.0, 0.0, 0.0])
+    a = torch.where(pick_y, ey, ex)
+    u = normalize(cross(a.expand_as(n), n))
+    v = cross(n, u)
+    return u, v
+
+
+def cosine_sample(n, e1, e2):
+    """Cosine-distributed hemisphere sample around n, with the reference's
+    e2 <= 0.99 clamp (src/Material.cpp:14-42)."""
+    e2 = torch.clamp(e2, max=0.99)
+    u, v = build_onb(n)
+    phi = 2.0 * PI * e1
+    se2 = torch.sqrt(e2)
+    s1e2 = torch.sqrt(1.0 - e2)
+    out = (torch.cos(phi) * se2)[..., None] * u \
+        + (torch.sin(phi) * se2)[..., None] * v + s1e2[..., None] * n
+    return normalize(out)
+
+
+def linear_to_gamma_f(c: torch.Tensor) -> torch.Tensor:
+    """Image::linear_to_gammaF with its 15-bit input quantisation."""
+    idx = torch.floor(torch.clamp(c, 0.0, 1.0) * 32767.0)
+    return torch.pow(idx / 32768.0, 1.0 / GAMMA) * 255.0 + 0.5
+
+
+def tone_map_u8(c: torch.Tensor) -> torch.Tensor:
+    """Linear radiance -> 8-bit gamma pixels (Image::Map, src/Image.cpp:71-76)."""
+    linear = torch.floor(torch.clamp(torch.clamp(c, min=0.0) * 32768.0,
+                                     max=32768.0))
+    g = torch.pow(linear / 32768.0, 1.0 / GAMMA) * 255.0 + 0.5
+    return torch.floor(g).to(torch.uint8)

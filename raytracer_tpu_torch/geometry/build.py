@@ -1,0 +1,207 @@
+"""Host-side scene assembly: meshes, materials and lights -> Scene.
+
+Port of raytracer_tpu/geometry/build.py for single-level, textureless
+scenes: the same method names and defaults, the same array layout, and the
+same cluster table. Everything here is numpy until `build` wraps the arrays
+as CPU tensors; move the scene with `scene.to(device)`. Not built: the BVH
+(ROADMAP queue 1 #9) and the edge table (queue 1 #13), which this package's
+render path does not read; textures, motion blur and instancing raise.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core import types as T
+from ..io.objload import MeshData, compute_tangents
+from . import clusters as cl_mod
+
+
+class SceneBuilder:
+    def __init__(self):
+        self._verts: list[np.ndarray] = []
+        self._norms: list[np.ndarray] = []
+        self._uvs: list[np.ndarray] = [np.zeros((1, 2), np.float32)]
+        self._tans: list[np.ndarray] = []
+        self._bitans: list[np.ndarray] = []
+        self._face_v: list[np.ndarray] = []
+        self._face_n: list[np.ndarray] = []
+        self._face_t: list[np.ndarray] = []
+        self._face_mat: list[np.ndarray] = []
+        self._face_has_uv: list[np.ndarray] = []
+        self._nv = 0
+        self._nn = 0
+        self._nt = 1  # slot 0 is a zero uv
+        self._ntri = 0
+        self._mats: list[dict] = []
+        self._point_lights: list[dict] = []
+        self._rect_lights: list[dict] = []
+        self._bg = np.zeros(3, np.float32)
+
+    # ---------------------------------------------------------- materials
+    def _add_material(self, kind, kd, ka, ks, ior, spec_exp, spec_amt,
+                      reflect_amt, refract_amt, spec_gloss, translucency,
+                      emitted_power, le, disperse, sample_env, env_exposure,
+                      tex_ids) -> int:
+        if any(t >= 0 for t in tex_ids):
+            raise NotImplementedError(
+                'texture maps in SceneBuilder: ROADMAP queue 1 #9')
+
+        def v3(x):
+            return np.broadcast_to(np.asarray(x, np.float32), (3,)).copy()
+        ior = np.asarray(ior, np.float32)
+        if ior.ndim == 0:
+            ior = np.repeat(ior[None], 3)
+        self._mats.append(dict(
+            kind=kind, kd=v3(kd), ka=v3(ka), ks=v3(ks), ior=ior,
+            spec_exp=spec_exp, spec_amt=spec_amt, reflect_amt=reflect_amt,
+            refract_amt=refract_amt, spec_gloss=spec_gloss,
+            translucency=translucency, emitted_power=emitted_power, le=v3(le),
+            disperse=disperse, sample_env=sample_env,
+            env_exposure=env_exposure, tex_color=-1, tex_normal=-1,
+            tex_spec=-1, tex_reflect=-1, tex_refract=-1, tex_env=-1))
+        return len(self._mats) - 1
+
+    def add_lambert(self, kd=(1, 1, 1), ka=(0, 0, 0), tex_color=-1) -> int:
+        return self._add_material(T.MAT_LAMBERT, kd, ka, (0, 0, 0), 1.0, 1.0,
+                                  0.0, 0.0, 0.0, 1.0, 0.0, 0.0, (0, 0, 0),
+                                  False, True, 1.0, (tex_color,))
+
+    def add_blinn(self, kd=(1, 1, 1), ka=(0, 0, 0), ks=(1, 1, 1), kt=(0, 0, 0),
+                  ior=1.5, spec_exp=1.0, spec_amt=0.0, reflect_amt=0.0,
+                  refract_amt=0.0, spec_gloss=1.0, translucency=0.0,
+                  emitted_power=0.0, le=(0, 0, 0), disperse=False,
+                  sample_env=True, env_exposure=1.0, tex_color=-1,
+                  tex_alpha=-1, tex_normal=-1, tex_spec=-1, tex_reflect=-1,
+                  tex_refract=-1, tex_env=-1) -> int:
+        """Defaults mirror the Blinn ctor (src/Blinn.cpp:15-33); `kt` is
+        accepted for the same signature and, as in the reference, unused."""
+        return self._add_material(
+            T.MAT_BLINN, kd, ka, ks, ior, spec_exp, spec_amt, reflect_amt,
+            refract_amt, spec_gloss, translucency, emitted_power, le,
+            disperse, sample_env, env_exposure,
+            (tex_color, tex_alpha, tex_normal, tex_spec, tex_reflect,
+             tex_refract, tex_env))
+
+    # ----------------------------------------------------------- geometry
+    def add_mesh(self, mesh: MeshData, material: int | np.ndarray,
+                 mesh_t1: MeshData | None = None) -> None:
+        """Append a mesh to the static world."""
+        if mesh_t1 is not None:
+            raise NotImplementedError('motion blur: ROADMAP queue 1 #11')
+        if mesh.tangents is None:
+            compute_tangents(mesh)
+        ntri = mesh.num_tris
+        self._verts.append(mesh.vertices)
+        self._norms.append(mesh.normals)
+        self._tans.append(mesh.tangents)
+        self._bitans.append(mesh.bitangents)
+        self._face_v.append(mesh.face_v + self._nv)
+        self._face_n.append(mesh.face_n + self._nn)
+        if mesh.texcoords is not None:
+            self._uvs.append(mesh.texcoords)
+            self._face_t.append(mesh.face_t + self._nt)
+            self._face_has_uv.append(np.ones(ntri, bool))
+            self._nt += len(mesh.texcoords)
+        else:
+            self._face_t.append(np.zeros((ntri, 3), np.int32))
+            self._face_has_uv.append(np.zeros(ntri, bool))
+        mat = np.asarray(material, np.int32)
+        self._face_mat.append(np.broadcast_to(mat, (ntri,)).copy())
+        self._nv += len(mesh.vertices)
+        self._nn += len(mesh.normals)
+        self._ntri += ntri
+
+    # -------------------------------------------------------------- lights
+    def add_point_light(self, position, power, color=(1, 1, 1),
+                        cast_shadows=True, fast_shadows=True) -> None:
+        self._point_lights.append(dict(
+            position=np.asarray(position, np.float32), power=float(power),
+            color=np.asarray(color, np.float32), cast_shadows=cast_shadows,
+            fast_shadows=fast_shadows))
+
+    def add_rect_light(self, v1, v2, v3, power, color=(1, 1, 1),
+                       num_samples=1, cast_shadows=True,
+                       fast_shadows=True) -> None:
+        self._rect_lights.append(dict(
+            v1=np.asarray(v1, np.float32), v2=np.asarray(v2, np.float32),
+            v3=np.asarray(v3, np.float32), power=float(power),
+            color=np.asarray(color, np.float32), num_samples=int(num_samples),
+            cast_shadows=cast_shadows, fast_shadows=fast_shadows))
+
+    def set_bg_color(self, color) -> None:
+        self._bg = np.asarray(color, np.float32)
+
+    # --------------------------------------------------------------- build
+    def build(self, bvh: bool = False) -> T.Scene:
+        """Assemble the scene (on the CPU) with its cluster table."""
+        if bvh:
+            raise NotImplementedError('BVH build: ROADMAP queue 1 #9')
+        assert self._ntri > 0, 'empty scene'
+        t = torch.from_numpy
+        cat = lambda xs, dt: t(np.concatenate(xs).astype(dt))
+        face_v = np.concatenate(self._face_v).astype(np.int32)
+        geom = T.Geometry(
+            vertices=cat(self._verts, np.float32),
+            normals=cat(self._norms, np.float32),
+            texcoords=cat(self._uvs, np.float32),
+            tangents=cat(self._tans, np.float32),
+            bitangents=cat(self._bitans, np.float32),
+            face_v=t(face_v),
+            face_n=cat(self._face_n, np.int32),
+            face_t=cat(self._face_t, np.int32),
+            face_mat=cat(self._face_mat, np.int32),
+            face_has_uv=cat(self._face_has_uv, bool))
+
+        if not self._mats:
+            self.add_lambert()
+        mats = self._mats
+
+        def col(key, dtype=np.float32):
+            return t(np.asarray([m[key] for m in mats], dtype))
+
+        materials = T.Materials(
+            kind=col('kind', np.int32), kd=col('kd'), ka=col('ka'),
+            ks=col('ks'), ior=col('ior'), spec_exp=col('spec_exp'),
+            spec_amt=col('spec_amt'), reflect_amt=col('reflect_amt'),
+            refract_amt=col('refract_amt'), spec_gloss=col('spec_gloss'),
+            translucency=col('translucency'),
+            emitted_power=col('emitted_power'), le=col('le'),
+            disperse=col('disperse', bool), sample_env=col('sample_env', bool),
+            env_exposure=col('env_exposure'),
+            **{k: col(k, np.int32) for k in (
+                'tex_color', 'tex_normal', 'tex_spec', 'tex_reflect',
+                'tex_refract', 'tex_env')})
+
+        # an EMPTY pool: every texture lookup short-circuits statically
+        empty_i = torch.zeros(0, dtype=torch.int32)
+        textures = T.TexturePack(data=torch.zeros(0), offset=empty_i,
+                                 width=empty_i, height=empty_i,
+                                 channels=empty_i)
+
+        def rows(ls, key, width=None):
+            a = np.asarray([l[key] for l in ls], np.float32)
+            return t(a.reshape(-1, width) if width else a)
+
+        pls = self._point_lights
+        point_lights = T.PointLights(
+            position=rows(pls, 'position', 3), power=rows(pls, 'power'),
+            color=rows(pls, 'color', 3),
+            cast_shadows=tuple(bool(l['cast_shadows']) for l in pls),
+            fast_shadows=tuple(bool(l['fast_shadows']) for l in pls))
+        rls = self._rect_lights
+        rect_lights = T.RectLights(
+            v1=rows(rls, 'v1', 3), v2=rows(rls, 'v2', 3),
+            v3=rows(rls, 'v3', 3), power=rows(rls, 'power'),
+            color=rows(rls, 'color', 3),
+            cast_shadows=tuple(bool(l['cast_shadows']) for l in rls),
+            fast_shadows=tuple(bool(l['fast_shadows']) for l in rls),
+            num_samples=max([l['num_samples'] for l in rls], default=1))
+
+        return T.Scene(
+            geom=geom, materials=materials, textures=textures,
+            point_lights=point_lights, rect_lights=rect_lights,
+            env_exposure=torch.tensor(1.0), bg_color=t(self._bg.copy()),
+            clusters=cl_mod.build_clusters(geom),
+            has_dispersion=bool(materials.disperse.any()),
+            has_translucency=bool((materials.translucency > 0.01).any()))

@@ -1,0 +1,103 @@
+"""The native cluster-table builder, loaded with ctypes.
+
+Compiles raytracer_tpu/native/rt_native.cpp (a framework-free C ABI) with
+g++ into this package's git-ignored build directory on first use, and binds
+`rt_build_clusters` only. The JAX package's own loader is not imported: its
+package __init__ pulls in jax. A failed build raises; there is no fallback.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import tempfile
+import threading
+
+import numpy as np
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC = os.path.join(os.path.dirname(_PKG), 'raytracer_tpu', 'native',
+                   'rt_native.cpp')
+BUILD_DIR = os.path.join(_PKG, '_build')
+_FLAGS = ['-O3', '-shared', '-fPIC', '-std=c++17']
+_lock = threading.Lock()
+_lib = None
+
+
+def build_shared(cmd_prefix: list[str], src: str, flags: list[str],
+                 name: str) -> str:
+    """Compile `src` into BUILD_DIR/<name>-<hash>.so unless that file exists.
+
+    The hash covers the source and the flags, so an edit rebuilds. The
+    output is written under a temporary name and renamed into place, so
+    processes that build at once never load a half-written library."""
+    with open(src, 'rb') as f:
+        digest = hashlib.sha1(f.read() + ' '.join(flags).encode())
+    out = os.path.join(BUILD_DIR, f'{name}-{digest.hexdigest()[:12]}.so')
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        res = subprocess.run(cmd_prefix + flags + [src, '-o', tmp],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f'building {src} failed:\n{res.stderr}')
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return out
+
+
+def get_lib() -> ctypes.CDLL:
+    """Load the native library, building it first if needed."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build_shared(['g++'], SRC, _FLAGS, 'rt_native'))
+            fp = np.ctypeslib.ndpointer
+            f32 = fp(np.float32, flags='C')
+            lib.rt_build_clusters.restype = ctypes.c_int64
+            lib.rt_build_clusters.argtypes = [
+                f32, f32, fp(np.int32, flags='C'), fp(np.int64, flags='C'),
+                ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, ctypes.c_int64,
+                f32, f32, f32, f32, f32, f32, f32, f32,
+                fp(np.int32, flags='C')]
+            _lib = lib
+    return _lib
+
+
+def build_clusters_native(verts: np.ndarray, faces: np.ndarray,
+                          tri_ids: np.ndarray, cluster_size: int):
+    """Binned-SAH cluster build of static triangles (leaf = cluster_size).
+
+    Returns (bb_min, bb_max, p0, e1, e2, tri) with one row per cluster."""
+    lib = get_lib()
+    n = len(tri_ids)
+    C = cluster_size
+    va = np.ascontiguousarray(verts, np.float32).reshape(-1)
+    fa = np.ascontiguousarray(faces, np.int32).reshape(-1)
+    ta = np.ascontiguousarray(tri_ids, np.int64)
+    # SAH leaves average well above C/4 triangles; grow on overflow
+    cap = max(8 * ((n + C - 1) // C) + 8, 8)
+    dummy = np.empty((1, 3, C), np.float32)   # t=1 pose, unused when static
+    while True:
+        bb_min = np.empty((cap, 3), np.float32)
+        bb_max = np.empty((cap, 3), np.float32)
+        p0 = np.empty((cap, 3, C), np.float32)
+        e1 = np.empty((cap, 3, C), np.float32)
+        e2 = np.empty((cap, 3, C), np.float32)
+        tri = np.empty((cap, C), np.int32)
+        m = lib.rt_build_clusters(
+            va, va, fa, ta, n, C, 0, cap, bb_min.reshape(-1),
+            bb_max.reshape(-1), p0.reshape(-1), e1.reshape(-1),
+            e2.reshape(-1), dummy.reshape(-1), dummy.reshape(-1),
+            dummy.reshape(-1), tri.reshape(-1))
+        if m >= 0:
+            return bb_min[:m], bb_max[:m], p0[:m], e1[:m], e2[:m], tri[:m]
+        if cap >= n + 8:
+            raise RuntimeError('rt_build_clusters overflowed its table')
+        cap = min(cap * 4, n + 8)

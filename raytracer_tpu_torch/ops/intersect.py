@@ -1,0 +1,114 @@
+"""Ray-triangle intersection, the brute-force tracer and the differentiable
+hit refinement.
+
+Port of raytracer_tpu/ops/intersect.py. Tracers return integer ids and
+detached floats; `refine_hit` recomputes (t, a, b) of the selected
+triangle so that gradients reach the vertices, with the forward values
+pinned to the tracer's.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from ..core import vecmath as vm
+from ..core.types import Scene
+from ..core.vecmath import MIRO_TMAX
+
+
+@dataclass
+class Hit:
+    t: torch.Tensor      # (R,) f32, MIRO_TMAX on a miss
+    tri: torch.Tensor    # (R,) i32, -1 on a miss
+    inst: torch.Tensor   # (R,) i32, 0 for single-level scenes
+    a: torch.Tensor      # (R,) f32 barycentric (v1 weight)
+    b: torch.Tensor      # (R,) f32 barycentric (v2 weight)
+
+    @property
+    def valid(self) -> torch.Tensor:
+        return self.tri >= 0
+
+
+def mt_intersect(o, d, p0, p1, p2):
+    """Batched Moller-Trumbore (src/Object.cpp:109-147) -> (t, a, b, ok);
+    ok holds the barycentric tests only, callers apply the t range."""
+    e0 = p1 - p0
+    e1 = p2 - p0
+    pvec = vm.cross(d, e1)
+    det = vm.dot(e0, pvec)
+    inv_det = 1.0 / det
+    tvec = o - p0
+    a = vm.dot(tvec, pvec) * inv_det
+    qvec = vm.cross(tvec, e0)
+    b = vm.dot(d, qvec) * inv_det
+    t = vm.dot(e1, qvec) * inv_det
+    ok = (a >= 0.0) & (a <= 1.0) & (b >= 0.0) & (a + b <= 1.0) & (det != 0.0)
+    return t, a, b, ok
+
+
+def gather_tri_verts(scene: Scene, tri, time=None):
+    """Triangle corners -> (..., 3, 3) [corner, xyz]. `time` will lerp the
+    motion-blur pose (ROADMAP queue 1 #11); scenes here are static."""
+    return scene.geom.vertices[scene.geom.face_v[tri].long()]
+
+
+def ray_inputs(o, time, tmin, tmax):
+    """Broadcast time, tmin and tmax (scalars or (R,)) to (R,) contiguous
+    float32 tensors on o's device, detached."""
+    R = o.shape[0]
+
+    def per_ray(x):
+        x = torch.as_tensor(x, dtype=torch.float32, device=o.device)
+        return x.detach().expand(R).contiguous()
+    return per_ray(time), per_ray(tmin), per_ray(tmax)
+
+
+def brute_force_trace(scene: Scene, o, d, time, tmin, tmax,
+                      any_hit: bool = False, chunk: int = 256) -> Hit:
+    """Every ray against every triangle, in triangle chunks (the test
+    oracle; src/BVH.cpp:1114-1126). Nearest hit, ties to the lowest id."""
+    R = o.shape[0]
+    Tn = scene.num_tris
+    o, d = o.detach(), d.detach()
+    _, tmin, tmax = ray_inputs(o, time, tmin, tmax)
+    best_t = torch.clamp(tmax, max=MIRO_TMAX)
+    best_tri = torch.full((R,), -1, dtype=torch.int32, device=o.device)
+    best_a = torch.zeros(R, device=o.device)
+    best_b = torch.zeros(R, device=o.device)
+    for c0 in range(0, Tn, chunk):
+        tid = torch.arange(c0, min(c0 + chunk, Tn), device=o.device)
+        p = gather_tri_verts(scene, tid).detach()             # (C, 3, 3)
+        t, a, b, ok = mt_intersect(o[:, None], d[:, None], p[None, :, 0],
+                                   p[None, :, 1], p[None, :, 2])
+        ok = ok & (t >= tmin[:, None]) & (t < best_t[:, None]) \
+            & (t < tmax[:, None])
+        t = torch.where(ok, t, torch.inf)
+        tk, k = torch.min(t, dim=-1)     # first index among equal minima
+        found = torch.isfinite(tk)
+        rows = torch.arange(R, device=o.device)
+        best_tri = torch.where(found, tid[k].to(torch.int32), best_tri)
+        best_a = torch.where(found, a[rows, k], best_a)
+        best_b = torch.where(found, b[rows, k], best_b)
+        best_t = torch.where(found, tk, best_t)
+    t = torch.where(best_tri >= 0, best_t, torch.full_like(best_t, MIRO_TMAX))
+    return Hit(t=t, tri=best_tri, inst=torch.zeros_like(best_tri),
+               a=best_a, b=best_b)
+
+
+def refine_hit(scene: Scene, o, d, time, hit: Hit):
+    """Differentiable (t, a, b) for the selected triangle.
+
+    The forward values are pinned to the tracer's (recomputing t at a
+    grazing triangle could move the shading point inside the surface);
+    gradients flow through the recomputation."""
+    tri = torch.clamp(hit.tri, min=0)
+    p = gather_tri_verts(scene, tri, time)
+    t, a, b, _ = mt_intersect(o, d, p[..., 0, :], p[..., 1, :], p[..., 2, :])
+    t = hit.t + (t - t.detach())
+    a = hit.a + (a - a.detach())
+    b = hit.b + (b - b.detach())
+    v = hit.valid
+    return (torch.where(v, t, torch.full_like(t, MIRO_TMAX)),
+            torch.where(v, a, torch.zeros_like(a)),
+            torch.where(v, b, torch.zeros_like(b)))

@@ -1,0 +1,412 @@
+"""Wavefront path-tracing integrator.
+
+Port of raytracer_tpu/render/integrator.py: a masked bounce loop in which
+every live ray carries its throughput, Russian roulette splits the Blinn
+diffuse and specular branches as the reference samples them
+(src/Blinn.cpp:91-336), NEE samples the lights at every diffuse vertex and
+one continuation ray (diffuse GI, reflection or refraction) is spawned per
+step. The RNG keys, splits and draws are the JAX package's, so one key
+renders the same image on both. The loop stops early once every ray has
+terminated (the JAX package's lax.cond step skip).
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core import rng
+from ..core import vecmath as vm
+from ..core.types import Scene, RenderSettings, MAT_LAMBERT
+from ..core.vecmath import EPSILON, MIRO_TMAX
+from ..ops import intersect as isect
+from ..ops.cuda import cluster_kernel as ck
+from ..shading import textures as tex
+from ..shading import lights as lt
+
+IOR_STACK = 12  # the reference's IORList depth (src/Ray.h:151-178)
+KIND_PRIMARY, KIND_GI, KIND_REFLECT, KIND_REFRACT = 0, 1, 2, 3
+
+
+def _take(x, idx):
+    return x[idx.long()]
+
+
+def _bary(vals, c, a, b):
+    """Barycentric blend of per-corner values (..., 3, k), in a fixed sum
+    order (corner 0, then 1, then 2)."""
+    return (vals[..., 0, :] * c[..., None] + vals[..., 1, :] * a[..., None]) \
+        + vals[..., 2, :] * b[..., None]
+
+
+def hit_attributes(scene: Scene, tri, a, b):
+    """Interpolated shading attributes at a hit (HitInfo::getAllInfos,
+    src/Ray.cpp:5-49) -> (N, geoN, T, BT, u, v)."""
+    g = scene.geom
+    c = 1.0 - a - b
+    fn = _take(g.face_n, tri).long()
+    N = vm.normalize(_bary(g.normals[fn], c, a, b))
+    p = g.vertices[_take(g.face_v, tri).long()]              # (R,3,3)
+    geoN = vm.normalize(vm.cross(p[..., 1, :] - p[..., 0, :],
+                                 p[..., 2, :] - p[..., 0, :]))
+    has_uv = _take(g.face_has_uv, tri)
+    uvw = _bary(g.texcoords[_take(g.face_t, tri).long()], c, a, b)
+    u = torch.where(has_uv, uvw[..., 0], a)
+    v = torch.where(has_uv, uvw[..., 1], b)
+    T = vm.normalize(_bary(g.tangents[fn], c, a, b))
+    BT = vm.normalize(_bary(g.bitangents[fn], c, a, b))
+    T = torch.where(has_uv[..., None], T, 0.0)
+    BT = torch.where(has_uv[..., None], BT, 0.0)
+    return N, geoN, T, BT, u, v
+
+
+def _scene_env_deferred(scene: Scene, batch, d):
+    """The primary-miss background (src/Scene.cpp:236-241) via a TexBatch
+    -> thunk to call after batch.run()."""
+    if scene.env_tex >= 0:
+        u, v = tex.env_uv(d)
+        tid = torch.full(u.shape, scene.env_tex, dtype=torch.int32,
+                         device=u.device)
+        i = batch.add(tid, u, v)
+        return lambda: batch.get(i)[..., :3] * scene.env_exposure
+    return lambda: scene.bg_color.expand(d.shape)
+
+
+def _material_env_deferred(scene: Scene, batch, mat, d):
+    """Material::getEnvironmentColor (src/Material.cpp:44-64) via a
+    TexBatch: per-material env map, else scene env, else background."""
+    base_f = _scene_env_deferred(scene, batch, d)
+    if not scene.has_material_env:
+        return base_f
+    tid = scene.materials.tex_env[mat]
+    u, v = tex.env_uv(d)
+    i = batch.add(tid, u, v)
+
+    def thunk():
+        mat_env = batch.get(i)[..., :3] \
+            * scene.materials.env_exposure[mat][..., None]
+        return torch.where((tid >= 0)[..., None], mat_env, base_f())
+    return thunk
+
+
+def _ior_top(stack, sp):
+    return torch.gather(stack, -1, sp[..., None].long())[..., 0]
+
+
+def _ior_push(stack, sp, value):
+    sp2 = torch.clamp(sp + 1, max=IOR_STACK - 1)
+    onehot = torch.nn.functional.one_hot(sp2.long(), IOR_STACK).to(stack.dtype)
+    return stack * (1.0 - onehot) + value[..., None] * onehot, sp2
+
+
+def _sort_wavefront(state: dict) -> dict:
+    """Permute the wavefront so ray blocks stay coherent: dead rays to the
+    back, then direction octant, then a 12-bit Morton code of the origin in
+    the live rays' bounding box. Stable, as jnp.argsort: the permutation
+    decides which RNG slot each ray draws from."""
+    o, d, alive = state['o'].detach(), state['d'].detach(), state['alive']
+    octant = ((d[:, 0] > 0).to(torch.int32)
+              | ((d[:, 1] > 0).to(torch.int32) << 1)
+              | ((d[:, 2] > 0).to(torch.int32) << 2))
+    lo = torch.where(alive[:, None], o, torch.inf).amin(dim=0)
+    hi = torch.where(alive[:, None], o, -torch.inf).amax(dim=0)
+    q = torch.clamp((o - lo) / torch.clamp(hi - lo, min=1e-6) * 15.0,
+                    0.0, 15.0).to(torch.int32)
+    morton = torch.zeros_like(q[:, 0])
+    for bit in range(4):
+        for ax in range(3):
+            morton = morton | (((q[:, ax] >> bit) & 1) << (3 * bit + ax))
+    key = ((~alive).to(torch.int32) << 20) | (octant << 12) | morton
+    perm = torch.argsort(key, stable=True)
+    return {k: v[perm] for k, v in state.items()}
+
+
+def trace_fn(scene: Scene, settings: RenderSettings):
+    """Select the intersector -> tracer(o, d, time, tmin, tmax, any_hit).
+
+    'auto' traces through scene.clusters: the CUDA kernel for CUDA
+    tensors, the plain PyTorch version for CPU tensors. 'brute' is the
+    brute-force oracle."""
+    mode = settings.intersector
+    if mode == 'auto':
+        if scene.clusters is None:
+            raise ValueError('the scene carries no cluster table')
+        return lambda o, d, time, tmin, tmax, any_hit: ck.cluster_trace(
+            scene, o, d, time, tmin, tmax, any_hit)
+    if mode == 'brute':
+        return lambda o, d, time, tmin, tmax, any_hit: \
+            isect.brute_force_trace(scene, o, d, time, tmin, tmax, any_hit)
+    raise NotImplementedError(
+        f"intersector {mode!r}: 'bvh' and 'cluster2' come with ROADMAP queue "
+        f"1 #12, 'pallas' with queue 2 #5, 'ring' with queue 1 #14 (the "
+        f"JAX package's XLA 'cluster' tracer is not ported)")
+
+
+def radiance(scene: Scene, settings: RenderSettings, o, d, time,
+             base_key: rng.Key):
+    """Radiance of a wavefront of camera rays -> (R, 3); one sample per
+    ray. (The JAX package's mid-path restart arguments serve diff/edges,
+    ROADMAP queue 1 #13.)"""
+    R = o.shape[0]
+    dev = o.device
+    f32 = o.dtype
+    tracer = trace_fn(scene, settings)
+    zi = torch.zeros(R, dtype=torch.int32, device=dev)
+    ior_stack = torch.zeros((R, IOR_STACK), dtype=f32, device=dev)
+    ior_stack[:, 0] = 1.0
+    ior_stack[:, 1] += 1.001
+    state = dict(
+        o=o, d=d,
+        tp=torch.ones((R, 3), dtype=f32, device=dev),
+        L=torch.zeros((R, 3), dtype=f32, device=dev),
+        alive=torch.ones(R, dtype=torch.bool, device=dev),
+        kind=zi + KIND_PRIMARY,
+        bounces=zi,
+        gi_bounces=zi,
+        ior_stack=ior_stack,
+        ior_sp=zi + 1,
+        prev_mat=zi,
+        time=torch.as_tensor(time, dtype=f32, device=dev).expand(R).clone(),
+        pix=torch.arange(R, dtype=torch.int32, device=dev),
+    )
+
+    for step_idx in range(settings.max_wavefront_steps):
+        if not bool(state['alive'].any()):
+            break
+        state = _step(scene, settings, tracer, state, step_idx, base_key)
+    if settings.sort_rays:
+        # scatter radiance back to the original ray order
+        out = torch.zeros_like(state['L'])
+        out[state['pix'].long()] = state['L']
+        return out
+    return state['L']
+
+
+def _step(scene: Scene, settings: RenderSettings, tracer, state, step_idx,
+          base_key):
+    """One bounce of the whole wavefront (the JAX package's scan body)."""
+    R = state['o'].shape[0]
+    dev = state['o'].device
+    f32 = state['o'].dtype
+    mats = scene.materials
+    key = rng.fold_in(base_key, step_idx)
+    k_rr, k_gl, k_gi, k_disp, k_l1, k_l2 = rng.split(key, 6)
+    rnd = rng.uniform(k_rr, (R, 3), dev)        # rr1, rr2, disp
+    rnd_gl = rng.uniform(k_gl, (R, 2), dev)     # glossy
+    rnd_gi = rng.uniform(k_gi, (R, 2), dev)     # GI cosine
+
+    o, d, tp, L, alive = (state['o'], state['d'], state['tp'], state['L'],
+                          state['alive'])
+    kind = state['kind']
+    time = state['time']
+    # dead lanes trace with tmax < 0, which every tracer culls at once
+    tmax_live = torch.where(alive, MIRO_TMAX, -1.0).to(f32)
+    hit = tracer(o, d, time, EPSILON, tmax_live, False)
+    found = hit.valid & alive
+    t, a, b = isect.refine_hit(scene, o, d, time, hit)
+
+    tri = torch.clamp(hit.tri, min=0)
+    mat = _take(scene.geom.face_mat, tri).long()
+    N, geoN, T, BT, u, v = hit_attributes(scene, tri, a, b)
+    P = o + t[:, None] * d
+    view = -d
+
+    # all of this bounce's texture reads go through one pool gather
+    mats_tex = (mats.tex_color[mat], mats.tex_normal[mat], mats.tex_spec[mat],
+                mats.tex_reflect[mat], mats.tex_refract[mat])
+    tc, tn, ts_, tr_, tf_ = mats_tex
+    tb = tex.TexBatch(scene.textures)
+    i_surf = [tb.add(tid, u, v) for tid in mats_tex]
+    prev_mat = state['prev_mat'].long()
+    env_mat_f = _material_env_deferred(scene, tb, prev_mat, d)
+    env_scene_f = _scene_env_deferred(scene, tb, d)
+    tb.run()
+
+    # ---------------------------------------------------------- miss paths
+    miss = alive & ~hit.valid
+    env_mat = env_mat_f()
+    env_scene = env_scene_f()
+    gi_ok = mats.sample_env[prev_mat] & (scene.env_tex >= 0)
+    env_out = torch.where((kind == KIND_PRIMARY)[:, None], env_scene, env_mat)
+    add_env = miss & ((kind != KIND_GI) | gi_ok)
+    L = L + torch.where(add_env[:, None], tp * env_out, 0.0)
+
+    # ----------------------------------------------------------- hit shading
+    kd = mats.kd[mat]
+    ka = mats.ka[mat]
+    ks = mats.ks[mat]
+    le = mats.le[mat]
+    spec_exp = mats.spec_exp[mat]
+    spec_amt = mats.spec_amt[mat]
+    reflect_amt0 = mats.reflect_amt[mat]
+    refract_amt0 = mats.refract_amt[mat]
+    spec_gloss = mats.spec_gloss[mat]
+    is_lambert = mats.kind[mat] == MAT_LAMBERT
+
+    # texture modulation (src/Blinn.cpp:114-142)
+    texcol = tb.get(i_surf[0])[..., :3]
+    diffuse = torch.where((tc >= 0)[:, None], texcol, kd)
+    texn = tb.get(i_surf[1])[..., :3]
+    N_mapped = texn[:, 0:1] * T + texn[:, 1:2] * BT + texn[:, 2:3] * N
+    N = torch.where((tn >= 0)[:, None], N_mapped, N)  # unnormalised, as ref
+    texs = tb.get(i_surf[2])[..., :3].mean(-1)
+    spec_amt = torch.where(ts_ >= 0, texs * spec_amt, spec_amt)
+    texr = tb.get(i_surf[3])[..., :3].mean(-1)
+    reflect_amt = torch.where(tr_ >= 0, texr * reflect_amt0, reflect_amt0)
+    texf = tb.get(i_surf[4])[..., :3].mean(-1)
+    refract_amt = torch.where(tf_ >= 0, texf * refract_amt0, refract_amt0)
+
+    # normal disambiguation + backface flip (src/Blinn.cpp:144-155)
+    v_dot_n = vm.dot(view, N)
+    v_dot_geo = vm.dot(view, geoN)
+    n_eq = v_dot_n * v_dot_geo >= 0.0
+    the_n = torch.where(n_eq[:, None], N, geoN)
+    v_dot = torch.where(n_eq, v_dot_n, v_dot_geo)
+    flip = v_dot < 0.0
+    v_dot = v_dot.abs()
+    the_n = torch.where(flip[:, None], -the_n, the_n)
+    # Lambert uses the raw interpolated normal (src/Lambert.cpp:30,45)
+    the_n = torch.where(is_lambert[:, None], N, the_n)
+
+    rvec = d + 2.0 * v_dot[:, None] * the_n
+    # glossy reflections perturb rVec (src/Blinn.cpp:160-165)
+    rand_d = vm.cosine_sample(the_n, rnd_gl[:, 0], rnd_gl[:, 1])
+    rvec_gl = vm.normalize(spec_gloss[:, None] * rvec
+                           + (1.0 - spec_gloss)[:, None] * rand_d)
+    rvec = torch.where((spec_gloss < 1.0)[:, None], rvec_gl, rvec)
+
+    # IOR bookkeeping (src/Blinn.cpp:167-185)
+    ior_stack, ior_sp = state['ior_stack'], state['ior_sp']
+    in_ior = _ior_top(ior_stack, ior_sp)
+    mat_ior = mats.ior[mat]                                # (R,3)
+    if scene.has_dispersion:
+        dispersing = mats.disperse[mat] & (kind != KIND_REFRACT)
+    else:
+        dispersing = torch.zeros(R, dtype=torch.bool, device=dev)
+    # non-dispersing backface: pop (leaving the medium)
+    do_pop = (~dispersing) & flip & found & (~is_lambert)
+    ior_sp = torch.where(do_pop, torch.clamp(ior_sp - 1, min=0), ior_sp)
+    popped_ior = _ior_top(ior_stack, ior_sp)
+    out_ior_scalar = torch.where(flip, popped_ior, mat_ior[:, 1])
+    out_ior = torch.where(dispersing[:, None], mat_ior,
+                          out_ior_scalar[:, None])
+
+    # Fresnel (src/Blinn.cpp:187-193) on channel 0 of out_ior
+    fres = vm.schlick_fresnel if settings.use_schlick else vm.fresnel
+    has_spec = (reflect_amt0 > 0.0) | (refract_amt0 > 0.0)
+    rs = torch.where(has_spec, fres(in_ior, out_ior[:, 0], v_dot), 0.0)
+    ts = torch.where(has_spec, 1.0 - rs, 0.0)
+
+    rr_weight = 1.0 - rs * reflect_amt - ts * refract_amt
+    rr_weight = torch.where(is_lambert, 1.0, rr_weight)
+    rr_recip = torch.where(rr_weight > 0.0, 1.0 / rr_weight, 1.0)
+    rr_recip_s = torch.where(1.0 - rr_weight > 0.0, 1.0 / (1.0 - rr_weight),
+                             1.0)
+    diffuse_branch = found & (rnd[:, 0] <= rr_weight)
+    spec_branch = found & ~diffuse_branch
+
+    # unconditional per-hit terms: Le, and ka scaled by rrRecip
+    L = L + torch.where(found[:, None], tp * (le + ka * rr_recip[:, None]),
+                        0.0)
+
+    # ------------------------------------------------ diffuse branch: NEE
+    # shadow rays only for lanes whose terms survive
+    lpw, specw3, lp_back = lt.sample_all_lights(
+        scene, tracer, P, the_n, rvec, spec_exp, time, k_l1, False,
+        settings, want_back=scene.has_translucency, active=diffuse_branch)
+
+    w_d = (tp * rr_recip[:, None]) * diffuse_branch[:, None]
+    spec_term = ks * spec_amt[:, None] * specw3
+    spec_term = torch.where(is_lambert[:, None], 0.0, spec_term)
+    L = L + w_d * (lpw * diffuse + spec_term)
+
+    # translucency (src/Blinn.cpp:223-236) from the same light samples
+    if scene.has_translucency:
+        transl = mats.translucency[mat]
+        L = L + w_d * transl[:, None] * lp_back * diffuse \
+            * (transl > 0.01)[:, None]
+
+    # ----------------------------------------- diffuse branch: GI bounce
+    gi_b = state['gi_bounces']
+    emitter = (mats.emitted_power[mat] > 0.0) | (le.sum(-1) > 0.0)
+    if settings.path_trace:
+        # emitter hit: the GI slot returns emittedPower*Le (src/Blinn.cpp:47-51)
+        L = L + torch.where((diffuse_branch & emitter)[:, None],
+                            w_d * mats.emitted_power[mat][:, None] * le, 0.0)
+        can_gi = diffuse_branch & ~emitter & ~is_lambert \
+            & (gi_b < settings.max_bounces - 1)
+        # last GI bounce: direct light only, reusing the NEE samples
+        last_gi = diffuse_branch & ~emitter & ~is_lambert \
+            & (gi_b >= settings.max_bounces - 1)
+        L = L + torch.where(last_gi[:, None], w_d * lpw * diffuse, 0.0)
+        gi_dir = vm.cosine_sample(the_n, rnd_gi[:, 0], rnd_gi[:, 1])
+    else:
+        can_gi = torch.zeros(R, dtype=torch.bool, device=dev)
+        gi_dir = d
+
+    # --------------------------------------------------- specular branch
+    bounces = state['bounces']
+    can_bounce = bounces < settings.spec_bounce_cap
+    refl_p = reflect_amt * rs
+    take_refl = spec_branch & (rnd[:, 1] < refl_p)
+    take_refr = spec_branch & ~take_refl & (refract_amt * ts > 0.0)
+
+    # dispersion channel RR (1/3 prob, 3x mask weight)
+    ch = torch.remainder(torch.floor(rnd[:, 2] * 3.0).to(torch.int32), 3)
+    ch_mask = torch.nn.functional.one_hot(ch.long(), 3).to(f32) * 3.0
+    disp_now = dispersing & take_refr
+    out_ior_ch = torch.gather(out_ior, -1, ch[:, None].long())[:, 0]
+    eta_nd = in_ior / out_ior[:, 0]
+    eta_d = in_ior / out_ior_ch
+    eta = torch.where(disp_now, eta_d, eta_nd)
+    tvec = vm.refract(d, the_n, v_dot, eta)
+
+    w_s = tp * (ks * rr_recip_s[:, None])
+    w_s = torch.where(disp_now[:, None], w_s * ch_mask, w_s)
+
+    # capped specular rays take the env color instead (src/Blinn.cpp:260-267)
+    tb2 = tex.TexBatch(scene.textures)
+    env_r_f = _material_env_deferred(scene, tb2, mat, rvec)
+    env_t_f = _material_env_deferred(scene, tb2, mat, tvec)
+    tb2.run()
+    env_r = env_r_f()
+    env_t = env_t_f()
+    L = L + torch.where((take_refl & ~can_bounce)[:, None], w_s * env_r, 0.0)
+    L = L + torch.where((take_refr & ~can_bounce)[:, None], w_s * env_t, 0.0)
+
+    spawn_refl = take_refl & can_bounce
+    spawn_refr = take_refr & can_bounce
+    spawn_spec = spawn_refl | spawn_refr
+    spawn = can_gi | spawn_spec
+
+    # push the IOR entered by refraction (src/Blinn.cpp:285,311)
+    push_val = torch.where(disp_now, out_ior_ch, out_ior[:, 0])
+    new_stack, new_sp = _ior_push(ior_stack, ior_sp, push_val)
+    ior_stack = torch.where(spawn_refr[:, None], new_stack, ior_stack)
+    ior_sp = torch.where(spawn_refr, new_sp, ior_sp)
+
+    new_d = torch.where(spawn_refl[:, None], rvec,
+                        torch.where(spawn_refr[:, None], tvec, gi_dir))
+    new_kind = torch.where(spawn_refl, KIND_REFLECT,
+                           torch.where(spawn_refr, KIND_REFRACT, KIND_GI))
+    new_tp = torch.where(spawn_spec[:, None], w_s,
+                         tp * rr_recip[:, None] * diffuse)
+    new_bounces = torch.where(spawn_spec, bounces + 1, bounces)
+    new_gi = torch.where(can_gi, gi_b + 1, gi_b)
+
+    state = dict(
+        o=torch.where(spawn[:, None], P, o),
+        d=torch.where(spawn[:, None], new_d, d),
+        tp=torch.where(spawn[:, None], new_tp, tp),
+        L=L,
+        alive=alive & spawn,
+        kind=torch.where(spawn, new_kind.to(torch.int32), kind),
+        bounces=new_bounces,
+        gi_bounces=new_gi,
+        ior_stack=ior_stack,
+        ior_sp=ior_sp,
+        prev_mat=torch.where(found, mat.to(torch.int32), state['prev_mat']),
+        time=time,
+        pix=state['pix'],
+    )
+    if settings.sort_rays:
+        state = _sort_wavefront(state)
+    return state

@@ -1,0 +1,100 @@
+"""The port's host-side scene build against raytracer_tpu.SceneBuilder.
+
+Both builders run the same native SAH cluster build on the same geometry,
+so the cluster tables must be byte-equal, and every scene array equal
+exactly. convert.scene_from_arrays must carry a JAX-built scene across
+without a change, and scene_to_arrays must invert it.
+"""
+import jax
+import numpy as np
+import pytest
+import torch
+
+import raytracer_tpu as rj
+from raytracer_tpu.core.types import Camera as JCamera
+from raytracer_tpu_torch import convert
+from raytracer_tpu_torch.core.types import Camera
+from raytracer_tpu_torch.scenes import registry
+
+from .torch_port_util import scene_arrays, to_port
+
+BUILDS = {
+    'triangle_sphere': lambda b: registry.triangle_sphere(size=8, builder=b),
+    'sponza_standin_12': lambda b: registry.sponza_standin(
+        32, 24, max_bounces=3, n_spheres=12, builder=b),
+}
+
+
+@pytest.fixture(scope='module', params=sorted(BUILDS))
+def pair(request):
+    make = BUILDS[request.param]
+    return make(rj.SceneBuilder())[0], make(None)[0]
+
+
+def test_cluster_tables_byte_equal(pair):
+    sj, st = pair
+    for k in ('bb_min', 'bb_max', 'p0', 'e1', 'e2', 'tri'):
+        a = np.asarray(getattr(sj.clusters, k))
+        b = getattr(st.clusters, k).numpy()
+        assert a.dtype == b.dtype and a.shape == b.shape, k
+        assert a.tobytes() == b.tobytes(), k
+    assert st.clusters.cluster_size == sj.clusters.cluster_size
+
+
+def test_scene_arrays_equal(pair):
+    sj, st = pair
+    aj, sj_static = scene_arrays(sj)
+    at, st_static = convert.scene_to_arrays(st)
+    assert st_static == sj_static
+    for k, v in at.items():
+        np.testing.assert_array_equal(v, aj[k], err_msg=k)
+        assert v.dtype == aj[k].dtype, k
+
+
+def test_convert_round_trip(pair):
+    sj, _ = pair
+    aj, static = scene_arrays(sj)
+    sc = to_port(sj)
+    at, st2 = convert.scene_to_arrays(sc)
+    assert st2 == static
+    for k, v in at.items():
+        np.testing.assert_array_equal(v, aj[k], err_msg=k)
+    again = convert.scene_from_arrays(at, st2)
+    for k, v in convert.scene_to_arrays(again)[0].items():
+        np.testing.assert_array_equal(v, at[k], err_msg=k)
+
+
+def test_sponza_standin_size():
+    """The full stand-in: 300 spheres of 576 triangles around the atrium."""
+    scene, cam, st = registry.sponza_standin()
+    assert scene.num_tris == 174_724
+    assert scene.clusters.num_clusters == 2032
+    assert (st.width, st.height, st.max_bounces) == (1920, 1080, 10)
+    assert isinstance(scene.geom.vertices, torch.Tensor)
+
+
+def test_unported_features_raise():
+    from raytracer_tpu_torch import SceneBuilder, render_adaptive
+    b = SceneBuilder()
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        b.add_blinn(tex_color=0)
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        render_adaptive()
+    sj, _, _ = registry.triangle_sphere(size=8, builder=rj.SceneBuilder())
+    arrays, static = scene_arrays(sj)
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        convert.scene_from_arrays(arrays, dict(static, single_level=False))
+
+
+def test_camera_from_arrays():
+    """A JAX Camera's leaves carried across equal the port's Camera.make."""
+    kw = dict(eye=(8, 1.5, 1), look_at=(0, 2.5, -1), fov=55.0, aperture=0.1,
+              focus_plane=3.0)
+    cj = JCamera.make(**kw)
+    leaves = jax.tree_util.tree_flatten_with_path(cj)[0]
+    arrays = {path[0].name: np.asarray(v) for path, v in leaves}
+    got, want = convert.camera_from_arrays(arrays), Camera.make(**kw)
+    for k in ('eye', 'view_dir', 'up', 'fov', 'focus_plane', 'aperture',
+              'shutter'):
+        np.testing.assert_array_equal(getattr(got, k).numpy(),
+                                      getattr(want, k).numpy(), err_msg=k)

@@ -1,0 +1,125 @@
+"""The CUDA cluster-trace kernel against its plain PyTorch version, on the
+card. Every test here needs an NVIDIA GPU and nvcc, and skips elsewhere.
+
+This file imports torch and the port only, so it runs on a machine without
+jax; tests/conftest.py imports jax, so run it there with
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
+
+Both sides run the same unfused float32 arithmetic (the kernel is built
+with -fmad=false) and the same visiting rule, so `t` and `tri` must agree
+exactly. Renders compare to the CPU render of the same key with the
+tolerance of tests/test_torch_render.py (elementwise transcendental
+functions differ between the CPU and CUDA libraries by an ulp or two).
+"""
+import numpy as np
+import pytest
+import torch
+
+import raytracer_tpu_torch as rt
+from raytracer_tpu_torch.core import rng
+from raytracer_tpu_torch.ops import cluster_trace as ct
+from raytracer_tpu_torch.ops.cuda import cluster_kernel as ck
+from raytracer_tpu_torch.render import camera as cam_mod
+from raytracer_tpu_torch.scenes import registry
+
+pytestmark = pytest.mark.cuda
+R = 4096
+
+
+@pytest.fixture(scope='module')
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU and nvcc (run on the card)')
+    return torch.device('cuda', 0)
+
+
+@pytest.fixture(scope='module', params=['triangle_sphere', 'sponza_12',
+                                        'sponza_full'])
+def scene(request, dev):
+    if request.param == 'triangle_sphere':
+        s, cam, st = registry.triangle_sphere(size=16)
+    else:
+        n = 12 if request.param == 'sponza_12' else 300
+        s, cam, st = registry.sponza_standin(32, 24, max_bounces=3,
+                                             n_spheres=n)
+    return s, s.to(dev), cam
+
+
+def _rays(scene, cam, kind, seed=1):
+    """Incoherent rays around the scene's box or coherent camera rays, with
+    a per-ray any-hit distance -> CPU tensors (o, d, dist)."""
+    rs = np.random.default_rng(seed)
+    if kind == 'camera':
+        o, d, _ = cam_mod.center_rays(cam, 64, R // 64)
+        dist = rs.uniform(0.5, 10.0, R)
+    else:
+        real = scene.clusters.tri[:, 0] >= 0
+        lo = scene.clusters.bb_min[real].amin(0).numpy()
+        hi = scene.clusters.bb_max[real].amax(0).numpy()
+        o = lo + rs.uniform(size=(R, 3)) * (hi - lo)
+        d = rs.normal(size=(R, 3))
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        dist = rs.uniform(0.1, 1.0, R) * np.linalg.norm(hi - lo)
+        o, d = torch.tensor(o, dtype=torch.float32), \
+            torch.tensor(d, dtype=torch.float32)
+    return o, d, torch.tensor(dist, dtype=torch.float32)
+
+
+@pytest.mark.parametrize('kind', ['random', 'camera'])
+@pytest.mark.parametrize('any_hit', [False, True])
+def test_kernel_matches_plain(scene, dev, kind, any_hit):
+    host, card, cam = scene
+    o, d, dist = _rays(host, cam, kind)
+    tmax = dist if any_hit else torch.full((R,), 1e12)
+    tmax[::5] = -1.0                               # dead lanes
+    hp = ct.cluster_trace(host, o, d, 0.0, 1e-3, tmax, any_hit)
+    n0 = ck.LAUNCHES
+    hk = ck.cluster_trace(card, o.to(dev), d.to(dev), 0.0, 1e-3,
+                          tmax.to(dev), any_hit)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES == n0 + 1
+    assert int((hp.tri >= 0).sum()) > R // 20
+    np.testing.assert_array_equal(hk.tri.cpu().numpy(), hp.tri.numpy())
+    np.testing.assert_array_equal(hk.t.cpu().numpy(), hp.t.numpy())
+    np.testing.assert_allclose(hk.a.cpu().numpy(), hp.a.numpy(), atol=1e-6)
+    np.testing.assert_allclose(hk.b.cpu().numpy(), hp.b.numpy(), atol=1e-6)
+
+
+def test_plain_on_card_matches_plain_on_cpu(scene, dev):
+    host, card, cam = scene
+    o, d, _ = _rays(host, cam, 'random', seed=2)
+    hp = ct.cluster_trace(host, o, d, 0.0, 1e-3, 1e12, False)
+    hg = ct.cluster_trace(card, o.to(dev), d.to(dev), 0.0, 1e-3, 1e12, False)
+    np.testing.assert_array_equal(hg.tri.cpu().numpy(), hp.tri.numpy())
+    np.testing.assert_array_equal(hg.t.cpu().numpy(), hp.t.numpy())
+
+
+def test_kernel_rejects_bad_inputs(scene, dev):
+    _, card, cam = scene
+    o, d, _ = _rays(card, cam, 'camera')
+    o, d = o.to(dev), d.to(dev)
+    with pytest.raises(ValueError):
+        ck.launch(card.clusters, o.double(), d, torch.zeros(R, device=dev),
+                  torch.ones(R, device=dev), False)
+    with pytest.raises(ValueError):
+        ck.launch(card.clusters, o.t().contiguous().t(), d,
+                  torch.zeros(R, device=dev), torch.ones(R, device=dev),
+                  False)
+    with pytest.raises(ValueError):
+        ck.launch(card.clusters, o.cpu(), d, torch.zeros(R, device=dev),
+                  torch.ones(R, device=dev), False)
+
+
+def test_render_on_card_matches_cpu(dev):
+    scene, cam, st = registry.sponza_standin(32, 24, max_bounces=3,
+                                             n_spheres=12)
+    key = rng.PRNGKey(11)
+    want = rt.render(scene, cam, st, key).numpy()
+    n0, c0 = ck.LAUNCHES, ct.CALLS
+    got = rt.render(scene.to(dev), cam.to(dev), st, key)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES > n0 and ct.CALLS == c0
+    got = got.cpu().numpy()
+    d = np.abs(got - want)
+    assert (d <= 1e-4 + 1e-3 * np.abs(want)).all(-1).mean() >= 0.99
+    assert d.mean() < 1e-3 * np.abs(want).mean()
