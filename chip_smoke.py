@@ -1,21 +1,30 @@
 """Smoke run of raytracer_tpu_torch on one NVIDIA GPU: `python3 chip_smoke.py`.
 
-Drives the PyTorch/CUDA port's serving path, a forward render through
-`raytracer_tpu_torch.render`, on the 174,724-triangle `sponza_standin`
-atrium at 1920x1080, 1 spp, 10 path-traced bounces, in phases:
+Drives the PyTorch/CUDA port's serving paths, forward renders through
+`raytracer_tpu_torch.render` at 1920x1080, 1 spp, in phases:
 
   1. device: the card's name and power limit; TF32 off;
-  2. build: the CUDA cluster-trace kernel and the native host library,
-     both compiled from this checkout;
-  3. scene: built on the host, moved to the card;
-  4. the kernel against its plain PyTorch version, both on the card, at
-     32,768 coherent (camera) and incoherent (random) rays, nearest and
-     any-hit, with CUDA-event times (median of 5 after a warm-up);
-  5. the full 1080p render with intersector 'auto': the kernel must carry
-     every trace (launch count > 0, plain-version calls 0); then the median
-     wall time of 3 renders;
+  2. build: the three CUDA kernels (cluster, segment and hierarchical
+     instance trace; one nvcc each, all started together) and the native
+     host library, all compiled from this checkout;
+  3. scene: the 174,724-triangle `sponza_standin` atrium, built on the
+     host, moved to the card;
+  4. the cluster kernel against its plain PyTorch version, both on the
+     card, at 32,768 coherent (camera) and incoherent (random) rays,
+     nearest and any-hit, with CUDA-event times (median of 5 after a
+     warm-up);
+  5. the full 1080p, 10-bounce path-traced render with intersector 'auto':
+     the kernel must carry every trace (launch count > 0, plain-version
+     calls 0); then the median wall time of 3 renders;
   6. the same key rendered at 64x48, 3 bounces, on the CPU (plain version)
-     and on the card (kernel): the images must agree.
+     and on the card (kernel): the images must agree;
+  7. two-level instancing, for `instanced_grid_standin` (100,000
+     instances, shallow prototype: the segment kernel) and `forest_standin`
+     (200 trees, deep prototypes: the hierarchical instance kernel): the
+     kernel against its plain version as in phase 4, then the 1080p render
+     at the scene's own settings as in phase 5;
+  8. `instanced_teapots_standin` rendered at 64x48 on the CPU and on the
+     card, held as in phase 6.
 
 Any failure raises. The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Needs a CUDA device; there is no CPU mode.
@@ -24,6 +33,7 @@ from __future__ import annotations
 
 import json
 import statistics
+from concurrent.futures import ThreadPoolExecutor
 import subprocess
 import sys
 import time
@@ -35,7 +45,11 @@ import raytracer_tpu_torch as rt
 from raytracer_tpu_torch import native
 from raytracer_tpu_torch.core import rng
 from raytracer_tpu_torch.ops import cluster_trace as ct
+from raytracer_tpu_torch.ops import icluster_trace as ict
+from raytracer_tpu_torch.ops import iseg_trace as ist
 from raytracer_tpu_torch.ops.cuda import cluster_kernel as ck
+from raytracer_tpu_torch.ops.cuda import icluster_kernel as ick
+from raytracer_tpu_torch.ops.cuda import iseg_kernel as isk
 from raytracer_tpu_torch.render import camera as cam_mod
 from raytracer_tpu_torch.scenes import registry
 
@@ -48,6 +62,14 @@ RAY_TILE = 1 << 21
 N_RAYS = 32_768
 PARITY = dict(width=64, height=48, max_bounces=3)
 KEY = 2024
+# the instanced cells: (scene builder, its instance count with the world
+# geometry's identity instance, kernel module, plain module, kernel name,
+# the TPU kernel it replaces)
+INSTANCED = (
+    (registry.instanced_grid_standin, 100_000, isk, ist, 'iseg_trace',
+     'raytracer_tpu/ops/pallas/iseg_kernel.py:271'),
+    (registry.forest_standin, 201, ick, ict, 'icluster_trace',
+     'raytracer_tpu/ops/pallas/icluster_kernel.py:309'))
 
 
 def phase(tag: str, **fields) -> None:
@@ -119,6 +141,119 @@ def compare_kernel(scene, cam, dev):
     return max_err, ms_k, ms_p
 
 
+def instanced_rays(scene, cam, dev):
+    """N_RAYS coherent camera rays (every k-th of a 256x128 image of the
+    scene's camera) and N_RAYS incoherent rays: random points in the lowest
+    2.5 m of the instances' world box, random directions."""
+    o, d, _ = cam_mod.center_rays(cam, 256, 128)
+    o, d = o[::32768 // N_RAYS], d[::32768 // N_RAYS]
+    ibb = scene.iclusters.ibb.cpu()
+    real = ibb[0] < 1e37
+    lo = ibb[:3, real].amin(1).numpy()
+    hi = ibb[3:, real].amax(1).numpy()
+    hi[1] = min(hi[1], lo[1] + 2.5)
+    rs = np.random.default_rng(KEY)
+    o2 = lo + rs.uniform(size=(N_RAYS, 3)) * (hi - lo)
+    d2 = rs.normal(size=(N_RAYS, 3))
+    d2 /= np.linalg.norm(d2, axis=-1, keepdims=True)
+    f = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    return {'coherent': (o.to(dev), d.to(dev)), 'incoherent': (f(o2), f(d2))}
+
+
+def compare_instanced(scene, cam, kernel, plain, dev):
+    """Phase 7a: an instanced kernel against its plain version on the card
+    -> (max |dt|, ms, plain ms). Nearest rays first; any-hit rays then stop
+    at 0.5-1.5 times their nearest hit's distance, so about half of them
+    find a hit. tri and inst may differ only where t is exactly equal."""
+    max_err, ms_k, ms_p = 0.0, 0.0, 0.0
+    rs = np.random.default_rng(KEY + 1)
+    for kind, (o, d) in instanced_rays(scene, cam, dev).items():
+        near = None
+        for any_hit in (False, True):
+            if any_hit:
+                u = torch.as_tensor(rs.uniform(0.5, 1.5, N_RAYS),
+                                    dtype=torch.float32, device=dev)
+                tmax = torch.clamp(near * u, max=1e12)
+            else:
+                tmax = torch.full((N_RAYS,), 1e12, device=dev)
+            args = (o, d, 0.0, 1e-3, tmax, any_hit)
+            t_k, hk = cuda_ms(lambda: kernel(scene, *args))
+            t_p, hp = cuda_ms(lambda: plain(scene, *args))
+            ms_k += t_k
+            ms_p += t_p
+            if not any_hit:
+                near = hp.t
+            hits = int((hp.tri >= 0).sum())
+            hitmiss = int((hk.valid != hp.valid).sum())
+            dt = (hk.t - hp.t).abs()
+            t_ok = bool((dt <= 1e-5 * hp.t.abs()).all())
+            differ = (hk.tri != hp.tri) | (hk.inst != hp.inst)
+            bad = int((differ & (dt > 0)).sum())
+            err = float(dt.max())
+            max_err = max(max_err, err)
+            phase('instanced_kernel_vs_plain', rays=kind,
+                  mode='any' if any_hit else 'nearest', n=N_RAYS, hits=hits,
+                  hit_miss_mismatch=hitmiss, tri_inst_mismatch_not_tie=bad,
+                  tri_inst_mismatch=int(differ.sum()), max_abs_dt=err,
+                  kernel_ms=t_k, plain_ms=t_p)
+            assert hitmiss == 0, f'{kind} any_hit={any_hit}: hit/miss differ'
+            assert bad == 0, f'{kind} any_hit={any_hit}: {bad} rays disagree'
+            assert t_ok, f'{kind}: t disagrees beyond rtol 1e-5'
+            assert hits > N_RAYS // 20, 'too few hits to compare'
+    return max_err, ms_k, ms_p
+
+
+def render_cell(scene, cam, st, key, kernel, plain, tag, **fields) -> int:
+    """One 1080p render with every launch count set to 0 just before and
+    read just after (the kernel must carry every trace, the plain version
+    none), then the median wall of 3 -> the kernel's launch count."""
+    torch.cuda.reset_peak_memory_stats()
+    for mod in (ck, isk, ick):
+        mod.LAUNCHES = 0
+    for mod in (ct, ist, ict):
+        mod.CALLS = 0
+    t0 = time.perf_counter()
+    img = rt.render(scene, cam, st, key)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches, plain_calls = kernel.LAUNCHES, plain.CALLS
+    others = [m.LAUNCHES for m in (ck, isk, ick) if m is not kernel]
+    assert launches > 0, f'{tag}: the render never launched the kernel'
+    assert plain_calls == 0, f'{tag}: the render called the plain tracer'
+    assert not any(others), f'{tag}: the render launched another kernel'
+    check_image(img, (st.height, st.width, 3))
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        rt.render(scene, cam, st, key)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+    phase(tag, launches=launches, plain_calls=plain_calls, first_s=first_s,
+          wall_s=walls, median_s=wall,
+          primary_rays_per_s=st.width * st.height / wall,
+          mean_radiance=float(img.mean()),
+          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, **fields)
+    return launches
+
+
+def check_parity(scene, cam, st, key, kernel, dev, tag) -> None:
+    """The same key rendered on the CPU (plain version) and on the card
+    (kernel): >= 99% of pixels within 1e-4 + 1e-3 |x|, mean relative
+    difference < 1e-3."""
+    img_cpu = rt.render(scene, cam, st, key).numpy()
+    launches0 = kernel.LAUNCHES
+    img_gpu = rt.render(scene.to(dev), cam.to(dev), st, key).cpu()
+    assert kernel.LAUNCHES > launches0
+    check_image(img_gpu, (st.height, st.width, 3))
+    img_gpu = img_gpu.numpy()
+    diff = np.abs(img_gpu - img_cpu)
+    within = float((diff <= 1e-4 + 1e-3 * np.abs(img_cpu)).all(-1).mean())
+    rel = float(diff.mean() / np.abs(img_cpu).mean())
+    phase(tag, pixels_within=within, mean_rel_diff=rel)
+    assert within >= 0.99 and rel < 1e-3, f'{tag}: CPU and GPU disagree'
+
+
 def check_image(img, shape) -> None:
     assert tuple(img.shape) == shape, img.shape
     assert bool(torch.isfinite(img).all()), 'non-finite pixels'
@@ -140,12 +275,18 @@ def main(dev=None) -> int:
           torch=torch.__version__, cuda=torch.version.cuda)
 
     # ----------------------------------------------------------- 2. build
+    def timed(fn):
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    ck.build()
-    t1 = time.perf_counter()
-    native.get_lib()
-    t2 = time.perf_counter()
-    phase('build', cuda_kernel_s=t1 - t0, native_host_s=t2 - t1)
+    with ThreadPoolExecutor(4) as pool:
+        jobs = {name: pool.submit(timed, fn) for name, fn in (
+            ('cluster_trace_s', ck.build), ('iseg_trace_s', isk.build),
+            ('icluster_trace_s', ick.build), ('native_host_s', native.get_lib))}
+        built = {name: job.result() for name, job in jobs.items()}
+    phase('build', wall_s=time.perf_counter() - t0, **built)
 
     # ----------------------------------------------------------- 3. scene
     t0 = time.perf_counter()
@@ -161,52 +302,54 @@ def main(dev=None) -> int:
 
     # ------------------------------------------- 4. kernel against plain
     max_err, ms_k, ms_p = compare_kernel(scene, cam, dev)
-
-    # ------------------------------------------------------ 5. full render
-    key = rng.PRNGKey(KEY)
-    ck.LAUNCHES = 0
-    ct.CALLS = 0
-    t0 = time.perf_counter()
-    img = rt.render(scene, cam, st, key)
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-    launches, plain_calls = ck.LAUNCHES, ct.CALLS
-    assert launches > 0, 'the render never launched the kernel'
-    assert plain_calls == 0, 'the render called the plain tracer'
-    check_image(img, (HEIGHT, WIDTH, 3))
-    walls = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        rt.render(scene, cam, st, key)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    wall = statistics.median(walls)
-    phase('render_1080p', launches=launches, plain_calls=plain_calls,
-          first_s=first_s, wall_s=walls, median_s=wall,
-          primary_rays_per_s=WIDTH * HEIGHT / wall,
-          mean_radiance=float(img.mean()),
-          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-
-    # ------------------------------------------------- 6. CPU/GPU parity
-    scene_s, cam_s, st_s = registry.sponza_standin(**PARITY)
-    img_cpu = rt.render(scene_s, cam_s, st_s, key).numpy()
-    launches0 = ck.LAUNCHES
-    img_gpu = rt.render(scene_s.to(dev), cam_s.to(dev), st_s, key).cpu()
-    assert ck.LAUNCHES > launches0
-    check_image(img_gpu, (PARITY['height'], PARITY['width'], 3))
-    img_gpu = img_gpu.numpy()
-    diff = np.abs(img_gpu - img_cpu)
-    within = float((diff <= 1e-4 + 1e-3 * np.abs(img_cpu)).all(-1).mean())
-    rel = float(diff.mean() / np.abs(img_cpu).mean())
-    phase('cpu_gpu_parity', pixels_within=within, mean_rel_diff=rel)
-    assert within >= 0.99 and rel < 1e-3, 'CPU and GPU renders disagree'
-
-    print(json.dumps({'kernels': [{
+    records = [{
         'name': 'cluster_trace', 'route': 'cuda',
         'source': 'raytracer_tpu_torch/csrc/cluster_trace.cu',
         'replaces': 'raytracer_tpu/ops/pallas/cluster_kernel.py:293',
-        'launches': launches, 'max_abs_err': max_err, 'ms': ms_k,
-        'plain_ms': ms_p}]}), flush=True)
+        'max_abs_err': max_err, 'ms': ms_k, 'plain_ms': ms_p}]
+
+    # ------------------------------------------------------ 5. full render
+    key = rng.PRNGKey(KEY)
+    records[0]['launches'] = render_cell(scene, cam, st, key, ck, ct,
+                                         'render_1080p')
+    del scene, scene_h
+
+    # ------------------------------------------------- 6. CPU/GPU parity
+    scene_s, cam_s, st_s = registry.sponza_standin(**PARITY)
+    check_parity(scene_s, cam_s, st_s, key, ck, dev, 'cpu_gpu_parity')
+
+    # --------------------------------------------- 7. two-level instancing
+    for make, n_inst, kernel, plain, name, replaces in INSTANCED:
+        t0 = time.perf_counter()
+        scene_h, cam_h, st = make(WIDTH, HEIGHT, ray_tile=RAY_TILE)
+        scene, cam = scene_h.to(dev), cam_h.to(dev)
+        torch.cuda.synchronize()
+        icl = scene.iclusters
+        fields = dict(instances=icl.num_instances, segments=icl.num_entries,
+                      prototype_clusters=icl.max_proto_clusters,
+                      triangles=scene.num_tris, table_mb=icl.nbytes / 1e6)
+        phase(f'scene_{name}', build_s=time.perf_counter() - t0, **fields)
+        assert icl.num_instances == n_inst
+        err, t_k, t_p = compare_instanced(scene, cam, getattr(kernel, name),
+                                          getattr(plain, name), dev)
+        launches = render_cell(scene, cam, st, key, kernel, plain,
+                               f'render_1080p_{name}', **fields)
+        records.append({'name': name, 'route': 'cuda',
+                        'source': f'raytracer_tpu_torch/csrc/{name}.cu',
+                        'replaces': replaces, 'launches': launches,
+                        'max_abs_err': err, 'ms': t_k, 'plain_ms': t_p})
+        del scene, scene_h
+
+    # ------------------------------------- 8. instanced CPU/GPU parity
+    scene_s, cam_s, st_s = registry.instanced_teapots_standin(
+        PARITY['width'], PARITY['height'])
+    check_parity(scene_s, cam_s, st_s, key, isk, dev,
+                 'cpu_gpu_parity_instanced')
+
+    print(json.dumps({'kernels': [
+        {k: r[k] for k in ('name', 'route', 'source', 'replaces', 'launches',
+                           'max_abs_err', 'ms', 'plain_ms')}
+        for r in records]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)

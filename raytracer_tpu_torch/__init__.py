@@ -2,8 +2,10 @@
 
 A port of the JAX/Pallas package `raytracer_tpu` (which stays the
 reference) for one NVIDIA H100. It imports torch and numpy, never jax.
-The cluster tracer is a hand-written CUDA kernel (csrc/cluster_trace.cu)
-for CUDA tensors and its plain PyTorch version for CPU tensors.
+The tracers are hand-written CUDA kernels for CUDA tensors (csrc/:
+cluster_trace.cu for single-level scenes; iseg_trace.cu and
+icluster_trace.cu for instanced scenes of shallow and deep prototypes)
+and their plain PyTorch versions (ops/) for CPU tensors.
 """
 
 from .core.types import Camera, RenderSettings, Scene, MAT_BLINN, MAT_LAMBERT

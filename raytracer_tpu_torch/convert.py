@@ -5,9 +5,9 @@ such as 'geom.vertices' or 'clusters.p0', and its static fields (the
 pytree_node=False flags) are named the same way. `scene_from_arrays` builds
 this package's Scene from such a dict, and `scene_to_arrays` is its
 inverse over the fields this package keeps. This module sees numpy arrays
-only, never a jax object. Leaves this package does not read (the BVH,
-instance, edge and motion-blur tables) are ignored; scene features it does
-not render yet raise.
+only, never a jax object. Leaves this package does not read (the BVH, the
+instance table's BVH roots, the edge and motion-blur pose tables) are
+ignored; scene features it does not render yet raise.
 """
 from __future__ import annotations
 
@@ -17,39 +17,44 @@ import numpy as np
 import torch
 
 from .core import types as T
-from .geometry.clusters import Clusters
+from .geometry.clusters import Clusters, InstancedClusters
 
 # flags of the JAX Scene that this package's Scene keeps
 SCENE_FLAGS = ('env_tex', 'has_material_env', 'has_dispersion',
-               'has_translucency')
-# flags whose only supported value is implied here (a single-level, static
-# scene without alpha maps)
-IMPLIED_FLAGS = {'single_level': True, 'has_motion_blur': False,
-                 'has_alpha_maps': False}
+               'has_translucency', 'single_level')
+# flags whose only supported value is implied here (a static scene without
+# alpha maps)
+IMPLIED_FLAGS = {'has_motion_blur': False, 'has_alpha_maps': False}
+# the static fields of the two-level table
+ICLUSTER_STATIC = tuple(f'iclusters.{k}' for k in (
+    'cluster_size', 'num_instances', 'num_entries', 'max_proto_clusters'))
 # every static (non-array) field of the JAX Scene that this module reads
 STATIC_FIELDS = SCENE_FLAGS + tuple(IMPLIED_FLAGS) + (
     'point_lights.cast_shadows', 'point_lights.fast_shadows',
     'rect_lights.cast_shadows', 'rect_lights.fast_shadows',
-    'rect_lights.num_samples', 'clusters.cluster_size')
+    'rect_lights.num_samples', 'clusters.cluster_size',
+    'mb_clusters.cluster_size') + ICLUSTER_STATIC
 
 _GROUPS = {'geom': T.Geometry, 'materials': T.Materials,
            'textures': T.TexturePack, 'point_lights': T.PointLights,
-           'rect_lights': T.RectLights, 'clusters': Clusters}
+           'rect_lights': T.RectLights}
+# tables a scene may or may not carry
+_OPTIONAL = {'clusters': Clusters, 'instances': T.Instances,
+             'iclusters': InstancedClusters, 'mb_clusters': Clusters}
 _CAMERA_FIELDS = ('eye', 'view_dir', 'up', 'fov', 'focus_plane',
                   'aperture', 'shutter')
 
 
 def _check_supported(arrays: dict, static: dict) -> None:
-    if not static['single_level']:
-        raise NotImplementedError('two-level instancing: ROADMAP queue 1 #12')
     if any(k.startswith('dome.') for k in arrays):
         raise NotImplementedError('the dome light: ROADMAP queue 1 #11')
     if static['has_motion_blur']:
         raise NotImplementedError('motion blur: ROADMAP queue 1 #11')
     if static['has_alpha_maps']:
         raise NotImplementedError('alpha maps: ROADMAP queue 1 #11')
-    if 'clusters.tri' not in arrays:
-        raise ValueError('the scene carries no cluster table')
+    table = 'clusters.tri' if static['single_level'] else 'iclusters.tri'
+    if table not in arrays:
+        raise ValueError(f'the scene carries no {table.split(".")[0]} table')
 
 
 def _group(cls, prefix: str, arrays: dict, static: dict):
@@ -68,10 +73,11 @@ def scene_from_arrays(arrays: dict[str, np.ndarray], static: dict) -> T.Scene:
     fields (STATIC_FIELDS)."""
     _check_supported(arrays, static)
     groups = {k: _group(cls, k, arrays, static) for k, cls in _GROUPS.items()}
+    groups.update({k: _group(cls, k, arrays, static)
+                   for k, cls in _OPTIONAL.items()
+                   if any(a.startswith(k + '.') for a in arrays)})
     return T.Scene(
-        geom=groups['geom'], materials=groups['materials'],
-        textures=groups['textures'], point_lights=groups['point_lights'],
-        rect_lights=groups['rect_lights'], clusters=groups['clusters'],
+        **groups,
         env_exposure=torch.from_numpy(np.array(arrays['env_exposure'])),
         bg_color=torch.from_numpy(np.array(arrays['bg_color'])),
         **{k: static[k] for k in SCENE_FLAGS})
@@ -80,8 +86,10 @@ def scene_from_arrays(arrays: dict[str, np.ndarray], static: dict) -> T.Scene:
 def scene_to_arrays(scene: T.Scene) -> tuple[dict, dict]:
     """(arrays, static) in the keys scene_from_arrays reads."""
     arrays, static = {}, {}
-    for prefix in _GROUPS:
+    for prefix in (*_GROUPS, *_OPTIONAL):
         obj = getattr(scene, prefix)
+        if obj is None:
+            continue
         for f in dataclasses.fields(obj):
             v = getattr(obj, f.name)
             if isinstance(v, torch.Tensor):

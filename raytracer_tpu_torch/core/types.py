@@ -9,8 +9,10 @@ Left out on purpose: `Materials.kt` and `RenderSettings.num_paths` (nothing
 reads them) and `RenderSettings.remat` (a JAX-only checkpointing switch).
 Left out until their features are ported: the motion-blur pose and flags,
 alpha maps and the adaptive-sampling and dome settings (ROADMAP queue 1
-#11), the BVH, instance and edge tables and the single_level flag (#12,
-#13); a Scene here is always single-level, static and without alpha maps.
+#11), the BVH and its `Instances.root` (#9) and the edge table (#13); a
+Scene here is always static and without alpha maps. A two-level scene
+carries its instance table and its instanced cluster tables
+(geometry/clusters.InstancedClusters).
 """
 from __future__ import annotations
 
@@ -120,6 +122,18 @@ class RectLights(TensorData):
     num_samples: int = 1
 
 
+@dataclass
+class Instances(TensorData):
+    """Instance table (src/ProxyObject.h:11-35): m maps object -> world;
+    rays go world -> object through m_inv (src/ProxyObject.cpp:76-95);
+    normals are fixed up by m_inv_t (src/Ray.cpp:27-31)."""
+    m: torch.Tensor             # (I, 3, 4) f32
+    m_inv: torch.Tensor         # (I, 3, 4) f32
+    m_inv_t: torch.Tensor       # (I, 3, 3) f32
+    tri_lo: torch.Tensor        # (I,) i32 triangle id range of the prototype
+    tri_hi: torch.Tensor        # (I,) i32
+
+
 EPS_SHUTTER = 1e-3  # reference Camera ctor m_shutterSpeed = epsilon
 
 
@@ -163,14 +177,16 @@ class RenderSettings:
     shadow_segments: int = 4
     light_noise_cutoff: float = 0.0
     use_schlick: bool = False
-    intersector: str = 'auto'                # 'auto' | 'brute'
+    intersector: str = 'auto'                # 'auto' | 'cluster2' | 'brute'
     ray_tile: int = 8 * 128
     sort_rays: bool = True
 
 
 @dataclass
 class Scene(TensorData):
-    """The full scene (single-level, as this package renders it)."""
+    """The full scene. A single-level scene carries `clusters`; a
+    two-level (instanced) one carries `instances` and `iclusters`, and
+    `mb_clusters` when its world geometry is motion-blurred."""
     geom: Geometry
     materials: Materials
     textures: TexturePack
@@ -179,7 +195,12 @@ class Scene(TensorData):
     env_exposure: torch.Tensor           # ()
     bg_color: torch.Tensor               # (3,)
     clusters: Optional[object] = None    # geometry.clusters.Clusters
+    instances: Optional[Instances] = None
+    iclusters: Optional[object] = None   # geometry.clusters.InstancedClusters
+    mb_clusters: Optional[object] = None  # geometry.clusters.Clusters
     env_tex: int = -1
+    # True when the scene is one identity instance of all its triangles
+    single_level: bool = True
     has_material_env: bool = False
     has_dispersion: bool = False
     has_translucency: bool = False

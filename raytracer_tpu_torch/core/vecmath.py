@@ -34,6 +34,19 @@ def length2(a: torch.Tensor) -> torch.Tensor:
     return dot(a, a)
 
 
+def transform_point(m: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Apply (..., 3, 4) affine matrices to (..., 3) points, each row
+    summed in the order m0*x + m1*y + m2*z + m3."""
+    return transform_vector(m, p) + m[..., :3, 3]
+
+
+def transform_vector(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Apply the linear part of (..., 3, 3) or (..., 3, 4) matrices to
+    (..., 3) vectors."""
+    x, y, z = v[..., None, 0], v[..., None, 1], v[..., None, 2]
+    return m[..., :3, 0] * x + m[..., :3, 1] * y + m[..., :3, 2] * z
+
+
 def normalize(a: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
     """Safe normalize: a * rsqrt(max(|a|^2, eps))."""
     return a * torch.rsqrt(torch.clamp(length2(a), min=eps))[..., None]

@@ -1,11 +1,12 @@
 """Host-side scene assembly: meshes, materials and lights -> Scene.
 
-Port of raytracer_tpu/geometry/build.py for single-level, textureless
-scenes: the same method names and defaults, the same array layout, and the
-same cluster table. Everything here is numpy until `build` wraps the arrays
-as CPU tensors; move the scene with `scene.to(device)`. Not built: the BVH
-(ROADMAP queue 1 #9) and the edge table (queue 1 #13), which this package's
-render path does not read; textures, motion blur and instancing raise.
+Port of raytracer_tpu/geometry/build.py for textureless, static scenes,
+single-level or instanced: the same method names and defaults, the same
+array layout, the same instance table and the same cluster tables.
+Everything here is numpy until `build` wraps the arrays as CPU tensors;
+move the scene with `scene.to(device)`. Not built: the BVH (ROADMAP queue
+1 #9) and the edge tables (queue 1 #13), which this package's render path
+does not read; textures and motion blur raise.
 """
 from __future__ import annotations
 
@@ -37,6 +38,10 @@ class SceneBuilder:
         self._point_lights: list[dict] = []
         self._rect_lights: list[dict] = []
         self._bg = np.zeros(3, np.float32)
+        # instancing: prototype triangle ranges [lo, hi) and placements
+        self._protos: list[tuple[int, int]] = []
+        self._open_proto: int | None = None
+        self._instances: list[dict] = []
 
     # ---------------------------------------------------------- materials
     def _add_material(self, kind, kd, ka, ks, ior, spec_exp, spec_amt,
@@ -112,6 +117,63 @@ class SceneBuilder:
         self._nn += len(mesh.normals)
         self._ntri += ntri
 
+    # ---------------------------------------------------------- instancing
+    def begin_prototype(self) -> None:
+        assert self._open_proto is None, 'prototype already open'
+        self._open_proto = self._ntri
+
+    def end_prototype(self) -> int:
+        """Close the prototype; returns its id (src/ProxyObject.cpp:149-167)."""
+        assert self._open_proto is not None
+        self._protos.append((self._open_proto, self._ntri))
+        self._open_proto = None
+        return len(self._protos) - 1
+
+    def add_instance(self, proto: int, m: np.ndarray) -> None:
+        """m: (3, 4) or (4, 4) object -> world transform."""
+        m = np.asarray(m, np.float32)
+        if m.shape == (4, 4):
+            m = m[:3]
+        self._instances.append(dict(proto=proto, m=m))
+
+    def _instance_dicts(self) -> list[dict]:
+        """The implicit world prototype (the triangles no prototype
+        claims, identity transform) first, then one dict per placement."""
+        claimed = np.zeros(self._ntri, bool)
+        for lo, hi in self._protos:
+            claimed[lo:hi] = True
+        world_tris = np.where(~claimed)[0].astype(np.int32)
+        out = []
+        if len(world_tris) > 0:
+            out.append(dict(m=np.eye(3, 4, dtype=np.float32), lo=-1, hi=-1,
+                            tris=world_tris))
+        for inst in self._instances:
+            lo, hi = self._protos[inst['proto']]
+            out.append(dict(m=inst['m'], lo=lo, hi=hi, tris=None))
+        return out
+
+    def _instance_table(self, instances: list[dict]) -> T.Instances:
+        """The instance rows as raytracer_tpu/geometry/bvh.py:282-317 makes
+        them (one float32 inverse of each 3x3, then -(minv @ t)), without
+        the BVH root."""
+        ms, minvs, minvts, los, his = [], [], [], [], []
+        for inst in instances:
+            m = np.asarray(inst['m'], np.float32)
+            lin = m[:, :3]
+            minv_lin = np.linalg.inv(lin)
+            minv = np.concatenate([minv_lin, -(minv_lin @ m[:, 3])[:, None]],
+                                  1)
+            ms.append(m)
+            minvs.append(minv.astype(np.float32))
+            minvts.append(minv_lin.T.astype(np.float32))
+            los.append(inst['lo'] if inst['lo'] >= 0 else 0)
+            his.append(inst['hi'] if inst['hi'] >= 0 else self._ntri)
+        t = torch.from_numpy
+        return T.Instances(m=t(np.stack(ms)), m_inv=t(np.stack(minvs)),
+                           m_inv_t=t(np.stack(minvts)),
+                           tri_lo=t(np.asarray(los, np.int32)),
+                           tri_hi=t(np.asarray(his, np.int32)))
+
     # -------------------------------------------------------------- lights
     def add_point_light(self, position, power, color=(1, 1, 1),
                         cast_shadows=True, fast_shadows=True) -> None:
@@ -134,9 +196,12 @@ class SceneBuilder:
 
     # --------------------------------------------------------------- build
     def build(self, bvh: bool = False) -> T.Scene:
-        """Assemble the scene (on the CPU) with its cluster table."""
+        """Assemble the scene (on the CPU) with its cluster tables: the
+        flat table of a single-level scene, or the instance table and the
+        two-level tables of an instanced one."""
         if bvh:
             raise NotImplementedError('BVH build: ROADMAP queue 1 #9')
+        assert self._open_proto is None, 'unclosed prototype'
         assert self._ntri > 0, 'empty scene'
         t = torch.from_numpy
         cat = lambda xs, dt: t(np.concatenate(xs).astype(dt))
@@ -198,10 +263,22 @@ class SceneBuilder:
             fast_shadows=tuple(bool(l['fast_shadows']) for l in rls),
             num_samples=max([l['num_samples'] for l in rls], default=1))
 
+        instances = self._instance_dicts()
+        single_level = (len(instances) == 1
+                        and instances[0]['tris'] is not None
+                        and len(instances[0]['tris']) == self._ntri)
+        if single_level:
+            tables = dict(clusters=cl_mod.build_clusters(geom))
+        else:
+            inst_table = self._instance_table(instances)
+            tables = dict(instances=inst_table,
+                          iclusters=cl_mod.build_instanced_clusters(
+                              geom, instances, inst_table))
+
         return T.Scene(
             geom=geom, materials=materials, textures=textures,
             point_lights=point_lights, rect_lights=rect_lights,
             env_exposure=torch.tensor(1.0), bg_color=t(self._bg.copy()),
-            clusters=cl_mod.build_clusters(geom),
+            single_level=single_level, **tables,
             has_dispersion=bool(materials.disperse.any()),
             has_translucency=bool((materials.translucency > 0.01).any()))

@@ -1,27 +1,33 @@
-"""Flat triangle clusters for the cluster tracer (host side).
+"""Flat and two-level triangle clusters for the cluster tracers (host side).
 
-Port of `Clusters` and `build_clusters` in raytracer_tpu/geometry/clusters.py,
-through the same native binned-SAH build, so the table is byte-identical to
-the JAX package's. The SAH build is cut into M clusters of <= C triangles;
+Port of `Clusters`, `build_clusters`, `InstancedClusters` and
+`build_instanced_clusters` in raytracer_tpu/geometry/clusters.py, through
+the same native binned-SAH build and the same numpy, so every table is
+byte-identical to the JAX package's. The SAH build is cut into M clusters of <= C triangles;
 each cluster stores its AABB and its triangles' Moller-Trumbore basis
 (p0, p1 - p0, p2 - p0) as SoA (M, 3, C). Padding lanes hold degenerate
 triangles with id -1 and always trail the real lanes of a cluster; padding
 rows hold far-away point boxes (lo == hi == 3e37) that fail every slab test.
 
 The motion-blur pose tables (`*_t1`) come with motion blur (ROADMAP queue 1
-#11).
+#11), and `refresh_iclusters` with the trainer (#7).
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from ..core.types import Geometry, TensorData
+from ..core.types import Geometry, Instances, TensorData
 from .. import native
 
 NEVER = np.float32(3e37)
+# prototype clusters per segment of the flat two-level table: each
+# (instance, run of KIN clusters) pair is one segment with its own world
+# box; prototype tables are padded to KIN rows so no run straddles two
+KIN = 4
 
 
 @dataclass
@@ -47,12 +53,16 @@ class Clusters(TensorData):
 
 
 def build_clusters(geom: Geometry, cluster_size: int = 128,
-                   pad_clusters_to: int = 8) -> Clusters:
-    """Cut the SAH tree over all of a static geometry's triangles into
-    <= cluster_size clusters; pad the row count to a multiple of
-    pad_clusters_to."""
+                   pad_clusters_to: int = 8,
+                   tri_ids: np.ndarray | None = None) -> Clusters:
+    """Cut the SAH tree over a static geometry's triangles (all of them,
+    or the subset `tri_ids`) into <= cluster_size clusters; pad the row
+    count to a multiple of pad_clusters_to. The tri table holds global
+    triangle ids."""
     C = cluster_size
-    tri_ids = np.arange(geom.num_tris, dtype=np.int64)
+    if tri_ids is None:
+        tri_ids = np.arange(geom.num_tris, dtype=np.int64)
+    tri_ids = np.asarray(tri_ids, np.int64)
     bb_min, bb_max, p0, e1, e2, tri = native.build_clusters_native(
         geom.vertices.cpu().numpy(), geom.face_v.cpu().numpy(), tri_ids, C)
     M = max(len(tri), 1)
@@ -68,3 +78,175 @@ def build_clusters(geom: Geometry, cluster_size: int = 128,
     t = torch.from_numpy
     return Clusters(bb_min=t(bb_min), bb_max=t(bb_max), p0=t(p0), e1=t(e1),
                     e2=t(e2), tri=t(tri), cluster_size=C)
+
+
+@dataclass
+class InstancedClusters(TensorData):
+    """Two-level cluster tables: object-space prototype clusters shared by
+    every instance, an instance table, and a flat segment table, in the
+    JAX package's layout (field meanings as in
+    raytracer_tpu/geometry/clusters.py:InstancedClusters). Lane paddings
+    hold never-hit point boxes, identity transforms and id -1."""
+    ibb: torch.Tensor          # (6, I) f32 instance world boxes, lane-padded
+    iminv: torch.Tensor        # (I, 12) f32 world -> object affine rows
+    imeta: torch.Tensor        # (I, 2) i32 [prototype, scene.instances row]
+    pbb: torch.Tensor          # (P*6, MP) f32 prototype cluster boxes
+    pmeta: torch.Tensor        # (P, 2) i32 [pool row offset, cluster count]
+    tri: torch.Tensor          # (Mtot, C) i32 global triangle ids, -1 pad
+    sbb: torch.Tensor          # (6, E) f32 segment world boxes, lane-padded
+    smeta: torch.Tensor        # (E, 3) i32 [inst row, base pool row,
+                               #             scene.instances row]
+    strf: torch.Tensor         # (E, 12) f32 per-segment world -> object
+    pool_proto: torch.Tensor   # (Mtot,) i32 prototype of each pool row
+    pool_local: torch.Tensor   # (Mtot,) i32 cluster id within it
+    p0: torch.Tensor           # (Mtot*3, C) f32 MT basis [row = 3m + comp]
+    e1: torch.Tensor           # (Mtot*3, C)
+    e2: torch.Tensor           # (Mtot*3, C)
+    cluster_size: int = 128
+    num_instances: int = 0
+    num_entries: int = 0
+    max_proto_clusters: int = 0
+
+    @property
+    def num_clusters(self) -> int:
+        return self.tri.shape[0]
+
+    @property
+    def nbytes(self) -> int:
+        return sum(getattr(self, f.name).numel()
+                   * getattr(self, f.name).element_size()
+                   for f in dataclasses.fields(self)
+                   if isinstance(getattr(self, f.name), torch.Tensor))
+
+
+def build_instanced_clusters(geom: Geometry, instances: list[dict],
+                             inst_table: Instances,
+                             cluster_size: int = 128) -> InstancedClusters:
+    """Two-level cluster build (raytracer_tpu/geometry/clusters.py
+    :build_instanced_clusters), numpy on the host.
+
+    instances: the SceneBuilder's dicts (m (3, 4); lo/hi prototype
+    triangle range, or tris= explicit world triangle ids), in the row order
+    of inst_table. Scenes here are static, so the motion-blur split of the
+    JAX build never fires and no mb_clusters table is made."""
+    proto_keys: dict = {}
+    entries = []                 # (key, instance row) per kept instance
+    for row, inst in enumerate(instances):
+        if inst['tris'] is not None:
+            tri_ids = np.asarray(inst['tris'], np.int64)
+            key = ('world', tri_ids.tobytes())
+        else:
+            key = (inst['lo'], inst['hi'])
+            tri_ids = np.arange(inst['lo'], inst['hi'], dtype=np.int64)
+        if key not in proto_keys:
+            proto_keys[key] = (len(proto_keys), tri_ids)
+        entries.append((key, row))
+
+    # per-prototype object-space tables, padded to KIN rows
+    C = cluster_size
+    tabs = [None] * len(proto_keys)
+    for pidx, tri_ids in proto_keys.values():
+        tab = build_clusters(geom, C, pad_clusters_to=KIN, tri_ids=tri_ids)
+        tabs[pidx] = {k: getattr(tab, k).numpy()
+                      for k in ('bb_min', 'bb_max', 'p0', 'e1', 'e2', 'tri')}
+    P = len(tabs)
+    proto_len = np.asarray([t['tri'].shape[0] for t in tabs], np.int64)
+    proto_off = np.concatenate([[0], np.cumsum(proto_len)[:-1]])
+    Mtot = int(proto_len.sum())
+
+    cat = lambda k: np.concatenate([t[k] for t in tabs])
+    p0 = cat('p0').reshape(Mtot * 3, C)
+    e1 = cat('e1').reshape(Mtot * 3, C)
+    e2 = cat('e2').reshape(Mtot * 3, C)
+    tri = cat('tri').astype(np.int32)
+    pmeta = np.stack([proto_off, proto_len], 1).astype(np.int32)
+
+    MP = -(-int(proto_len.max()) // 128) * 128
+    pbb = np.full((P * 6, MP), NEVER, np.float32)
+    for p in range(P):
+        n = int(proto_len[p])
+        pbb[6 * p:6 * p + 3, :n] = tabs[p]['bb_min'].T
+        pbb[6 * p + 3:6 * p + 6, :n] = tabs[p]['bb_max'].T
+
+    # instance table, lane-padded to 128 with never-hit boxes
+    n_inst = len(entries)
+    I = -(-n_inst // 128) * 128
+    ibb = np.full((6, I), NEVER, np.float32)
+    iminv = np.tile(np.eye(3, 4, dtype=np.float32).reshape(1, 12), (I, 1))
+    imeta = np.zeros((I, 2), np.int32)
+    m_all = inst_table.m.numpy()
+    minv_all = inst_table.m_inv.numpy()
+
+    # per-prototype KIN-run object boxes (union of the run's real clusters)
+    chunk_lo, chunk_hi = [], []
+    for t in tabs:
+        lo = t['bb_min'].reshape(-1, KIN, 3)
+        hi = t['bb_max'].reshape(-1, KIN, 3)
+        real = (lo[..., 0] < 1e37)[..., None]
+        chunk_lo.append(np.where(real, lo, np.inf).min(1))
+        chunk_hi.append(np.where(real, hi, -np.inf).max(1))
+
+    ent_rows = np.asarray([row for _, row in entries], np.int64)
+    ent_pidx = np.asarray([proto_keys[key][0] for key, _ in entries],
+                          np.int64)
+    bits = ((np.arange(8)[:, None] >> np.asarray([2, 1, 0])) & 1) \
+        .astype(np.float32)                              # (8, 3) corner mask
+
+    def world_boxes(m, lo, hi):
+        """m (k, 3, 4); object boxes lo/hi (nc, 3) -> world lo/hi
+        (k, nc, 3) through the 8 corners (src/ProxyObject.cpp:97-130)."""
+        corners = lo[:, None] * (1 - bits)[None] + hi[:, None] * bits[None]
+        wc = np.einsum('kij,cqj->kcqi', m[:, :, :3], corners) \
+            + m[:, None, None, :, 3]                     # (k, nc, 8, 3)
+        return wc.min(2), wc.max(2)
+
+    seg_per_proto = np.asarray([len(c) for c in chunk_lo])
+    ent_nseg = seg_per_proto[ent_pidx]
+    ent_seg0 = np.concatenate([[0], np.cumsum(ent_nseg)[:-1]])
+    n_ent = int(ent_nseg.sum())
+    sb_lo = np.empty((n_ent, 3), np.float32)
+    sb_hi = np.empty((n_ent, 3), np.float32)
+    sm = np.empty((n_ent, 3), np.int32)
+    for p in range(P):
+        sel = np.flatnonzero(ent_pidx == p)
+        if len(sel) == 0:
+            continue
+        m = m_all[ent_rows[sel]]                         # (k, 3, 4)
+        real = tabs[p]['bb_min'][:, 0] < 1e37
+        bmn = tabs[p]['bb_min'][real].min(0, keepdims=True)
+        bmx = tabs[p]['bb_max'][real].max(0, keepdims=True)
+        wlo, whi = world_boxes(m, bmn, bmx)              # (k, 1, 3)
+        ibb[:3, sel] = wlo[:, 0].T
+        ibb[3:, sel] = whi[:, 0].T
+        iminv[sel] = minv_all[ent_rows[sel]].reshape(-1, 12)
+        imeta[sel, 0] = p
+        imeta[sel, 1] = ent_rows[sel]
+
+        slo, shi = world_boxes(m, chunk_lo[p], chunk_hi[p])  # (k, nc, 3)
+        nc = len(chunk_lo[p])
+        segids = (ent_seg0[sel][:, None] + np.arange(nc)[None]).reshape(-1)
+        sb_lo[segids] = slo.reshape(-1, 3)
+        sb_hi[segids] = shi.reshape(-1, 3)
+        sm[segids, 0] = np.repeat(sel, nc)
+        sm[segids, 1] = int(proto_off[p]) + np.tile(np.arange(nc) * KIN,
+                                                    len(sel))
+        sm[segids, 2] = np.repeat(ent_rows[sel], nc)
+    E = -(-n_ent // 128) * 128
+    sbb = np.full((6, E), NEVER, np.float32)
+    sbb[:3, :n_ent] = sb_lo.T
+    sbb[3:, :n_ent] = sb_hi.T
+    smeta = np.zeros((E, 3), np.int32)
+    smeta[:n_ent] = sm
+    strf = np.tile(np.eye(3, 4, dtype=np.float32).reshape(1, 12), (E, 1))
+    strf[:n_ent] = iminv[smeta[:n_ent, 0]]
+
+    t = torch.from_numpy
+    return InstancedClusters(
+        ibb=t(ibb), iminv=t(iminv.astype(np.float32)), imeta=t(imeta),
+        pbb=t(pbb), pmeta=t(pmeta), tri=t(tri), sbb=t(sbb), smeta=t(smeta),
+        strf=t(strf), p0=t(p0), e1=t(e1), e2=t(e2),
+        pool_proto=t(np.repeat(np.arange(P, dtype=np.int32), proto_len)),
+        pool_local=t(np.concatenate(
+            [np.arange(n, dtype=np.int32) for n in proto_len])),
+        cluster_size=C, num_instances=n_inst, num_entries=n_ent,
+        max_proto_clusters=int(proto_len.max()))

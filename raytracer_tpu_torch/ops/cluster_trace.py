@@ -69,6 +69,33 @@ def _mt(o, d, p0, e1, e2):
     return t, a, b, det
 
 
+def slab_keys(lo, hi, o, inv, tmin, tmax):
+    """Entry keys of (R,) rays against boxes lo, hi of shape (1 or R, n, 3)
+    -> (R, n); +inf where the slab test fails (the Pallas kernels'
+    slab6)."""
+    t0 = (lo - o[:, None]) * inv[:, None]
+    t1 = (hi - o[:, None]) * inv[:, None]
+    n, f = torch.minimum(t0, t1), torch.maximum(t0, t1)
+    near = torch.maximum(torch.maximum(n[..., 0], n[..., 1]), n[..., 2])
+    far = torch.minimum(torch.minimum(f[..., 0], f[..., 1]), f[..., 2])
+    ok = (near <= far) & (far >= tmin[:, None]) & (near <= tmax[:, None])
+    return torch.where(ok, torch.clamp(near, min=0.0), torch.inf)
+
+
+def reduce_best(r, t, ok, order, best_t, best_key, R):
+    """Fold one batch of (pair, lane) hits into the per-ray best: nearest
+    t, and on equal t the lowest `order` (pair-major, lanes inside)."""
+    tp, lane = torch.where(ok, t, torch.inf).min(dim=1)
+    tr = torch.full((R,), torch.inf, device=t.device)
+    tr.scatter_reduce_(0, r, tp, 'amin')
+    win = torch.isfinite(tp) & (tp == tr[r])
+    key = torch.full((R,), torch.iinfo(torch.int64).max, dtype=torch.int64,
+                     device=t.device)
+    key.scatter_reduce_(0, r[win], (order + lane)[win], 'amin')
+    better = tr < best_t
+    return torch.where(better, tr, best_t), torch.where(better, key, best_key)
+
+
 def trace_ids(cl, o, d, tmin, tmax, any_hit: bool):
     """(t, tri) of the visiting rule above, for (R,) float32 tmin/tmax."""
     R = o.shape[0]
@@ -81,14 +108,9 @@ def trace_ids(cl, o, d, tmin, tmax, any_hit: bool):
     tri_flat = cl.tri.reshape(-1)
     for c0 in range(0, M, CLUSTER_CHUNK):
         c1 = min(c0 + CLUSTER_CHUNK, M)
-        t0 = (cl.bb_min[None, c0:c1] - o[:, None]) * inv[:, None]
-        t1 = (cl.bb_max[None, c0:c1] - o[:, None]) * inv[:, None]
-        n, f = torch.minimum(t0, t1), torch.maximum(t0, t1)
-        near = torch.maximum(torch.maximum(n[..., 0], n[..., 1]), n[..., 2])
-        far = torch.minimum(torch.minimum(f[..., 0], f[..., 1]), f[..., 2])
-        ok_box = (near <= far) & (far >= tmin[:, None]) \
-            & (near <= tmax[:, None])
-        viable = ok_box & (torch.clamp(near, min=0.0) < best_t[:, None])
+        key = slab_keys(cl.bb_min[None, c0:c1], cl.bb_max[None, c0:c1], o,
+                        inv, tmin, tmax)
+        viable = key < best_t[:, None]
         if any_hit:
             viable &= (best_idx < 0)[:, None]
         ri, ci = viable.nonzero(as_tuple=True)     # ray-major, table order
@@ -103,15 +125,8 @@ def trace_ids(cl, o, d, tmin, tmax, any_hit: bool):
             if any_hit:
                 best_idx[r[ok.any(dim=1)]] = 0
                 continue
-            tp, lane = torch.where(ok, t, torch.inf).min(dim=1)
-            tr = torch.full((R,), torch.inf, device=dev)
-            tr.scatter_reduce_(0, r, tp, 'amin')
-            win = torch.isfinite(tp) & (tp == tr[r])
-            idx = torch.full((R,), M * C, dtype=torch.int64, device=dev)
-            idx.scatter_reduce_(0, r[win], (c * C + lane)[win], 'amin')
-            better = tr < best_t
-            best_t = torch.where(better, tr, best_t)
-            best_idx = torch.where(better, idx, best_idx)
+            best_t, best_idx = reduce_best(r, t, ok, c * C, best_t,
+                                           best_idx, R)
     got = best_idx >= 0
     tmax_t = torch.full_like(best_t, MIRO_TMAX)
     if any_hit:

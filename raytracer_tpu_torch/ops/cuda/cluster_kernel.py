@@ -24,8 +24,8 @@ from .. import cluster_trace as plain
 from .. import intersect as isect
 from ..intersect import Hit
 
-SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), 'csrc', 'cluster_trace.cu')
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), 'csrc')
 # -fmad=false: no multiply-add contraction, so the kernel rounds exactly as
 # the plain version does and the two agree bit for bit
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
@@ -42,21 +42,30 @@ def nvcc() -> str:
     return path
 
 
+def load(name: str, argtypes: list) -> ctypes.CDLL:
+    """Compile csrc/<name>.cu (once per source hash) into a shared library,
+    load it and declare its C entry point rt_<name>, which returns the
+    launch's CUDA error code."""
+    lib = ctypes.CDLL(native.build_shared(
+        [nvcc()], os.path.join(CSRC, f'{name}.cu'), NVCC_FLAGS, name))
+    fn = getattr(lib, f'rt_{name}')
+    fn.restype = ctypes.c_int
+    fn.argtypes = argtypes
+    return lib
+
+
 def build() -> ctypes.CDLL:
     """Compile (once per source hash) and load the kernel library."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(native.build_shared([nvcc()], SRC, NVCC_FLAGS,
-                                              'cluster_trace'))
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.rt_cluster_trace.restype = ci
-        lib.rt_cluster_trace.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci,
-                                         vp, vp, vp, vp, ci, ci, vp, vp, vp]
-        _lib = lib
+        _lib = load('cluster_trace', [vp, vp, vp, vp, vp, vp, ci, ci, vp, vp,
+                                      vp, vp, ci, ci, vp, vp, vp])
     return _lib
 
 
-def _check(name, x, dtype, shape, device):
+def check(name, x, dtype, shape, device):
+    """Raise unless x is a contiguous `dtype` tensor of `shape` on `device`."""
     if x.device != device or x.dtype != dtype or tuple(x.shape) != shape \
             or not x.is_contiguous():
         raise ValueError(
@@ -80,7 +89,7 @@ def launch(cl, o, d, tmin, tmax, any_hit: bool):
             ('tri', cl.tri, torch.int32, (M, C)),
             ('o', o, f32, (R, 3)), ('d', d, f32, (R, 3)),
             ('tmin', tmin, f32, (R,)), ('tmax', tmax, f32, (R,))):
-        _check(name, x, dt, shape, dev)
+        check(name, x, dt, shape, dev)
     if R >= 2 ** 31 or M * C >= 2 ** 31:
         raise ValueError('ray or triangle count exceeds the int32 indexing')
     t = torch.empty(R, dtype=f32, device=dev)

@@ -1,0 +1,107 @@
+"""Wrapper of the Hopper segment-trace kernel (csrc/iseg_trace.cu).
+
+Replaces raytracer_tpu/ops/pallas/iseg_kernel.py:pallas_iseg_trace for
+static instanced scenes with shallow prototypes, in nearest and any-hit
+modes. Built and bound as ops/cuda/cluster_kernel.py builds its kernel
+(nvcc -fmad=false into a plain C library, ctypes, PyTorch's current
+stream).
+
+For CUDA tensors `iseg_trace` launches the kernel or raises; for CPU tensors
+it runs the plain PyTorch version (ops/iseg_trace.py), which is the
+kernel's reference. `LAUNCHES` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ...core.types import Scene
+from ...geometry.clusters import NEVER
+from .. import intersect as isect
+from .. import iseg_trace as plain
+from ..intersect import Hit
+from .cluster_kernel import check, load
+
+GROUP = 32      # the kernel's kGroup: members per group box, both levels
+
+LAUNCHES = 0
+_lib = None
+
+
+def build() -> ctypes.CDLL:
+    """Compile (once per source hash) and load the kernel library."""
+    global _lib
+    if _lib is None:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        _lib = load('iseg_trace',
+                    [vp] * 9 + [ci] * 5 + [vp] * 4 + [ci, ci] + [vp] * 4)
+    return _lib
+
+
+def group_boxes(bb6, g: int = GROUP):
+    """(6, L) boxes -> (6, ceil(L / g)) unions of g consecutive real boxes;
+    a group of padding lanes only is a never-hit point box."""
+    bb = torch.nn.functional.pad(bb6, (0, (-bb6.shape[1]) % g), value=NEVER)
+    real = bb[0] < 1e37
+    lo = torch.where(real, bb[:3], torch.inf).reshape(3, -1, g).amin(-1)
+    hi = torch.where(real, bb[3:], -torch.inf).reshape(3, -1, g).amax(-1)
+    some = real.reshape(-1, g).any(-1)
+    return torch.where(some, torch.cat([lo, hi]), NEVER).contiguous()
+
+
+def launch(icl, o, d, tmin, tmax, any_hit: bool):
+    """Run the kernel on CUDA tensors -> (t, tri, inst), as
+    plain.trace_ids."""
+    global LAUNCHES
+    lib = build()
+    R = o.shape[0]
+    E = icl.sbb.shape[1]
+    Mtot, C = icl.tri.shape
+    dev = o.device
+    f32, i32 = torch.float32, torch.int32
+    for name, x, dt, shape in (
+            ('sbb', icl.sbb, f32, (6, E)), ('smeta', icl.smeta, i32, (E, 3)),
+            ('strf', icl.strf, f32, (E, 12)),
+            ('p0', icl.p0, f32, (Mtot * 3, C)),
+            ('e1', icl.e1, f32, (Mtot * 3, C)),
+            ('e2', icl.e2, f32, (Mtot * 3, C)),
+            ('tri', icl.tri, i32, (Mtot, C)),
+            ('o', o, f32, (R, 3)), ('d', d, f32, (R, 3)),
+            ('tmin', tmin, f32, (R,)), ('tmax', tmax, f32, (R,))):
+        check(name, x, dt, shape, dev)
+    if R >= 2 ** 31 or Mtot * 3 * C >= 2 ** 31 or E * 12 >= 2 ** 31:
+        raise ValueError('ray or table size exceeds the int32 indexing')
+    g1 = group_boxes(icl.sbb)
+    g2 = group_boxes(g1)
+    t = torch.empty(R, dtype=f32, device=dev)
+    tri = torch.empty(R, dtype=i32, device=dev)
+    inst = torch.empty(R, dtype=i32, device=dev)
+    err = lib.rt_iseg_trace(
+        icl.sbb.data_ptr(), icl.smeta.data_ptr(), icl.strf.data_ptr(),
+        g1.data_ptr(), g2.data_ptr(), icl.p0.data_ptr(), icl.e1.data_ptr(),
+        icl.e2.data_ptr(), icl.tri.data_ptr(), E, icl.num_entries,
+        g1.shape[1], g2.shape[1], C, o.data_ptr(), d.data_ptr(),
+        tmin.data_ptr(), tmax.data_ptr(), R, int(any_hit), t.data_ptr(),
+        tri.data_ptr(), inst.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f'iseg_trace kernel launch failed: CUDA error '
+                           f'{err}')
+    LAUNCHES += 1
+    return t, tri, inst
+
+
+@torch.no_grad()
+def iseg_trace(scene: Scene, o, d, time, tmin, tmax,
+               any_hit: bool = False) -> Hit:
+    """Trace a wavefront through scene.iclusters' segment table -> Hit (ids
+    and detached floats; intersect.refine_hit recomputes differentiably)."""
+    if o.device.type == 'cpu':
+        return plain.iseg_trace(scene, o, d, time, tmin, tmax, any_hit)
+    if o.device.type != 'cuda':
+        raise ValueError(f'iseg_trace: unsupported device {o.device}')
+    o, d = o.detach().contiguous(), d.detach().contiguous()
+    time, tmin, tmax = isect.ray_inputs(o, time, tmin, tmax)
+    t, tri, inst = launch(scene.iclusters, o, d, tmin, tmax, any_hit)
+    return plain.finish(scene, o, d, time, t, tri, inst, any_hit)

@@ -1,0 +1,131 @@
+"""The hierarchical two-level tracer in plain PyTorch: the reference for
+the CUDA kernel csrc/icluster_trace.cu.
+
+Same inputs and outputs as the JAX package's Pallas kernel
+(raytracer_tpu/ops/pallas/icluster_kernel.py:pallas_icluster_trace).
+Rule, per ray:
+  * visit the instances in table order (the lanes of scene.iclusters.ibb
+    below num_instances) and take one whose world box entry key
+    max(near, 0) beats the best t; move the ray into its object space
+    with the instance's world -> object affine (rows summed as
+    m0*ox + m1*oy + m2*oz + m3, icluster_kernel.py:175-180; the direction
+    is not renormalised, so t is the same in both spaces);
+  * visit that prototype's clusters in table order, slab-test each
+    cluster box (pbb) with the object-space ray and its own clamped
+    reciprocal, and Moller-Trumbore-test the 128 lanes of one whose key
+    beats the best t;
+  * a hit replaces the best only with a strictly smaller t: on equal t
+    the first instance in table order, then the first cluster, then the
+    lowest lane wins.
+The Pallas kernel visits a block's instances in block-nearest order, so it
+agrees with this rule on t and on hit or miss for every ray, and on tri
+and inst except where two hits have exactly equal t. Reciprocal clamp,
+best-t start, miss outputs, `cheap_any` and the object-space barycentric
+recompute are those of ops/iseg_trace.py. Rays in 32-ray blocks that
+cannot reach the union of the instance boxes are culled first
+(ops/bundle.py, icluster_kernel.py:353-359); the cull changes no hit.
+
+Vectorised: instances, then (ray, instance) pairs, then (pair, cluster)
+triples are swept in chunks against the best t of the chunk's start (a
+superset of the sequential visit, which only adds hits that lose).
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core.types import Scene
+from ..core.vecmath import MIRO_TMAX
+from . import bundle
+from . import intersect as isect
+from .cluster_trace import _mt, rcp, reduce_best, slab_keys
+from .intersect import Hit
+from .iseg_trace import finish, pool_slabs, to_object
+
+INST_CHUNK = 256
+PAIR_CHUNK = 1024
+TRIPLE_CHUNK = 8192
+
+# number of calls of the plain version, so a run can show which path it took
+CALLS = 0
+
+
+def trace_ids(icl, o, d, tmin, tmax, any_hit: bool):
+    """(t, tri, inst) of the visiting rule above, for (R,) float32 tmin,
+    tmax."""
+    R = o.shape[0]
+    C = icl.tri.shape[1]
+    MP = icl.pbb.shape[1]
+    NI = icl.num_instances
+    dev = o.device
+    inv = rcp(d)
+    tmax = bundle.cull_tmax(o, d, tmin, tmax, icl.ibb)
+    best_t0 = torch.clamp(tmax, max=MIRO_TMAX)
+    best_t = best_t0.clone()
+    best_key = torch.full((R,), -1, dtype=torch.int64, device=dev)
+    ilo, ihi = icl.ibb[:3].T, icl.ibb[3:].T
+    lane_m = torch.arange(MP, device=dev)
+    axes = torch.arange(3, device=dev)
+    for i0 in range(0, NI, INST_CHUNK):
+        i1 = min(i0 + INST_CHUNK, NI)
+        key = slab_keys(ilo[None, i0:i1], ihi[None, i0:i1], o, inv, tmin,
+                        tmax)
+        viable = key < best_t[:, None]
+        if any_hit:
+            viable &= (best_key < 0)[:, None]
+        ri, ii = viable.nonzero(as_tuple=True)     # ray-major, table order
+        for p in range(0, ri.shape[0], PAIR_CHUNK):
+            r = ri[p:p + PAIR_CHUNK]
+            inst = ii[p:p + PAIR_CHUNK] + i0
+            oo, dd = to_object(icl.iminv[inst], o[r], d[r])
+            proto = icl.imeta[inst, 0].long()
+            off = icl.pmeta[proto, 0].long()
+            mlen = icl.pmeta[proto, 1].long()
+            rows = 6 * proto[:, None] + axes                       # (P, 3)
+            lo = icl.pbb[rows].transpose(1, 2)                     # (P, MP, 3)
+            hi = icl.pbb[rows + 3].transpose(1, 2)
+            ckey = slab_keys(lo, hi, oo, rcp(dd), tmin[r], tmax[r])
+            cv = (ckey < best_t[r, None]) & (lane_m < mlen[:, None])
+            if any_hit:
+                cv &= (best_key[r] < 0)[:, None]
+            pi, ci = cv.nonzero(as_tuple=True)     # pair-major, table order
+            for q in range(0, pi.shape[0], TRIPLE_CHUNK):
+                pj = pi[q:q + TRIPLE_CHUNK]
+                cj = ci[q:q + TRIPLE_CHUNK]
+                rj = r[pj]
+                p0, e1, e2, tid = pool_slabs(icl, (off[pj] + cj)[:, None])
+                t, a, b, det = _mt(oo[pj, :, None], dd[pj, :, None], p0, e1,
+                                   e2)
+                ok = (a >= 0.0) & (a <= 1.0) & (b >= 0.0) & (a + b <= 1.0) \
+                    & (det != 0.0) & (tid >= 0) \
+                    & (t >= tmin[rj, None]) & (t < best_t[rj, None])
+                if any_hit:
+                    best_key[rj[ok.any(dim=1)]] = 0
+                    continue
+                order = (inst[pj] * MP + cj) * C
+                best_t, best_key = reduce_best(rj, t, ok, order, best_t,
+                                               best_key, R)
+    got = best_key >= 0
+    miss_t = torch.full_like(best_t, MIRO_TMAX)
+    if any_hit:
+        return (torch.where(got, best_t0, miss_t),
+                torch.where(got, 1, -1).to(torch.int32),
+                torch.zeros(R, dtype=torch.int32, device=dev))
+    k = best_key.clamp(min=0)
+    inst, c, lane = k // (MP * C), (k // C) % MP, k % C
+    row = icl.pmeta[icl.imeta[inst, 0].long(), 0].long() + c
+    tri = torch.where(got, icl.tri[row, lane], -1).to(torch.int32)
+    inst = torch.where(got, icl.imeta[inst, 1], 0).to(torch.int32)
+    return torch.where(got, best_t, miss_t), tri, inst
+
+
+@torch.no_grad()
+def icluster_trace(scene: Scene, o, d, time, tmin, tmax,
+                   any_hit: bool = False) -> Hit:
+    """Trace a wavefront through scene.iclusters' instance and prototype
+    tables in plain PyTorch -> Hit."""
+    global CALLS
+    CALLS += 1
+    o, d = o.detach().float().contiguous(), d.detach().float().contiguous()
+    time, tmin, tmax = isect.ray_inputs(o, time, tmin, tmax)
+    t, tri, inst = trace_ids(scene.iclusters, o, d, tmin, tmax, any_hit)
+    return finish(scene, o, d, time, t, tri, inst, any_hit)

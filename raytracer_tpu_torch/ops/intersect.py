@@ -101,9 +101,15 @@ def refine_hit(scene: Scene, o, d, time, hit: Hit):
 
     The forward values are pinned to the tracer's (recomputing t at a
     grazing triangle could move the shading point inside the surface);
-    gradients flow through the recomputation."""
+    gradients flow through the recomputation. On a two-level scene the ray
+    moves into the hit instance's object space through m_inv[inst], a
+    constant: transform gradients are not computed (as in the JAX
+    package)."""
     tri = torch.clamp(hit.tri, min=0)
     p = gather_tri_verts(scene, tri, time)
+    if not scene.single_level:
+        mi = scene.instances.m_inv[hit.inst.clamp(min=0).long()].detach()
+        o, d = vm.transform_point(mi, o), vm.transform_vector(mi, d)
     t, a, b, _ = mt_intersect(o, d, p[..., 0, :], p[..., 1, :], p[..., 2, :])
     t = hit.t + (t - t.detach())
     a = hit.a + (a - a.detach())

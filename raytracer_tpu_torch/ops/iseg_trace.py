@@ -1,0 +1,159 @@
+"""The flat two-level (segment) tracer in plain PyTorch: the reference for
+the CUDA kernel csrc/iseg_trace.cu.
+
+Same inputs and outputs as the JAX package's Pallas kernel
+(raytracer_tpu/ops/pallas/iseg_kernel.py:pallas_iseg_trace) and its
+outcome, ray for ray:
+  * a segment is one (instance, run of KIN prototype clusters) entry of
+    scene.iclusters, with a world box; each ray visits the segments in
+    table order and tests one whose box entry key max(near, 0) beats its
+    best t. It moves the ray into the segment's object space with the
+    segment's world -> object affine, each row summed as
+    m0*ox + m1*oy + m2*oz + m3 (iseg_kernel.py:143-148); the direction is
+    not renormalised, so t is the same in both spaces. It then
+    Moller-Trumbore-tests the KIN*C lanes of the run;
+  * a hit replaces the best only with a strictly smaller t, so the first
+    segment in table order and the lowest lane inside it win ties. This is
+    the Pallas kernel's batch argmin (first lane of a pass, passes in lane
+    order) followed by its slice merge (a later slice wins only on a
+    strictly smaller t, iseg_kernel.py:376-404): one pass over the whole
+    table gives the same hits, so the TPU's slicing is not carried over;
+  * the reciprocal clamp, the best-t start min(tmax, MIRO_TMAX) and the
+    miss outputs are the single-level kernel's (ops/cluster_trace.py);
+    `cheap_any` returns tri = 1 (a hit flag, not an id) and
+    t = min(tmax, MIRO_TMAX) for a hit (iseg_kernel.py:199-202);
+  * in nearest mode a and b are recomputed in the hit instance's object
+    space from the winning triangle, as the JAX wrapper does
+    (iseg_kernel.py:412-428).
+Rays in 32-ray blocks that cannot reach the table's box are culled first
+(ops/bundle.py, as the JAX wrapper does per slice); the cull is
+conservative, so it changes no hit.
+
+Vectorised over rays; the segments are swept in chunks, and each chunk's
+(ray, segment) pairs whose box passes are tested together against the best
+t of the chunk's start, which tests a superset of the sequential visit and
+only adds hits that lose to the best.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core import vecmath as vm
+from ..core.types import Scene
+from ..core.vecmath import MIRO_TMAX
+from ..geometry.clusters import KIN
+from . import bundle
+from . import intersect as isect
+from .cluster_trace import _mt, rcp, reduce_best, slab_keys
+from .intersect import Hit
+
+SEG_CHUNK = 1024
+PAIR_CHUNK = 4096
+
+# number of calls of the plain version, so a run can show which path it took
+CALLS = 0
+
+
+def to_object(m, o, d):
+    """World -> object space with (P, 12) affine rows, in the kernels'
+    order: m0*ox + m1*oy + m2*oz + m3 -> (o', d'), each (P, 3)."""
+    oo = [m[:, 4 * i] * o[:, 0] + m[:, 4 * i + 1] * o[:, 1]
+          + m[:, 4 * i + 2] * o[:, 2] + m[:, 4 * i + 3] for i in range(3)]
+    dd = [m[:, 4 * i] * d[:, 0] + m[:, 4 * i + 1] * d[:, 1]
+          + m[:, 4 * i + 2] * d[:, 2] for i in range(3)]
+    return torch.stack(oo, 1), torch.stack(dd, 1)
+
+
+def pool_slabs(icl, rows):
+    """MT basis and ids of pool clusters rows (P, k) -> p0, e1, e2
+    (P, 3, k*C) and tri (P, k*C), lanes cluster-major."""
+    P, k = rows.shape
+    C = icl.tri.shape[1]
+    comp = 3 * rows[:, :, None] + torch.arange(3, device=rows.device)
+
+    def basis(x):                                   # (P, k, 3, C)
+        return x[comp].transpose(1, 2).reshape(P, 3, k * C)
+    return (basis(icl.p0), basis(icl.e1), basis(icl.e2),
+            icl.tri[rows].reshape(P, k * C))
+
+
+def trace_ids(icl, o, d, tmin, tmax, any_hit: bool):
+    """(t, tri, inst) of the visiting rule above, for (R,) float32 tmin,
+    tmax."""
+    R = o.shape[0]
+    C = icl.tri.shape[1]
+    KC = KIN * C
+    E = icl.num_entries
+    dev = o.device
+    inv = rcp(d)
+    tmax = bundle.cull_tmax(o, d, tmin, tmax, icl.sbb)
+    best_t0 = torch.clamp(tmax, max=MIRO_TMAX)
+    best_t = best_t0.clone()
+    best_key = torch.full((R,), -1, dtype=torch.int64, device=dev)
+    lo_all, hi_all = icl.sbb[:3].T, icl.sbb[3:].T
+    kin = torch.arange(KIN, device=dev)
+    for s0 in range(0, E, SEG_CHUNK):
+        s1 = min(s0 + SEG_CHUNK, E)
+        key = slab_keys(lo_all[None, s0:s1], hi_all[None, s0:s1], o, inv,
+                        tmin, tmax)
+        viable = key < best_t[:, None]
+        if any_hit:
+            viable &= (best_key < 0)[:, None]
+        ri, ei = viable.nonzero(as_tuple=True)     # ray-major, table order
+        for p in range(0, ri.shape[0], PAIR_CHUNK):
+            r = ri[p:p + PAIR_CHUNK]
+            e = ei[p:p + PAIR_CHUNK] + s0
+            oo, dd = to_object(icl.strf[e], o[r], d[r])
+            rows = icl.smeta[e, 1].long()[:, None] + kin
+            p0, e1, e2, tid = pool_slabs(icl, rows)
+            t, a, b, det = _mt(oo[:, :, None], dd[:, :, None], p0, e1, e2)
+            ok = (a >= 0.0) & (a <= 1.0) & (b >= 0.0) & (a + b <= 1.0) \
+                & (det != 0.0) & (tid >= 0) \
+                & (t >= tmin[r, None]) & (t < best_t[r, None])
+            if any_hit:
+                best_key[r[ok.any(dim=1)]] = 0
+                continue
+            best_t, best_key = reduce_best(r, t, ok, e * KC, best_t,
+                                           best_key, R)
+    got = best_key >= 0
+    miss_t = torch.full_like(best_t, MIRO_TMAX)
+    if any_hit:
+        return (torch.where(got, best_t0, miss_t),
+                torch.where(got, 1, -1).to(torch.int32),
+                torch.zeros(R, dtype=torch.int32, device=dev))
+    k = best_key.clamp(min=0)
+    e, lane = k // KC, k % KC
+    row = icl.smeta[e, 1].long() + lane // C
+    tri = torch.where(got, icl.tri[row, lane % C], -1).to(torch.int32)
+    inst = torch.where(got, icl.smeta[e, 2], 0).to(torch.int32)
+    return torch.where(got, best_t, miss_t), tri, inst
+
+
+def finish(scene: Scene, o, d, time, t, tri, inst, any_hit: bool) -> Hit:
+    """Hit from the traced (t, tri, inst): in nearest mode the
+    barycentrics are recomputed from the winning triangle in the hit
+    instance's object space, as the JAX wrappers do."""
+    zeros = torch.zeros_like(t)
+    if any_hit:
+        return Hit(t=t, tri=tri, inst=inst, a=zeros, b=zeros)
+    p = isect.gather_tri_verts(scene, tri.clamp(min=0), time)
+    mi = scene.instances.m_inv[inst.long()]
+    _, a, b, _ = isect.mt_intersect(vm.transform_point(mi, o),
+                                    vm.transform_vector(mi, d),
+                                    p[..., 0, :], p[..., 1, :], p[..., 2, :])
+    valid = tri >= 0
+    return Hit(t=t, tri=tri, inst=inst, a=torch.where(valid, a, zeros),
+               b=torch.where(valid, b, zeros))
+
+
+@torch.no_grad()
+def iseg_trace(scene: Scene, o, d, time, tmin, tmax,
+               any_hit: bool = False) -> Hit:
+    """Trace a wavefront through scene.iclusters' segment table in plain
+    PyTorch -> Hit."""
+    global CALLS
+    CALLS += 1
+    o, d = o.detach().float().contiguous(), d.detach().float().contiguous()
+    time, tmin, tmax = isect.ray_inputs(o, time, tmin, tmax)
+    t, tri, inst = trace_ids(scene.iclusters, o, d, tmin, tmax, any_hit)
+    return finish(scene, o, d, time, t, tri, inst, any_hit)

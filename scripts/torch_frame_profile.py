@@ -1,14 +1,16 @@
 """Where a 1080p frame of the PyTorch port spends its time, on one GPU.
 
-    python3 scripts/torch_frame_profile.py [--tiles 17,19,21] [--trace PATH]
+    python3 scripts/torch_frame_profile.py [--scene NAME] [--tiles 17,19,21]
+                                           [--trace PATH]
 
-Renders `sponza_standin` at 1920x1080, 1 spp, 10 bounces with
-raytracer_tpu_torch on CUDA. For each ray tile size 2**k in --tiles it
-prints the median wall time of 3 renders after a warm-up. Then it profiles
-one render at the default tile with torch.profiler and prints the device
-time by kernel name, the cluster-trace kernel's share, and the device busy
-share (device kernel time over wall time). --trace writes the Chrome trace.
-Needs a CUDA device.
+Renders --scene (default `sponza_standin`: 1 spp, 10 bounces; or
+`instanced_grid_standin` / `forest_standin` at their own settings) at
+1920x1080 with raytracer_tpu_torch on CUDA. For each ray tile size 2**k in
+--tiles it prints the median wall time of 3 renders after a warm-up. Then
+it profiles one render at the default tile with torch.profiler and prints
+the device time by kernel name, the trace kernels' share, and the device
+busy share (device kernel time over wall time). --trace writes the Chrome
+trace. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -46,6 +48,9 @@ def wall(fn, reps=3):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument('--scene', default='sponza_standin',
+                    choices=('sponza_standin', 'instanced_grid_standin',
+                             'forest_standin'))
     ap.add_argument('--tiles', default='17,19,21')
     ap.add_argument('--trace', default=None)
     args = ap.parse_args()
@@ -54,7 +59,8 @@ def main() -> int:
                           '--format=csv,noheader'], capture_output=True,
                          text=True).stdout.strip())
     dev = torch.device('cuda', 0)
-    scene_h, cam_h, st = registry.sponza_standin(ray_tile=DEFAULT_TILE)
+    scene_h, cam_h, st = registry.make(args.scene, width=1920, height=1080,
+                                       ray_tile=DEFAULT_TILE)
     scene, cam = scene_h.to(dev), cam_h.to(dev)
     key = rng.PRNGKey(2024)
     W, H = st.width, st.height
@@ -84,12 +90,12 @@ def main() -> int:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
     total_us = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
-    trace_us = sum(v for n, v in by_name.items() if 'cluster_trace' in n)
-    print(json.dumps({'profiled_wall_s': wall_s,
+    trace_us = sum(v for n, v in by_name.items() if '_trace_kernel' in n)
+    print(json.dumps({'scene': args.scene, 'profiled_wall_s': wall_s,
                       'device_kernel_s': total_us / 1e6,
                       'device_busy_share': total_us / 1e6 / wall_s,
-                      'cluster_trace_s': trace_us / 1e6,
-                      'cluster_trace_share_of_device':
+                      'trace_kernel_s': trace_us / 1e6,
+                      'trace_kernel_share_of_device':
                           trace_us / max(total_us, 1e-9),
                       'n_device_kernels': len(events)}))
     for name, us in top:

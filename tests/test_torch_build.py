@@ -1,10 +1,13 @@
 """The port's host-side scene build against raytracer_tpu.SceneBuilder.
 
 Both builders run the same native SAH cluster build on the same geometry,
-so the cluster tables must be byte-equal, and every scene array equal
-exactly. convert.scene_from_arrays must carry a JAX-built scene across
+so the cluster tables (flat, or instance and two-level for an instanced
+scene, which the JAX builder builds with its BVH) must be byte-equal, and
+every scene array equal exactly. convert.scene_from_arrays must carry a JAX-built scene across
 without a change, and scene_to_arrays must invert it.
 """
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -22,6 +25,10 @@ BUILDS = {
     'triangle_sphere': lambda b: registry.triangle_sphere(size=8, builder=b),
     'sponza_standin_12': lambda b: registry.sponza_standin(
         32, 24, max_bounces=3, n_spheres=12, builder=b),
+    'instanced_teapots': lambda b: registry.instanced_teapots_standin(
+        8, 8, builder=b, bvh=b is not None),
+    'forest_8': lambda b: registry.forest_standin(
+        8, 8, n_trees=8, canopy=(30, 32), builder=b, bvh=b is not None),
 }
 
 
@@ -33,12 +40,17 @@ def pair(request):
 
 def test_cluster_tables_byte_equal(pair):
     sj, st = pair
-    for k in ('bb_min', 'bb_max', 'p0', 'e1', 'e2', 'tri'):
-        a = np.asarray(getattr(sj.clusters, k))
-        b = getattr(st.clusters, k).numpy()
-        assert a.dtype == b.dtype and a.shape == b.shape, k
-        assert a.tobytes() == b.tobytes(), k
-    assert st.clusters.cluster_size == sj.clusters.cluster_size
+    assert st.single_level == sj.single_level
+    name = 'clusters' if st.single_level else 'iclusters'
+    tj, tt = getattr(sj, name), getattr(st, name)
+    for f in dataclasses.fields(tt):
+        b = getattr(tt, f.name)
+        if not isinstance(b, torch.Tensor):
+            assert b == getattr(tj, f.name), f.name
+            continue
+        a, b = np.asarray(getattr(tj, f.name)), b.numpy()
+        assert a.dtype == b.dtype and a.shape == b.shape, f.name
+        assert a.tobytes() == b.tobytes(), f.name
 
 
 def test_scene_arrays_equal(pair):
@@ -80,10 +92,13 @@ def test_unported_features_raise():
         b.add_blinn(tex_color=0)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         render_adaptive()
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        b.build(bvh=True)
     sj, _, _ = registry.triangle_sphere(size=8, builder=rj.SceneBuilder())
     arrays, static = scene_arrays(sj)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        convert.scene_from_arrays(arrays, dict(static, single_level=False))
+    for flag in ('has_motion_blur', 'has_alpha_maps'):
+        with pytest.raises(NotImplementedError, match='ROADMAP'):
+            convert.scene_from_arrays(arrays, dict(static, **{flag: True}))
 
 
 def test_camera_from_arrays():

@@ -1,5 +1,6 @@
-"""The CUDA cluster-trace kernel against its plain PyTorch version, on the
-card. Every test here needs an NVIDIA GPU and nvcc, and skips elsewhere.
+"""The CUDA trace kernels (cluster, segment and hierarchical instance trace)
+against their plain PyTorch versions, on the card. Every test here needs an
+NVIDIA GPU and nvcc, and skips elsewhere.
 
 This file imports torch and the port only, so it runs on a machine without
 jax; tests/conftest.py imports jax, so run it there with
@@ -7,7 +8,7 @@ jax; tests/conftest.py imports jax, so run it there with
 
 Both sides run the same unfused float32 arithmetic (the kernel is built
 with -fmad=false) and the same visiting rule, so `t` and `tri` must agree
-exactly. Renders compare to the CPU render of the same key with the
+exactly, and `inst` too for the instanced kernels. Renders compare to the CPU render of the same key with the
 tolerance of tests/test_torch_render.py (elementwise transcendental
 functions differ between the CPU and CUDA libraries by an ulp or two).
 """
@@ -18,7 +19,11 @@ import torch
 import raytracer_tpu_torch as rt
 from raytracer_tpu_torch.core import rng
 from raytracer_tpu_torch.ops import cluster_trace as ct
+from raytracer_tpu_torch.ops import icluster_trace as ict
+from raytracer_tpu_torch.ops import iseg_trace as ist
 from raytracer_tpu_torch.ops.cuda import cluster_kernel as ck
+from raytracer_tpu_torch.ops.cuda import icluster_kernel as ick
+from raytracer_tpu_torch.ops.cuda import iseg_kernel as isk
 from raytracer_tpu_torch.render import camera as cam_mod
 from raytracer_tpu_torch.scenes import registry
 
@@ -119,6 +124,97 @@ def test_render_on_card_matches_cpu(dev):
     got = rt.render(scene.to(dev), cam.to(dev), st, key)
     torch.cuda.synchronize()
     assert ck.LAUNCHES > n0 and ct.CALLS == c0
+    got = got.cpu().numpy()
+    d = np.abs(got - want)
+    assert (d <= 1e-4 + 1e-3 * np.abs(want)).all(-1).mean() >= 0.99
+    assert d.mean() < 1e-3 * np.abs(want).mean()
+
+
+# instanced scenes: (builder, kwargs, kernel module, kernel name); the
+# 17,000-instance grid has 34,000 segments, past the Pallas kernel's
+# 32,767-entry slice limit
+INSTANCED = {
+    'teapots': (registry.instanced_teapots_standin, {}, isk, 'iseg_trace'),
+    'grid_17k': (registry.instanced_grid_standin, dict(n=17_000), isk,
+                 'iseg_trace'),
+    'forest_24': (registry.forest_standin, dict(n_trees=24), ick,
+                  'icluster_trace'),
+    'forest_200': (registry.forest_standin, {}, ick, 'icluster_trace'),
+}
+PLAIN = {'iseg_trace': ist.iseg_trace, 'icluster_trace': ict.icluster_trace}
+
+
+@pytest.fixture(scope='module', params=sorted(INSTANCED))
+def instanced(request, dev):
+    make, kw, mod, name = INSTANCED[request.param]
+    s, cam, _ = make(32, 24, **kw)
+    return s, s.to(dev), cam, mod, name
+
+
+def _instanced_rays(scene, cam, kind, seed=1):
+    """Camera rays, or random rays from the lowest 2.5 m of the instances'
+    box -> CPU tensors (o, d)."""
+    if kind == 'camera':
+        o, d, _ = cam_mod.center_rays(cam, 64, R // 64)
+        return o, d
+    rs = np.random.default_rng(seed)
+    ibb = scene.iclusters.ibb
+    real = ibb[0] < 1e37
+    lo, hi = ibb[:3, real].amin(1).numpy(), ibb[3:, real].amax(1).numpy()
+    hi[1] = min(hi[1], lo[1] + 2.5)
+    o = lo + rs.uniform(size=(R, 3)) * (hi - lo)
+    d = rs.normal(size=(R, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return (torch.tensor(o, dtype=torch.float32),
+            torch.tensor(d, dtype=torch.float32))
+
+
+@pytest.mark.parametrize('kind', ['random', 'camera'])
+@pytest.mark.parametrize('any_hit', [False, True])
+def test_instanced_kernel_matches_plain(instanced, dev, kind, any_hit):
+    host, card, cam, mod, name = instanced
+    o, d = _instanced_rays(host, cam, kind)
+    tmax = torch.full((R,), 1e12)
+    if any_hit:
+        near = PLAIN[name](host, o, d, 0.0, 1e-3, tmax, False).t
+        u = torch.tensor(np.random.default_rng(3).uniform(0.5, 1.5, R),
+                         dtype=torch.float32)
+        tmax = torch.clamp(near * u, max=1e12)
+    tmax[::5] = -1.0                               # dead lanes
+    hp = PLAIN[name](host, o, d, 0.0, 1e-3, tmax, any_hit)
+    n0 = mod.LAUNCHES
+    hk = getattr(mod, name)(card, o.to(dev), d.to(dev), 0.0, 1e-3,
+                            tmax.to(dev), any_hit)
+    torch.cuda.synchronize()
+    assert mod.LAUNCHES == n0 + 1
+    assert int((hp.tri >= 0).sum()) > R // 20
+    assert (hp.tri[::5] == -1).all()
+    for f in ('tri', 'inst', 't'):
+        np.testing.assert_array_equal(getattr(hk, f).cpu().numpy(),
+                                      getattr(hp, f).numpy())
+    np.testing.assert_allclose(hk.a.cpu().numpy(), hp.a.numpy(), atol=1e-6)
+    np.testing.assert_allclose(hk.b.cpu().numpy(), hp.b.numpy(), atol=1e-6)
+
+
+def test_instanced_kernel_rejects_bad_inputs(instanced, dev):
+    _, card, cam, mod, _ = instanced
+    o, d = _instanced_rays(card, cam, 'camera')
+    o, d = o.to(dev), d.to(dev)
+    ones = torch.ones(R, device=dev)
+    with pytest.raises(ValueError):
+        mod.launch(card.iclusters, o.double(), d, 0 * ones, ones, False)
+    with pytest.raises(ValueError):
+        mod.launch(card.iclusters, o.cpu(), d, 0 * ones, ones, False)
+
+
+def test_instanced_render_on_card_matches_cpu(dev):
+    scene, cam, st = registry.instanced_teapots_standin(32, 24)
+    key = rng.PRNGKey(11)
+    want = rt.render(scene, cam, st, key).numpy()
+    n0, c0 = isk.LAUNCHES, ist.CALLS
+    got = rt.render(scene.to(dev), cam.to(dev), st, key)
+    torch.cuda.synchronize()
+    assert isk.LAUNCHES > n0 and ist.CALLS == c0
     got = got.cpu().numpy()
     d = np.abs(got - want)
     assert (d <= 1e-4 + 1e-3 * np.abs(want)).all(-1).mean() >= 0.99

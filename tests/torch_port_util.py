@@ -22,8 +22,12 @@ def scene_arrays(scene_j):
     leaves = jax.tree_util.tree_flatten_with_path(scene_j)[0]
     arrays = {'.'.join(k.name for k in path): np.asarray(v)
               for path, v in leaves}
-    static = {k: operator.attrgetter(k)(scene_j)
-              for k in convert.STATIC_FIELDS}
+    static = {}
+    for k in convert.STATIC_FIELDS:
+        owner, _, name = k.rpartition('.')
+        obj = operator.attrgetter(owner)(scene_j) if owner else scene_j
+        if obj is not None:          # tables a scene does not carry
+            static[k] = getattr(obj, name)
     return arrays, static
 
 
