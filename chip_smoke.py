@@ -24,10 +24,23 @@ Drives the PyTorch/CUDA port's serving paths, forward renders through
      kernel against its plain version as in phase 4, then the 1080p render
      at the scene's own settings as in phase 5;
   8. `instanced_teapots_standin` rendered at 64x48 on the CPU and on the
-     card, held as in phase 6.
+     card, held as in phase 6;
+  9. the asset-free `final_forest_standin` at its defaults (204 alpha-cut
+     trees, 100 flowers, 1,600 grass clumps, the motion-blurred explosion
+     and cannonball, the HDR dome and env map, thin lens, 0.1 shutter):
+     the cluster kernel in `mb` + `need_ab` mode on the motion-blurred
+     partition and the hierarchical instance kernel in `need_ab` mode on
+     the trees, nearest and exact any-hit, each against its plain version
+     on the card at 32,768 coherent and incoherent rays (random shutter
+     times); then the 1080p frame, with the alpha march's passes and syncs;
+ 10. the same scene without trees (shallow prototypes only): the segment
+     kernel's `need_ab` modes against the plain version, and the frame;
+ 11. a reduced forest (4 trees, 64x48, 3 steps) rendered on the CPU and on
+     the card, held as in phase 6.
 
-Any failure raises. The last two lines are the kernels' JSON record and
-{"ok": true, "device": {...}}. Needs a CUDA device; there is no CPU mode.
+Any failure raises. The last two lines are the kernels' JSON record (one
+entry per kernel and mode group) and {"ok": true, "device": {...}}. Needs
+a CUDA device; there is no CPU mode.
 """
 from __future__ import annotations
 
@@ -65,11 +78,16 @@ KEY = 2024
 # the instanced cells: (scene builder, its instance count with the world
 # geometry's identity instance, kernel module, plain module, kernel name,
 # the TPU kernel it replaces)
+INSTANCED_REPLACES = (
+    ('iseg_trace', 'raytracer_tpu/ops/pallas/iseg_kernel.py:271'),
+    ('icluster_trace', 'raytracer_tpu/ops/pallas/icluster_kernel.py:309'))
 INSTANCED = (
     (registry.instanced_grid_standin, 100_000, isk, ist, 'iseg_trace',
-     'raytracer_tpu/ops/pallas/iseg_kernel.py:271'),
+     INSTANCED_REPLACES[0][1]),
     (registry.forest_standin, 201, ick, ict, 'icluster_trace',
-     'raytracer_tpu/ops/pallas/icluster_kernel.py:309'))
+     INSTANCED_REPLACES[1][1]))
+# the reduced final forest of the CPU/GPU parity check (phase 11)
+FOREST_PARITY = dict(n_trees=4, n_flowers=20, grass_grid=8, max_bounces=1)
 
 
 def phase(tag: str, **fields) -> None:
@@ -203,23 +221,33 @@ def compare_instanced(scene, cam, kernel, plain, dev):
     return max_err, ms_k, ms_p
 
 
-def render_cell(scene, cam, st, key, kernel, plain, tag, **fields) -> int:
+def render_cell(scene, cam, st, key, kernel, tag, also=(), **fields):
     """One 1080p render with every launch count set to 0 just before and
-    read just after (the kernel must carry every trace, the plain version
-    none), then the median wall of 3 -> the kernel's launch count."""
+    read just after (the kernel, and the kernels in `also`, must carry
+    every trace, the plain versions none), then the median wall of 3 ->
+    (the kernel's launch count, {kernel module: launches by mode}), both
+    read right after that first render."""
     torch.cuda.reset_peak_memory_stats()
     for mod in (ck, isk, ick):
         mod.LAUNCHES = 0
+        mod.MODES.clear()
     for mod in (ct, ist, ict):
         mod.CALLS = 0
+    ct.MARCH_PASSES = ct.MARCH_SYNCS = 0
     t0 = time.perf_counter()
     img = rt.render(scene, cam, st, key)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches, plain_calls = kernel.LAUNCHES, plain.CALLS
-    others = [m.LAUNCHES for m in (ck, isk, ick) if m is not kernel]
+    launches = kernel.LAUNCHES
+    plain_calls = ct.CALLS + ist.CALLS + ict.CALLS
+    march = dict(passes=ct.MARCH_PASSES, syncs=ct.MARCH_SYNCS)
+    modes = {m: dict(m.MODES) for m in (ck, isk, ick) if m.LAUNCHES}
+    others = [m.LAUNCHES for m in (ck, isk, ick)
+              if m is not kernel and m not in also]
     assert launches > 0, f'{tag}: the render never launched the kernel'
-    assert plain_calls == 0, f'{tag}: the render called the plain tracer'
+    for m in also:
+        assert m.LAUNCHES > 0, f'{tag}: the render never launched {m}'
+    assert plain_calls == 0, f'{tag}: the render called a plain tracer'
     assert not any(others), f'{tag}: the render launched another kernel'
     check_image(img, (st.height, st.width, 3))
     walls = []
@@ -233,8 +261,149 @@ def render_cell(scene, cam, st, key, kernel, plain, tag, **fields) -> int:
           wall_s=walls, median_s=wall,
           primary_rays_per_s=st.width * st.height / wall,
           mean_radiance=float(img.mean()),
-          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, **fields)
-    return launches
+          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+          launches_by_mode={m.__name__.rsplit('.', 1)[-1]: c
+                            for m, c in modes.items()},
+          alpha_march=march, **fields)
+    return launches, modes
+
+
+def mb_rays(cl, cam, dev):
+    """N_RAYS coherent rays (a 256 x 128 fan from the camera's eye over the
+    motion-blurred table's box) and N_RAYS incoherent ones (from around the
+    box to random points in it), each with a random shutter time in the
+    camera's [1 - shutter, 1]."""
+    real = cl.tri[:, 0] >= 0
+    lo = cl.bb_min[real].amin(0).cpu().numpy()
+    hi = cl.bb_max[real].amax(0).cpu().numpy()
+    rs = np.random.default_rng(KEY + 2)
+    gx, gy = np.meshgrid(np.linspace(0, 1, 256),
+                         np.linspace(0, 1, N_RAYS // 256))
+    tgt = lo + np.stack([gx.ravel(), gy.ravel(), np.full(gx.size, 0.5)],
+                        -1) * (hi - lo)
+    eye = cam.eye.cpu().numpy()
+    d = tgt - eye
+    ctr, ext = (lo + hi) / 2, (hi - lo).max()
+    o2 = ctr + rs.normal(size=(N_RAYS, 3)) * ext
+    d2 = ctr + rs.uniform(-0.5, 0.5, (N_RAYS, 3)) * ext - o2
+    shutter = float(cam.shutter)
+    f = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    unit = lambda v: v / np.linalg.norm(v, axis=-1, keepdims=True)
+    times = lambda: f(1.0 - shutter * rs.uniform(size=N_RAYS))
+    return {'coherent': (f(np.tile(eye, (len(d), 1))), f(unit(d)),
+                         times()),
+            'incoherent': (f(o2), f(unit(d2)), times())}
+
+
+def march_inputs(near, hit, rs):
+    """The ray bounds the render's alpha march and shadow rays give a trace,
+    from each ray's nearest hit: every 4th lane that hit starts just past
+    it (tmin = 1.0001 t, a march pass after a cutout), every 16th lane is
+    done (tmax = -1) -> (tmin, nearest tmax, any-hit tmax), the any-hit
+    rays stopping at 0.5-1.5 times their nearest hit's distance."""
+    lane = torch.arange(N_RAYS, device=near.device)
+    tmin = torch.where(hit & (lane % 4 == 1), near * 1.0001,
+                       torch.full_like(near, 1e-3))
+    dead = lane % 16 == 3
+    u = torch.as_tensor(rs.uniform(0.5, 1.5, N_RAYS), dtype=torch.float32,
+                        device=near.device)
+    tmax_any = torch.clamp(near * u, max=1e12)
+    tmax_near = torch.full_like(near, 1e12)
+    return (tmin, torch.where(dead, -1.0, tmax_near),
+            torch.where(dead, -1.0, tmax_any))
+
+
+def compare_modes(tag, trace_k, trace_p, rays):
+    """A kernel's new modes (nearest and exact any-hit of an alpha scene)
+    against its plain version on the card, at the bounds of march_inputs:
+    hit or miss, tri, inst, t, a and b must agree bit for bit -> (max
+    |error|, ms, plain ms)."""
+    max_err, ms_k, ms_p = 0.0, 0.0, 0.0
+    rs = np.random.default_rng(KEY + 4)
+    for kind, (o, d, times) in rays.items():
+        first = trace_p(o, d, times, 1e-3, 1e12, False)
+        tmin, tmax_near, tmax_any = march_inputs(first.t, first.tri >= 0, rs)
+        for any_hit in (False, True):
+            args = (o, d, times, tmin, tmax_any if any_hit else tmax_near,
+                    any_hit)
+            t_k, hk = cuda_ms(lambda: trace_k(*args))
+            t_p, hp = cuda_ms(lambda: trace_p(*args))
+            ms_k += t_k
+            ms_p += t_p
+            hits = int((hp.tri >= 0).sum())
+            hitmiss = int((hk.valid != hp.valid).sum())
+            differ = int(((hk.tri != hp.tri) | (hk.inst != hp.inst)).sum())
+            errs = {f: float((getattr(hk, f) - getattr(hp, f)).abs().max())
+                    for f in ('t', 'a', 'b')}
+            max_err = max(max_err, *errs.values())
+            phase(tag, rays=kind, mode='exact_any' if any_hit else 'nearest',
+                  n=N_RAYS, hits=hits, hit_miss_mismatch=hitmiss,
+                  tri_inst_mismatch=differ,
+                  **{f'max_abs_d{f}': e for f, e in errs.items()},
+                  kernel_ms=t_k, plain_ms=t_p)
+            assert hitmiss == 0 and differ == 0, f'{tag} {kind}: ids differ'
+            assert max(errs.values()) == 0.0, f'{tag} {kind}: t, a, b differ'
+            assert hits > N_RAYS // 20, 'too few hits to compare'
+    return max_err, ms_k, ms_p
+
+
+def forest_cell(dev, key, records, n_trees: int) -> None:
+    """Phases 9 and 10: final_forest_standin at 1080p, its new kernel modes
+    against their plain versions, and its frame."""
+    t0 = time.perf_counter()
+    scene_h, cam_h, st = registry.final_forest_standin(
+        WIDTH, HEIGHT, n_trees=n_trees, ray_tile=RAY_TILE)
+    scene, cam = scene_h.to(dev), cam_h.to(dev)
+    torch.cuda.synchronize()
+    icl, mb = scene.iclusters, scene.mb_clusters
+    deep = icl.max_proto_clusters > 16
+    kernel, plain, name = (ick, ict, 'icluster_trace') if deep else \
+        (isk, ist, 'iseg_trace')
+    fields = dict(n_trees=n_trees, instances=icl.num_instances,
+                  segments=icl.num_entries, clusters=icl.num_clusters,
+                  mb_clusters=mb.num_clusters, triangles=scene.num_tris,
+                  table_mb=(icl.nbytes + mb.nbytes) / 1e6,
+                  texel_mb=scene.textures.data.numel() * 4 / 1e6,
+                  instance_kernel=name)
+    phase(f'scene_final_forest_{n_trees}', build_s=time.perf_counter() - t0,
+          **fields)
+    assert scene.has_alpha_maps and scene.has_motion_blur
+    if deep:
+        err, t_k, t_p = compare_modes(
+            'mb_need_ab_kernel_vs_plain',
+            lambda *a: ck.cluster_trace(scene, *a, table=mb, mb=True),
+            lambda *a: ct.cluster_trace(scene, *a, table=mb, mb=True),
+            mb_rays(mb, cam, dev))
+        records.append(dict(
+            name='cluster_trace[mb+need_ab]', route='cuda',
+            source='raytracer_tpu_torch/csrc/cluster_trace.cu',
+            replaces='raytracer_tpu/ops/pallas/cluster_kernel.py:293',
+            max_abs_err=err, ms=t_k, plain_ms=t_p))
+    inst_rays = instanced_rays(scene, cam, dev)
+    shutter = float(cam.shutter)
+    rs = np.random.default_rng(KEY + 3)
+    rays = {k: (o, d, torch.as_tensor(
+        1.0 - shutter * rs.uniform(size=N_RAYS), dtype=torch.float32,
+        device=dev)) for k, (o, d) in inst_rays.items()}
+    err, t_k, t_p = compare_modes(
+        f'{name}_need_ab_kernel_vs_plain',
+        lambda *a: getattr(kernel, name)(scene, *a),
+        lambda *a: getattr(plain, name)(scene, *a), rays)
+    replaces = dict(INSTANCED_REPLACES)[name]
+    records.append(dict(name=f'{name}[need_ab]', route='cuda',
+                        source=f'raytracer_tpu_torch/csrc/{name}.cu',
+                        replaces=replaces, max_abs_err=err, ms=t_k,
+                        plain_ms=t_p))
+    _, modes = render_cell(scene, cam, st, key, kernel,
+                           f'render_1080p_final_forest_{n_trees}', also=(ck,),
+                           **fields)
+    # the new modes' launches in that frame, the only modes it runs
+    assert set(modes[ck]) <= {'mb+nearest+need_ab', 'mb+exact_any+need_ab'}
+    assert set(modes[kernel]) <= {'nearest+need_ab', 'exact_any+need_ab'}
+    if deep:
+        records[-2]['launches'] = sum(modes[ck].values())
+    records[-1]['launches'] = sum(modes[kernel].values())
+    del scene, scene_h
 
 
 def check_parity(scene, cam, st, key, kernel, dev, tag) -> None:
@@ -310,8 +479,8 @@ def main(dev=None) -> int:
 
     # ------------------------------------------------------ 5. full render
     key = rng.PRNGKey(KEY)
-    records[0]['launches'] = render_cell(scene, cam, st, key, ck, ct,
-                                         'render_1080p')
+    records[0]['launches'] = render_cell(scene, cam, st, key, ck,
+                                         'render_1080p')[0]
     del scene, scene_h
 
     # ------------------------------------------------- 6. CPU/GPU parity
@@ -332,8 +501,8 @@ def main(dev=None) -> int:
         assert icl.num_instances == n_inst
         err, t_k, t_p = compare_instanced(scene, cam, getattr(kernel, name),
                                           getattr(plain, name), dev)
-        launches = render_cell(scene, cam, st, key, kernel, plain,
-                               f'render_1080p_{name}', **fields)
+        launches, _ = render_cell(scene, cam, st, key, kernel,
+                                  f'render_1080p_{name}', **fields)
         records.append({'name': name, 'route': 'cuda',
                         'source': f'raytracer_tpu_torch/csrc/{name}.cu',
                         'replaces': replaces, 'launches': launches,
@@ -345,6 +514,17 @@ def main(dev=None) -> int:
         PARITY['width'], PARITY['height'])
     check_parity(scene_s, cam_s, st_s, key, isk, dev,
                  'cpu_gpu_parity_instanced')
+
+    # ------------------ 9, 10. the final forest, with trees and without
+    for n_trees in (200, 0):
+        forest_cell(dev, key, records, n_trees)
+
+    # ---------------------------------- 11. the forest's CPU/GPU parity
+    scene_s, cam_s, st_s = registry.final_forest_standin(
+        PARITY['width'], PARITY['height'], **FOREST_PARITY)
+    assert st_s.max_wavefront_steps == 3
+    check_parity(scene_s, cam_s, st_s, key, ick, dev,
+                 'cpu_gpu_parity_final_forest')
 
     print(json.dumps({'kernels': [
         {k: r[k] for k in ('name', 'route', 'source', 'replaces', 'launches',

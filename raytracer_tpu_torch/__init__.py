@@ -5,7 +5,8 @@ reference) for one NVIDIA H100. It imports torch and numpy, never jax.
 The tracers are hand-written CUDA kernels for CUDA tensors (csrc/:
 cluster_trace.cu for single-level scenes; iseg_trace.cu and
 icluster_trace.cu for instanced scenes of shallow and deep prototypes)
-and their plain PyTorch versions (ops/) for CPU tensors.
+and their plain PyTorch versions (ops/) for CPU tensors; scenes with alpha
+maps wrap them in the alpha march (ops/cluster_trace.alpha_aware_trace).
 """
 
 from .core.types import Camera, RenderSettings, Scene, MAT_BLINN, MAT_LAMBERT

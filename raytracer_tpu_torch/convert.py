@@ -6,8 +6,7 @@ pytree_node=False flags) are named the same way. `scene_from_arrays` builds
 this package's Scene from such a dict, and `scene_to_arrays` is its
 inverse over the fields this package keeps. This module sees numpy arrays
 only, never a jax object. Leaves this package does not read (the BVH, the
-instance table's BVH roots, the edge and motion-blur pose tables) are
-ignored; scene features it does not render yet raise.
+instance table's BVH roots, the edge table, `materials.kt`) are ignored.
 """
 from __future__ import annotations
 
@@ -21,40 +20,37 @@ from .geometry.clusters import Clusters, InstancedClusters
 
 # flags of the JAX Scene that this package's Scene keeps
 SCENE_FLAGS = ('env_tex', 'has_material_env', 'has_dispersion',
-               'has_translucency', 'single_level')
-# flags whose only supported value is implied here (a static scene without
-# alpha maps)
-IMPLIED_FLAGS = {'has_motion_blur': False, 'has_alpha_maps': False}
-# the static fields of the two-level table
+               'has_translucency', 'single_level', 'has_motion_blur',
+               'has_alpha_maps', 'mb_has_alpha')
+# the static fields of the two-level table and of the dome
 ICLUSTER_STATIC = tuple(f'iclusters.{k}' for k in (
     'cluster_size', 'num_instances', 'num_entries', 'max_proto_clusters'))
+DOME_STATIC = tuple(f'dome.{k}' for k in (
+    'tex', 'cast_shadows', 'fast_shadows', 'num_samples'))
 # every static (non-array) field of the JAX Scene that this module reads
-STATIC_FIELDS = SCENE_FLAGS + tuple(IMPLIED_FLAGS) + (
+STATIC_FIELDS = SCENE_FLAGS + (
     'point_lights.cast_shadows', 'point_lights.fast_shadows',
     'rect_lights.cast_shadows', 'rect_lights.fast_shadows',
     'rect_lights.num_samples', 'clusters.cluster_size',
-    'mb_clusters.cluster_size') + ICLUSTER_STATIC
+    'mb_clusters.cluster_size') + ICLUSTER_STATIC + DOME_STATIC
 
 _GROUPS = {'geom': T.Geometry, 'materials': T.Materials,
            'textures': T.TexturePack, 'point_lights': T.PointLights,
            'rect_lights': T.RectLights}
 # tables a scene may or may not carry
-_OPTIONAL = {'clusters': Clusters, 'instances': T.Instances,
-             'iclusters': InstancedClusters, 'mb_clusters': Clusters}
+_OPTIONAL = {'dome': T.DomeLight, 'clusters': Clusters,
+             'instances': T.Instances, 'iclusters': InstancedClusters,
+             'mb_clusters': Clusters}
 _CAMERA_FIELDS = ('eye', 'view_dir', 'up', 'fov', 'focus_plane',
                   'aperture', 'shutter')
 
 
-def _check_supported(arrays: dict, static: dict) -> None:
-    if any(k.startswith('dome.') for k in arrays):
-        raise NotImplementedError('the dome light: ROADMAP queue 1 #11')
-    if static['has_motion_blur']:
-        raise NotImplementedError('motion blur: ROADMAP queue 1 #11')
-    if static['has_alpha_maps']:
-        raise NotImplementedError('alpha maps: ROADMAP queue 1 #11')
-    table = 'clusters.tri' if static['single_level'] else 'iclusters.tri'
-    if table not in arrays:
-        raise ValueError(f'the scene carries no {table.split(".")[0]} table')
+def _check_tables(arrays: dict, static: dict) -> None:
+    tables = ('clusters.tri',) if static['single_level'] else (
+        'iclusters.tri', 'mb_clusters.tri')
+    if not any(t in arrays for t in tables):
+        raise ValueError(f'the scene carries no {tables[0].split(".")[0]} '
+                         f'table')
 
 
 def _group(cls, prefix: str, arrays: dict, static: dict):
@@ -71,7 +67,7 @@ def _group(cls, prefix: str, arrays: dict, static: dict):
 def scene_from_arrays(arrays: dict[str, np.ndarray], static: dict) -> T.Scene:
     """A CPU Scene from a JAX scene's leaves (dotted paths) and static
     fields (STATIC_FIELDS)."""
-    _check_supported(arrays, static)
+    _check_tables(arrays, static)
     groups = {k: _group(cls, k, arrays, static) for k, cls in _GROUPS.items()}
     groups.update({k: _group(cls, k, arrays, static)
                    for k, cls in _OPTIONAL.items()
@@ -99,7 +95,6 @@ def scene_to_arrays(scene: T.Scene) -> tuple[dict, dict]:
     arrays['env_exposure'] = scene.env_exposure.cpu().numpy()
     arrays['bg_color'] = scene.bg_color.cpu().numpy()
     static.update({k: getattr(scene, k) for k in SCENE_FLAGS})
-    static.update(IMPLIED_FLAGS)
     return arrays, static
 
 

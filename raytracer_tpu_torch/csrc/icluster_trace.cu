@@ -1,9 +1,12 @@
 // Hierarchical two-level tracer for Hopper (sm_90a): one thread per ray.
 //
 // Replaces the TPU kernel raytracer_tpu/ops/pallas/icluster_kernel.py
-// (pallas_icluster_trace; bodies _kernel and _trace_block) in its two
-// static modes: nearest hit, and the any-hit `cheap_any` mode of shadow
-// rays. It follows the rule of the plain PyTorch version
+// (pallas_icluster_trace; bodies _kernel and _trace_block) in all its
+// modes: nearest hit; the any-hit `cheap_any` mode of shadow rays; and
+// `need_ab` of alpha scenes, which writes the winning lane's own
+// barycentrics, computed in the instance's object space (the wrapper traces
+// the any-hit rays of alpha scenes as nearest ones: the exact any-hit of the
+// alpha march). It follows the rule of the plain PyTorch version
 // (raytracer_tpu_torch/ops/icluster_trace.py), so the two agree hit for hit:
 // each ray walks the instances in table order; one whose world box entry
 // key max(near, 0) beats the ray's best t moves the ray into its object
@@ -13,7 +16,7 @@
 // reciprocal, and Moller-Trumbore-tests the 128 lanes of one whose key
 // beats the best t, keeping a hit only with a strictly smaller t. Built
 // with -fmad=false, every multiply and add rounds on its own as in the
-// plain version, so t, tri and inst agree bit for bit.
+// plain version, so t, tri, inst, a and b agree bit for bit.
 //
 // The TPU kernel's block-nearest instance order, its (RB, I) and (RB, MP)
 // key matrices, the packed rank picks and the scene-box bundle cull are not
@@ -75,7 +78,8 @@ icluster_trace_kernel(const float* __restrict__ ibb,    // (6, I)
                       const float* __restrict__ tmax_in,
                       int R, int any_hit,
                       float* __restrict__ t_out, int* __restrict__ tri_out,
-                      int* __restrict__ inst_out) {
+                      int* __restrict__ inst_out, float* __restrict__ a_out,
+                      float* __restrict__ b_out) {
   const int r = blockIdx.x * kThreads + threadIdx.x;
   float ox = 0.f, oy = 0.f, oz = 0.f, dx = 0.f, dy = 0.f, dz = 0.f;
   float tmin = 0.f, tmax = -1.f;   // padding threads are dead rays
@@ -88,13 +92,16 @@ icluster_trace_kernel(const float* __restrict__ ibb,    // (6, I)
   // a ray with tmax <= 0 never hits; the block leaves when all its rays
   // are dead
   if (!__syncthreads_or(tmax > 0.f)) {
-    if (r < R) { t_out[r] = kTmax; tri_out[r] = -1; inst_out[r] = 0; }
+    if (r < R) {
+      t_out[r] = kTmax; tri_out[r] = -1; inst_out[r] = 0;
+      if (a_out) { a_out[r] = 0.f; b_out[r] = 0.f; }
+    }
     return;
   }
   const float ix = rcp_clamped(dx), iy = rcp_clamped(dy),
               iz = rcp_clamped(dz);
   const float best_t0 = tmax < kTmax ? tmax : kTmax;
-  float best_t = best_t0;
+  float best_t = best_t0, best_a = 0.f, best_b = 0.f;
   int best_tri = -1, best_inst = 0;
   bool done = !(tmax > 0.f);
 
@@ -144,6 +151,8 @@ icluster_trace_kernel(const float* __restrict__ ibb,    // (6, I)
           best_tri = tid;
           if (any_hit) { done = true; break; }
           best_t = t;
+          best_a = a;
+          best_b = b;
           best_inst = imeta[2 * i + 1];
         }
       }
@@ -160,12 +169,14 @@ icluster_trace_kernel(const float* __restrict__ ibb,    // (6, I)
       tri_out[r] = best_tri;
       inst_out[r] = got ? best_inst : 0;
     }
+    if (a_out) { a_out[r] = best_a; b_out[r] = best_b; }
   }
 }
 
 }  // namespace
 
-// Launches on `stream`; returns cudaGetLastError() after the launch.
+// Launches on `stream`; returns cudaGetLastError() after the launch. a_out
+// and b_out are written when not null (need_ab).
 extern "C" int rt_icluster_trace(const float* ibb, const float* iminv,
                                  const int* imeta, const float* pbb,
                                  const int* pmeta, const float* p0,
@@ -174,12 +185,14 @@ extern "C" int rt_icluster_trace(const float* ibb, const float* iminv,
                                  int C, const float* orig, const float* dir,
                                  const float* tmin, const float* tmax, int R,
                                  int any_hit, float* t_out, int* tri_out,
-                                 int* inst_out, void* stream) {
+                                 int* inst_out, float* a_out, float* b_out,
+                                 void* stream) {
   if (R > 0) {
     const int blocks = (R + kThreads - 1) / kThreads;
     icluster_trace_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
         ibb, iminv, imeta, pbb, pmeta, p0, e1, e2, tri, I, n_inst, MP, C,
-        orig, dir, tmin, tmax, R, any_hit, t_out, tri_out, inst_out);
+        orig, dir, tmin, tmax, R, any_hit, t_out, tri_out, inst_out, a_out,
+        b_out);
   }
   return (int)cudaGetLastError();
 }

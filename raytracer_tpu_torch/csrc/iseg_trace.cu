@@ -2,8 +2,11 @@
 //
 // Replaces the TPU kernel raytracer_tpu/ops/pallas/iseg_kernel.py
 // (pallas_iseg_trace; bodies _kernel, _trace_block and the per-slice
-// run_slice) in its two static modes: nearest hit, and the any-hit
-// `cheap_any` mode of shadow rays. It follows the rule of the plain PyTorch
+// run_slice) in all its modes: nearest hit; the any-hit `cheap_any` mode of
+// shadow rays; and `need_ab` of alpha scenes, which writes the winning
+// lane's own barycentrics, computed in the instance's object space (the
+// wrapper traces the any-hit rays of alpha scenes as nearest ones: the exact
+// any-hit of the alpha march). It follows the rule of the plain PyTorch
 // version (raytracer_tpu_torch/ops/iseg_trace.py), so the two agree hit for
 // hit: each ray walks the segment table in order; a segment is one
 // (instance, run of KIN prototype clusters) entry with a world box, and one
@@ -12,7 +15,7 @@
 // not renormalised, so t is unchanged) and Moller-Trumbore-tests the run's
 // lanes, keeping a hit only with a strictly smaller t. Built with
 // -fmad=false, every multiply and add rounds on its own as in the plain
-// version, so t, tri and inst agree bit for bit.
+// version, so t, tri, inst, a and b agree bit for bit.
 //
 // What the TPU design needed and this one does not: the (RB, E) dense cull
 // matrix, the rank-matmul picks packed 15 bits per id, and the table slices
@@ -80,7 +83,8 @@ iseg_trace_kernel(const float* __restrict__ sbb,    // (6, E) segment boxes
                   const float* __restrict__ tmax_in,
                   int R, int any_hit,
                   float* __restrict__ t_out, int* __restrict__ tri_out,
-                  int* __restrict__ inst_out) {
+                  int* __restrict__ inst_out, float* __restrict__ a_out,
+                  float* __restrict__ b_out) {
   const int r = blockIdx.x * kThreads + threadIdx.x;
   float ox = 0.f, oy = 0.f, oz = 0.f, dx = 0.f, dy = 0.f, dz = 0.f;
   float tmin = 0.f, tmax = -1.f;   // padding threads are dead rays
@@ -93,13 +97,16 @@ iseg_trace_kernel(const float* __restrict__ sbb,    // (6, E) segment boxes
   // a ray with tmax <= 0 never hits; the block leaves when all its rays
   // are dead
   if (!__syncthreads_or(tmax > 0.f)) {
-    if (r < R) { t_out[r] = kTmax; tri_out[r] = -1; inst_out[r] = 0; }
+    if (r < R) {
+      t_out[r] = kTmax; tri_out[r] = -1; inst_out[r] = 0;
+      if (a_out) { a_out[r] = 0.f; b_out[r] = 0.f; }
+    }
     return;
   }
   const float ix = rcp_clamped(dx), iy = rcp_clamped(dy),
               iz = rcp_clamped(dz);
   const float best_t0 = tmax < kTmax ? tmax : kTmax;
-  float best_t = best_t0;
+  float best_t = best_t0, best_a = 0.f, best_b = 0.f;
   int best_tri = -1, best_inst = 0;
   bool done = !(tmax > 0.f);
 
@@ -151,6 +158,8 @@ iseg_trace_kernel(const float* __restrict__ sbb,    // (6, E) segment boxes
               best_tri = tid;
               if (any_hit) { done = true; break; }
               best_t = t;
+              best_a = a;
+              best_b = b;
               best_inst = smeta[3 * e + 2];
             }
           }
@@ -169,12 +178,14 @@ iseg_trace_kernel(const float* __restrict__ sbb,    // (6, E) segment boxes
       tri_out[r] = best_tri;
       inst_out[r] = got ? best_inst : 0;
     }
+    if (a_out) { a_out[r] = best_a; b_out[r] = best_b; }
   }
 }
 
 }  // namespace
 
-// Launches on `stream`; returns cudaGetLastError() after the launch.
+// Launches on `stream`; returns cudaGetLastError() after the launch. a_out
+// and b_out are written when not null (need_ab).
 extern "C" int rt_iseg_trace(const float* sbb, const int* smeta,
                              const float* strf, const float* g1bb,
                              const float* g2bb, const float* p0,
@@ -183,12 +194,14 @@ extern "C" int rt_iseg_trace(const float* sbb, const int* smeta,
                              const float* orig, const float* dir,
                              const float* tmin, const float* tmax, int R,
                              int any_hit, float* t_out, int* tri_out,
-                             int* inst_out, void* stream) {
+                             int* inst_out, float* a_out, float* b_out,
+                             void* stream) {
   if (R > 0) {
     const int blocks = (R + kThreads - 1) / kThreads;
     iseg_trace_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
         sbb, smeta, strf, g1bb, g2bb, p0, e1, e2, tri, E, n_seg, G1, G2, C,
-        orig, dir, tmin, tmax, R, any_hit, t_out, tri_out, inst_out);
+        orig, dir, tmin, tmax, R, any_hit, t_out, tri_out, inst_out, a_out,
+        b_out);
   }
   return (int)cudaGetLastError();
 }

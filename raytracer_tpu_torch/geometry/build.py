@@ -1,12 +1,14 @@
 """Host-side scene assembly: meshes, materials and lights -> Scene.
 
-Port of raytracer_tpu/geometry/build.py for textureless, static scenes,
-single-level or instanced: the same method names and defaults, the same
-array layout, the same instance table and the same cluster tables.
-Everything here is numpy until `build` wraps the arrays as CPU tensors;
-move the scene with `scene.to(device)`. Not built: the BVH (ROADMAP queue
-1 #9) and the edge tables (queue 1 #13), which this package's render path
-does not read; textures and motion blur raise.
+Port of raytracer_tpu/geometry/build.py, single-level or instanced, with
+textures given as numpy images, motion blur, alpha maps, the env map and
+the dome light: the same method names and defaults, the same array
+layout, the same texel pool, dome tables, instance table and cluster
+tables. Everything here is numpy until `build` wraps the arrays as CPU
+tensors; move the scene with `scene.to(device)`. Not built: the BVH
+(ROADMAP queue 1 #9) and the edge tables (queue 1 #13), which this
+package's render path does not read. Reading image files
+(`add_texture_file`) waits for `io/imageio.py` (queue 1 #9).
 """
 from __future__ import annotations
 
@@ -18,9 +20,49 @@ from ..io.objload import MeshData, compute_tangents
 from . import clusters as cl_mod
 
 
+def _bilinear_lookup(img: np.ndarray, u: np.ndarray, v: np.ndarray
+                     ) -> np.ndarray:
+    """Numpy mirror of Texture::getLookup (src/Texture.cpp:43-72): wrap,
+    flip v, bilinear with tiled pixel fetch. img is (H, W, C)
+    top-row-first. Copied from raytracer_tpu/geometry/build.py."""
+    h, w = img.shape[:2]
+    u = u - np.trunc(u)
+    v = v - np.trunc(v)
+    u = np.where(u < 0, u + 1.0, u)
+    v = np.where(v < 0, v + 1.0, v)
+    v = 1.0 - v
+    px = u * w
+    py = v * h
+    x1 = np.floor(px).astype(np.int64)
+    y1 = np.floor(py).astype(np.int64)
+    dx = (px - x1)[..., None]
+    dy = (py - y1)[..., None]
+    x2 = (x1 + 1) % w
+    y2 = (y1 + 1) % h
+    x1 %= w
+    y1 %= h
+    q1 = img[y1, x1] * (1 - dx) + img[y1, x2] * dx
+    q2 = img[y2, x1] * (1 - dx) + img[y2, x2] * dx
+    return q1 * (1 - dy) + q2 * dy
+
+
+def _cdf_1d(f: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Distribution1D::computeStep1dCDF (src/DomeLight.h:21-30) over the
+    last axis -> (cdf (..., n + 1), func_int). Copied from
+    raytracer_tpu/geometry/build.py."""
+    n = f.shape[-1]
+    cdf = np.zeros(f.shape[:-1] + (n + 1,), np.float64)
+    cdf[..., 1:] = np.cumsum(f, axis=-1) / n
+    func_int = cdf[..., -1].copy()
+    safe = np.where(func_int > 0, func_int, 1.0)
+    cdf /= safe[..., None]
+    return cdf.astype(np.float32), func_int.astype(np.float32)
+
+
 class SceneBuilder:
     def __init__(self):
         self._verts: list[np.ndarray] = []
+        self._verts_t1: list[np.ndarray] = []
         self._norms: list[np.ndarray] = []
         self._uvs: list[np.ndarray] = [np.zeros((1, 2), np.float32)]
         self._tans: list[np.ndarray] = []
@@ -30,28 +72,44 @@ class SceneBuilder:
         self._face_t: list[np.ndarray] = []
         self._face_mat: list[np.ndarray] = []
         self._face_has_uv: list[np.ndarray] = []
+        self._face_mb: list[np.ndarray] = []
         self._nv = 0
         self._nn = 0
         self._nt = 1  # slot 0 is a zero uv
         self._ntri = 0
         self._mats: list[dict] = []
+        self._tex_imgs: list[np.ndarray] = []
         self._point_lights: list[dict] = []
         self._rect_lights: list[dict] = []
+        self._dome: dict | None = None
+        self._env_tex = -1
+        self._env_exposure = 1.0
         self._bg = np.zeros(3, np.float32)
+        self._has_mb = False
         # instancing: prototype triangle ranges [lo, hi) and placements
         self._protos: list[tuple[int, int]] = []
         self._open_proto: int | None = None
         self._instances: list[dict] = []
 
+    # ----------------------------------------------------------- textures
+    def add_texture(self, img: np.ndarray) -> int:
+        """img: (H, W, C) float32, top row first. Returns the texture id."""
+        img = np.asarray(img, np.float32)
+        if img.ndim == 2:
+            img = img[..., None]
+        self._tex_imgs.append(img)
+        return len(self._tex_imgs) - 1
+
+    def add_texture_file(self, path: str) -> int:
+        raise NotImplementedError(
+            'reading image files (io/imageio.py): ROADMAP queue 1 #9')
+
     # ---------------------------------------------------------- materials
     def _add_material(self, kind, kd, ka, ks, ior, spec_exp, spec_amt,
                       reflect_amt, refract_amt, spec_gloss, translucency,
                       emitted_power, le, disperse, sample_env, env_exposure,
-                      tex_ids) -> int:
-        if any(t >= 0 for t in tex_ids):
-            raise NotImplementedError(
-                'texture maps in SceneBuilder: ROADMAP queue 1 #9')
-
+                      tex_color, tex_alpha, tex_normal, tex_spec, tex_reflect,
+                      tex_refract, tex_env) -> int:
         def v3(x):
             return np.broadcast_to(np.asarray(x, np.float32), (3,)).copy()
         ior = np.asarray(ior, np.float32)
@@ -63,14 +121,17 @@ class SceneBuilder:
             refract_amt=refract_amt, spec_gloss=spec_gloss,
             translucency=translucency, emitted_power=emitted_power, le=v3(le),
             disperse=disperse, sample_env=sample_env,
-            env_exposure=env_exposure, tex_color=-1, tex_normal=-1,
-            tex_spec=-1, tex_reflect=-1, tex_refract=-1, tex_env=-1))
+            env_exposure=env_exposure, tex_color=tex_color,
+            tex_alpha=tex_alpha, tex_normal=tex_normal, tex_spec=tex_spec,
+            tex_reflect=tex_reflect, tex_refract=tex_refract,
+            tex_env=tex_env))
         return len(self._mats) - 1
 
     def add_lambert(self, kd=(1, 1, 1), ka=(0, 0, 0), tex_color=-1) -> int:
         return self._add_material(T.MAT_LAMBERT, kd, ka, (0, 0, 0), 1.0, 1.0,
                                   0.0, 0.0, 0.0, 1.0, 0.0, 0.0, (0, 0, 0),
-                                  False, True, 1.0, (tex_color,))
+                                  False, True, 1.0, tex_color, -1, -1, -1,
+                                  -1, -1, -1)
 
     def add_blinn(self, kd=(1, 1, 1), ka=(0, 0, 0), ks=(1, 1, 1), kt=(0, 0, 0),
                   ior=1.5, spec_exp=1.0, spec_amt=0.0, reflect_amt=0.0,
@@ -84,20 +145,21 @@ class SceneBuilder:
         return self._add_material(
             T.MAT_BLINN, kd, ka, ks, ior, spec_exp, spec_amt, reflect_amt,
             refract_amt, spec_gloss, translucency, emitted_power, le,
-            disperse, sample_env, env_exposure,
-            (tex_color, tex_alpha, tex_normal, tex_spec, tex_reflect,
-             tex_refract, tex_env))
+            disperse, sample_env, env_exposure, tex_color, tex_alpha,
+            tex_normal, tex_spec, tex_reflect, tex_refract, tex_env)
 
     # ----------------------------------------------------------- geometry
     def add_mesh(self, mesh: MeshData, material: int | np.ndarray,
                  mesh_t1: MeshData | None = None) -> None:
-        """Append a mesh to the static world."""
-        if mesh_t1 is not None:
-            raise NotImplementedError('motion blur: ROADMAP queue 1 #11')
+        """Append a mesh to the open prototype (or the static world).
+        mesh_t1 gives the t = 1 vertex pose for motion blur (reference
+        MBObject, src/MBObject.h:11-27); its topology must be mesh's."""
         if mesh.tangents is None:
             compute_tangents(mesh)
         ntri = mesh.num_tris
         self._verts.append(mesh.vertices)
+        self._verts_t1.append(mesh.vertices if mesh_t1 is None
+                              else mesh_t1.vertices.astype(np.float32))
         self._norms.append(mesh.normals)
         self._tans.append(mesh.tangents)
         self._bitans.append(mesh.bitangents)
@@ -113,6 +175,8 @@ class SceneBuilder:
             self._face_has_uv.append(np.zeros(ntri, bool))
         mat = np.asarray(material, np.int32)
         self._face_mat.append(np.broadcast_to(mat, (ntri,)).copy())
+        self._face_mb.append(np.full(ntri, mesh_t1 is not None, bool))
+        self._has_mb = self._has_mb or mesh_t1 is not None
         self._nv += len(mesh.vertices)
         self._nn += len(mesh.normals)
         self._ntri += ntri
@@ -191,10 +255,46 @@ class SceneBuilder:
             color=np.asarray(color, np.float32), num_samples=int(num_samples),
             cast_shadows=cast_shadows, fast_shadows=fast_shadows))
 
+    def set_dome_light(self, tex: int, gain=1.0, num_samples=1,
+                       cast_shadows=True, fast_shadows=True) -> None:
+        self._dome = dict(tex=tex, gain=float(gain),
+                          num_samples=int(num_samples),
+                          cast_shadows=cast_shadows, fast_shadows=fast_shadows)
+
+    def set_env_map(self, tex: int, exposure: float = 1.0) -> None:
+        self._env_tex = tex
+        self._env_exposure = float(exposure)
+
     def set_bg_color(self, color) -> None:
         self._bg = np.asarray(color, np.float32)
 
     # --------------------------------------------------------------- build
+    def _build_dome(self) -> T.DomeLight | None:
+        """2-D CDF over the lat-long map (src/DomeLight.cpp:8-78): a
+        v-distribution per column weighted by sin(pi (v + .5) / nv), and a
+        marginal over u from the column integrals."""
+        if self._dome is None:
+            return None
+        img = self._tex_imgs[self._dome['tex']]
+        nv_, nu_ = img.shape[0], img.shape[1]
+        uu, vv = np.meshgrid(np.arange(nu_) / nu_, np.arange(nv_) / nv_,
+                             indexing='ij')                 # (nu, nv)
+        lum = _bilinear_lookup(img, uu, vv)[..., :3].mean(-1)
+        sin_w = np.sin(np.pi * (np.arange(nv_) + 0.5) / nv_)
+        v_func = (lum * sin_w[None, :]).astype(np.float32)   # (nu, nv)
+        v_cdf, v_int = _cdf_1d(v_func)
+        u_func = v_int.astype(np.float32)                    # (nu,)
+        u_cdf, u_int = _cdf_1d(u_func)
+        t = torch.from_numpy
+        return T.DomeLight(
+            gain=torch.tensor(self._dome['gain'], dtype=torch.float32),
+            u_cdf=t(u_cdf), u_func=t(u_func),
+            u_func_int=t(np.asarray(u_int, np.float32)), v_cdf=t(v_cdf),
+            v_func=t(v_func), v_func_int=t(v_int), tex=self._dome['tex'],
+            cast_shadows=self._dome['cast_shadows'],
+            fast_shadows=self._dome['fast_shadows'],
+            num_samples=self._dome['num_samples'])
+
     def build(self, bvh: bool = False) -> T.Scene:
         """Assemble the scene (on the CPU) with its cluster tables: the
         flat table of a single-level scene, or the instance table and the
@@ -208,6 +308,7 @@ class SceneBuilder:
         face_v = np.concatenate(self._face_v).astype(np.int32)
         geom = T.Geometry(
             vertices=cat(self._verts, np.float32),
+            vertices_t1=cat(self._verts_t1, np.float32),
             normals=cat(self._norms, np.float32),
             texcoords=cat(self._uvs, np.float32),
             tangents=cat(self._tans, np.float32),
@@ -216,7 +317,8 @@ class SceneBuilder:
             face_n=cat(self._face_n, np.int32),
             face_t=cat(self._face_t, np.int32),
             face_mat=cat(self._face_mat, np.int32),
-            face_has_uv=cat(self._face_has_uv, bool))
+            face_has_uv=cat(self._face_has_uv, bool),
+            face_mb=cat(self._face_mb, bool))
 
         if not self._mats:
             self.add_lambert()
@@ -235,14 +337,22 @@ class SceneBuilder:
             disperse=col('disperse', bool), sample_env=col('sample_env', bool),
             env_exposure=col('env_exposure'),
             **{k: col(k, np.int32) for k in (
-                'tex_color', 'tex_normal', 'tex_spec', 'tex_reflect',
-                'tex_refract', 'tex_env')})
+                'tex_color', 'tex_alpha', 'tex_normal', 'tex_spec',
+                'tex_reflect', 'tex_refract', 'tex_env')})
 
-        # an EMPTY pool: every texture lookup short-circuits statically
-        empty_i = torch.zeros(0, dtype=torch.int32)
-        textures = T.TexturePack(data=torch.zeros(0), offset=empty_i,
-                                 width=empty_i, height=empty_i,
-                                 channels=empty_i)
+        # all images in one texel pool; without textures an EMPTY pool, so
+        # every texture lookup short-circuits statically
+        imgs = self._tex_imgs
+        flats = [img.reshape(-1) for img in imgs]
+        i32 = lambda xs: t(np.asarray(xs, np.int32).reshape(-1))
+        textures = T.TexturePack(
+            data=t(np.concatenate(flats).astype(np.float32) if flats
+                   else np.zeros(0, np.float32)),
+            offset=i32(np.cumsum([0] + [len(x) for x in flats[:-1]])
+                       if flats else []),
+            width=i32([i.shape[1] for i in imgs]),
+            height=i32([i.shape[0] for i in imgs]),
+            channels=i32([i.shape[2] for i in imgs]))
 
         def rows(ls, key, width=None):
             a = np.asarray([l[key] for l in ls], np.float32)
@@ -271,14 +381,23 @@ class SceneBuilder:
             tables = dict(clusters=cl_mod.build_clusters(geom))
         else:
             inst_table = self._instance_table(instances)
-            tables = dict(instances=inst_table,
-                          iclusters=cl_mod.build_instanced_clusters(
-                              geom, instances, inst_table))
+            icl, mb = cl_mod.build_instanced_clusters(geom, instances,
+                                                      inst_table)
+            tables = dict(instances=inst_table, iclusters=icl,
+                          mb_clusters=mb)
 
+        alpha_of_face = materials.tex_alpha[geom.face_mat.long()] >= 0
         return T.Scene(
             geom=geom, materials=materials, textures=textures,
             point_lights=point_lights, rect_lights=rect_lights,
-            env_exposure=torch.tensor(1.0), bg_color=t(self._bg.copy()),
+            dome=self._build_dome(),
+            env_exposure=torch.tensor(self._env_exposure,
+                                      dtype=torch.float32),
+            bg_color=t(self._bg.copy()), env_tex=self._env_tex,
             single_level=single_level, **tables,
+            has_motion_blur=self._has_mb,
+            has_alpha_maps=bool(alpha_of_face.any()),
+            mb_has_alpha=bool(alpha_of_face[geom.face_mb].any()),
+            has_material_env=bool((materials.tex_env >= 0).any()),
             has_dispersion=bool(materials.disperse.any()),
             has_translucency=bool((materials.translucency > 0.01).any()))

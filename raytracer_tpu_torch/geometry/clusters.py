@@ -9,8 +9,11 @@ each cluster stores its AABB and its triangles' Moller-Trumbore basis
 triangles with id -1 and always trail the real lanes of a cluster; padding
 rows hold far-away point boxes (lo == hi == 3e37) that fail every slab test.
 
-The motion-blur pose tables (`*_t1`) come with motion blur (ROADMAP queue 1
-#11), and `refresh_iclusters` with the trainer (#7).
+A table over motion-blurred triangles also stores the t = 1 pose basis
+(`*_t1`); its boxes bound both poses, and the tracers lerp the basis by ray
+time. A static table's `*_t1` are its t = 0 tensors themselves (one
+buffer, as in the JAX build). `refresh_iclusters` comes with the trainer
+(ROADMAP queue 1 #7).
 """
 from __future__ import annotations
 
@@ -33,11 +36,14 @@ KIN = 4
 @dataclass
 class Clusters(TensorData):
     """Padded SoA cluster table, M clusters x C triangles."""
-    bb_min: torch.Tensor     # (M, 3) f32
+    bb_min: torch.Tensor     # (M, 3) f32, union of both motion poses
     bb_max: torch.Tensor     # (M, 3) f32
     p0: torch.Tensor         # (M, 3, C) f32 [component, lane]
     e1: torch.Tensor         # (M, 3, C)
     e2: torch.Tensor         # (M, 3, C)
+    p0_t1: torch.Tensor      # (M, 3, C) t = 1 pose; p0 itself when static
+    e1_t1: torch.Tensor
+    e2_t1: torch.Tensor
     tri: torch.Tensor        # (M, C) i32, -1 = padding
     cluster_size: int = 128
 
@@ -47,24 +53,30 @@ class Clusters(TensorData):
 
     @property
     def nbytes(self) -> int:
-        return sum(x.numel() * x.element_size() for x in
-                   (self.bb_min, self.bb_max, self.p0, self.e1, self.e2,
-                    self.tri))
+        """Bytes of the distinct tensors (aliased t = 1 tables count once)."""
+        seen = {id(x): x for x in
+                (self.bb_min, self.bb_max, self.p0, self.e1, self.e2,
+                 self.p0_t1, self.e1_t1, self.e2_t1, self.tri)}
+        return sum(x.numel() * x.element_size() for x in seen.values())
 
 
 def build_clusters(geom: Geometry, cluster_size: int = 128,
                    pad_clusters_to: int = 8,
                    tri_ids: np.ndarray | None = None) -> Clusters:
-    """Cut the SAH tree over a static geometry's triangles (all of them,
-    or the subset `tri_ids`) into <= cluster_size clusters; pad the row
-    count to a multiple of pad_clusters_to. The tri table holds global
-    triangle ids."""
+    """Cut the SAH tree over a geometry's triangles (all of them, or the
+    subset `tri_ids`) into <= cluster_size clusters; pad the row count to a
+    multiple of pad_clusters_to. The tri table holds global triangle ids;
+    the t = 1 pose tables are built when a triangle of the subset is
+    motion-blurred."""
     C = cluster_size
     if tri_ids is None:
         tri_ids = np.arange(geom.num_tris, dtype=np.int64)
     tri_ids = np.asarray(tri_ids, np.int64)
-    bb_min, bb_max, p0, e1, e2, tri = native.build_clusters_native(
-        geom.vertices.cpu().numpy(), geom.face_v.cpu().numpy(), tri_ids, C)
+    has_mb = bool(geom.face_mb.cpu().numpy()[tri_ids].any())
+    bb_min, bb_max, p0, e1, e2, q0, q1, q2, tri = \
+        native.build_clusters_native(
+            geom.vertices.cpu().numpy(), geom.vertices_t1.cpu().numpy(),
+            geom.face_v.cpu().numpy(), tri_ids, C, has_mb)
     M = max(len(tri), 1)
     pad = -(-M // pad_clusters_to) * pad_clusters_to - len(tri)
     if pad:
@@ -74,10 +86,15 @@ def build_clusters(geom: Geometry, cluster_size: int = 128,
         bb_min = padrow(bb_min, NEVER)
         bb_max = padrow(bb_max, NEVER)
         p0, e1, e2 = (padrow(x, 0.0) for x in (p0, e1, e2))
+        if has_mb:
+            q0, q1, q2 = (padrow(x, 0.0) for x in (q0, q1, q2))
         tri = padrow(tri, -1)
     t = torch.from_numpy
-    return Clusters(bb_min=t(bb_min), bb_max=t(bb_max), p0=t(p0), e1=t(e1),
-                    e2=t(e2), tri=t(tri), cluster_size=C)
+    p0, e1, e2 = t(p0), t(e1), t(e2)
+    q0, q1, q2 = (t(q0), t(q1), t(q2)) if has_mb else (p0, e1, e2)
+    return Clusters(bb_min=t(bb_min), bb_max=t(bb_max), p0=p0, e1=e1,
+                    e2=e2, p0_t1=q0, e1_t1=q1, e2_t1=q2, tri=t(tri),
+                    cluster_size=C)
 
 
 @dataclass
@@ -120,27 +137,47 @@ class InstancedClusters(TensorData):
 
 
 def build_instanced_clusters(geom: Geometry, instances: list[dict],
-                             inst_table: Instances,
-                             cluster_size: int = 128) -> InstancedClusters:
+                             inst_table: Instances, cluster_size: int = 128
+                             ) -> tuple[InstancedClusters | None,
+                                        Clusters | None]:
     """Two-level cluster build (raytracer_tpu/geometry/clusters.py
     :build_instanced_clusters), numpy on the host.
 
     instances: the SceneBuilder's dicts (m (3, 4); lo/hi prototype
     triangle range, or tris= explicit world triangle ids), in the row order
-    of inst_table. Scenes here are static, so the motion-blur split of the
-    JAX build never fires and no mb_clusters table is made."""
+    of inst_table. Returns (iclusters, mb_clusters): the motion-blurred
+    world triangles go into a single-level table of their own, traced
+    apart and merged by nearest t; iclusters is None when the world is all
+    motion-blurred and no prototype is placed. Motion-blurred prototype
+    triangles need the BVH tracer (ROADMAP queue 1 #9) and raise."""
+    face_mb = geom.face_mb.cpu().numpy()
     proto_keys: dict = {}
     entries = []                 # (key, instance row) per kept instance
+    mb_world: list[np.ndarray] = []
     for row, inst in enumerate(instances):
         if inst['tris'] is not None:
             tri_ids = np.asarray(inst['tris'], np.int64)
+            mb_world.append(tri_ids[face_mb[tri_ids]])
+            tri_ids = tri_ids[~face_mb[tri_ids]]
+            if len(tri_ids) == 0:
+                continue                  # the world is all motion-blurred
             key = ('world', tri_ids.tobytes())
         else:
             key = (inst['lo'], inst['hi'])
             tri_ids = np.arange(inst['lo'], inst['hi'], dtype=np.int64)
+            if key not in proto_keys and face_mb[tri_ids].any():
+                raise NotImplementedError(
+                    'motion-blurred prototype triangles need the BVH '
+                    'tracer: ROADMAP queue 1 #9')
         if key not in proto_keys:
             proto_keys[key] = (len(proto_keys), tri_ids)
         entries.append((key, row))
+
+    mb_world = np.concatenate(mb_world) if mb_world else np.zeros(0, np.int64)
+    mb_clusters = (build_clusters(geom, cluster_size, tri_ids=mb_world)
+                   if len(mb_world) else None)
+    if not proto_keys:
+        return None, mb_clusters
 
     # per-prototype object-space tables, padded to KIN rows
     C = cluster_size
@@ -249,4 +286,4 @@ def build_instanced_clusters(geom: Geometry, instances: list[dict],
         pool_local=t(np.concatenate(
             [np.arange(n, dtype=np.int32) for n in proto_len])),
         cluster_size=C, num_instances=n_inst, num_entries=n_ent,
-        max_proto_clusters=int(proto_len.max()))
+        max_proto_clusters=int(proto_len.max())), mb_clusters

@@ -70,34 +70,42 @@ def get_lib() -> ctypes.CDLL:
     return _lib
 
 
-def build_clusters_native(verts: np.ndarray, faces: np.ndarray,
-                          tri_ids: np.ndarray, cluster_size: int):
-    """Binned-SAH cluster build of static triangles (leaf = cluster_size).
+def build_clusters_native(verts: np.ndarray, verts_t1: np.ndarray,
+                          faces: np.ndarray, tri_ids: np.ndarray,
+                          cluster_size: int, has_mb: bool):
+    """Binned-SAH cluster build (leaf = cluster_size) over boxes that bound
+    both motion poses.
 
-    Returns (bb_min, bb_max, p0, e1, e2, tri) with one row per cluster."""
+    Returns (bb_min, bb_max, p0, e1, e2, q0, q1, q2, tri) with one row per
+    cluster; the t = 1 basis q* is p0/e1/e2 itself unless has_mb."""
     lib = get_lib()
     n = len(tri_ids)
     C = cluster_size
     va = np.ascontiguousarray(verts, np.float32).reshape(-1)
+    vb = np.ascontiguousarray(verts_t1, np.float32).reshape(-1)
     fa = np.ascontiguousarray(faces, np.int32).reshape(-1)
     ta = np.ascontiguousarray(tri_ids, np.int64)
     # SAH leaves average well above C/4 triangles; grow on overflow
     cap = max(8 * ((n + C - 1) // C) + 8, 8)
-    dummy = np.empty((1, 3, C), np.float32)   # t=1 pose, unused when static
     while True:
         bb_min = np.empty((cap, 3), np.float32)
         bb_max = np.empty((cap, 3), np.float32)
-        p0 = np.empty((cap, 3, C), np.float32)
-        e1 = np.empty((cap, 3, C), np.float32)
-        e2 = np.empty((cap, 3, C), np.float32)
+        p0, e1, e2 = (np.empty((cap, 3, C), np.float32) for _ in range(3))
+        # the t = 1 pose is never written when static: 1-row dummies
+        qcap = cap if has_mb else 1
+        q0, q1, q2 = (np.empty((qcap, 3, C), np.float32) for _ in range(3))
         tri = np.empty((cap, C), np.int32)
         m = lib.rt_build_clusters(
-            va, va, fa, ta, n, C, 0, cap, bb_min.reshape(-1),
+            va, vb, fa, ta, n, C, int(has_mb), cap, bb_min.reshape(-1),
             bb_max.reshape(-1), p0.reshape(-1), e1.reshape(-1),
-            e2.reshape(-1), dummy.reshape(-1), dummy.reshape(-1),
-            dummy.reshape(-1), tri.reshape(-1))
+            e2.reshape(-1), q0.reshape(-1), q1.reshape(-1), q2.reshape(-1),
+            tri.reshape(-1))
         if m >= 0:
-            return bb_min[:m], bb_max[:m], p0[:m], e1[:m], e2[:m], tri[:m]
+            break
         if cap >= n + 8:
             raise RuntimeError('rt_build_clusters overflowed its table')
         cap = min(cap * 4, n + 8)
+    out = (bb_min[:m], bb_max[:m], p0[:m], e1[:m], e2[:m])
+    if has_mb:
+        return out + (q0[:m], q1[:m], q2[:m], tri[:m])
+    return out + (p0[:m], e1[:m], e2[:m], tri[:m])

@@ -10,12 +10,25 @@ same visiting rule, so the two agree hit for hit:
   * direction reciprocals use the kernel's clamp |v| >= 1e-20
     (cluster_kernel.py:102-105); the best t starts at min(tmax, MIRO_TMAX);
     a miss returns t = MIRO_TMAX, tri = -1;
-  * any-hit mode is the kernel's `cheap_any`: tri = 1 and t = min(tmax,
-    MIRO_TMAX) for a hit (cluster_kernel.py:215-220);
-  * in nearest mode a and b are recomputed from the winning triangle's
-    vertices, as the JAX wrapper does (cluster_kernel.py:451-461).
+  * any-hit mode in a scene without alpha maps is the kernel's
+    `cheap_any`: tri = 1 and t = min(tmax, MIRO_TMAX) for a hit
+    (cluster_kernel.py:215-220);
+  * in a scene with alpha maps every trace is `need_ab`: the tracer returns
+    the winning lane's own a and b (cluster_kernel.py:233-238), which the
+    alpha march reads; otherwise a and b are recomputed from the winning
+    triangle's vertices, as the JAX wrapper does (cluster_kernel.py:451-461);
+  * any-hit in a scene with alpha maps is exact: it returns the nearest hit
+    with its t, a and b. The Pallas kernel returns the minimum of the first
+    16-cluster batch that holds a hit for the ray, which depends on the 32
+    rays that share its block; the nearest hit is the per-ray rule that
+    keeps the alpha march exact;
+  * `mb` lerps the stored basis per component by the ray's time,
+    p + time (q - p) with q the t = 1 table (cluster_kernel.py:179-187).
 This is not the JAX package's XLA `ops/cluster_trace.cluster_trace`, which
 visits in near-t order and can break ties differently.
+
+`alpha_aware_trace` is the JAX package's alpha march
+(raytracer_tpu/ops/cluster_trace.py:158-257) around any of the tracers.
 
 Vectorised over rays; the clusters are swept in chunks, and each chunk's
 (ray, cluster) pairs whose box passes are Moller-Trumbore-tested together.
@@ -37,6 +50,15 @@ PAIR_CHUNK = 1 << 14
 
 # number of calls of the plain version, so a run can show which path it took
 CALLS = 0
+# alpha-march passes traced (each one tracer call) and host syncs taken
+MARCH_PASSES = 0
+MARCH_SYNCS = 0
+
+
+def modes(scene: Scene, any_hit: bool) -> tuple[bool, bool]:
+    """(cheap_any, need_ab) of a trace (cluster_kernel.py:329-334): alpha
+    scenes return barycentrics and trace any-hit rays as nearest ones."""
+    return bool(any_hit) and not scene.has_alpha_maps, scene.has_alpha_maps
 
 
 def rcp(v):
@@ -82,9 +104,11 @@ def slab_keys(lo, hi, o, inv, tmin, tmax):
     return torch.where(ok, torch.clamp(near, min=0.0), torch.inf)
 
 
-def reduce_best(r, t, ok, order, best_t, best_key, R):
+def reduce_best(r, t, ok, order, best_t, best_key, R, ab=None):
     """Fold one batch of (pair, lane) hits into the per-ray best: nearest
-    t, and on equal t the lowest `order` (pair-major, lanes inside)."""
+    t, and on equal t the lowest `order` (pair-major, lanes inside).
+    ab = (a, b, best_a, best_b) also carries the winning lane's a and b
+    (best_a and best_b are updated in place)."""
     tp, lane = torch.where(ok, t, torch.inf).min(dim=1)
     tr = torch.full((R,), torch.inf, device=t.device)
     tr.scatter_reduce_(0, r, tp, 'amin')
@@ -93,11 +117,31 @@ def reduce_best(r, t, ok, order, best_t, best_key, R):
                      device=t.device)
     key.scatter_reduce_(0, r[win], (order + lane)[win], 'amin')
     better = tr < best_t
+    if ab is not None:
+        a, b, best_a, best_b = ab
+        won = (win & better[r] & (order + lane == key[r])).nonzero()[:, 0]
+        best_a[r[won]] = a[won, lane[won]]
+        best_b[r[won]] = b[won, lane[won]]
     return torch.where(better, tr, best_t), torch.where(better, key, best_key)
 
 
-def trace_ids(cl, o, d, tmin, tmax, any_hit: bool):
-    """(t, tri) of the visiting rule above, for (R,) float32 tmin/tmax."""
+def lerp_basis(cl, c, w):
+    """The (P, 3, C) basis p0, e1, e2 of clusters c, lerped to per-pair
+    times w (P,) as p + w (q - p); the stored t = 0 basis when w is None."""
+    out = []
+    for x, x1 in ((cl.p0, cl.p0_t1), (cl.e1, cl.e1_t1), (cl.e2, cl.e2_t1)):
+        x = x[c]
+        if w is not None:
+            x = x + w[:, None, None] * (x1[c] - x)
+        out.append(x)
+    return out
+
+
+def trace_ids(cl, o, d, tmin, tmax, any_hit: bool, time=None,
+              need_ab: bool = False):
+    """(t, tri, a, b) of the visiting rule above, for (R,) float32 tmin
+    and tmax; any_hit is `cheap_any`; a (R,) `time` selects `mb`; a, b
+    are None unless need_ab."""
     R = o.shape[0]
     M, _, C = cl.p0.shape
     dev = o.device
@@ -105,6 +149,8 @@ def trace_ids(cl, o, d, tmin, tmax, any_hit: bool):
     best_t0 = torch.clamp(tmax, max=MIRO_TMAX)
     best_t = best_t0.clone()
     best_idx = torch.full((R,), -1, dtype=torch.int64, device=dev)
+    best_a = torch.zeros(R, device=dev) if need_ab else None
+    best_b = torch.zeros(R, device=dev) if need_ab else None
     tri_flat = cl.tri.reshape(-1)
     for c0 in range(0, M, CLUSTER_CHUNK):
         c1 = min(c0 + CLUSTER_CHUNK, M)
@@ -117,29 +163,35 @@ def trace_ids(cl, o, d, tmin, tmax, any_hit: bool):
         for s in range(0, ri.shape[0], PAIR_CHUNK):
             r = ri[s:s + PAIR_CHUNK]
             c = ci[s:s + PAIR_CHUNK] + c0
-            t, a, b, det = _mt(o[r, :, None], d[r, :, None], cl.p0[c],
-                               cl.e1[c], cl.e2[c])
+            p0, e1, e2 = lerp_basis(cl, c, None if time is None else time[r])
+            t, a, b, det = _mt(o[r, :, None], d[r, :, None], p0, e1, e2)
             ok = (a >= 0.0) & (a <= 1.0) & (b >= 0.0) & (a + b <= 1.0) \
                 & (det != 0.0) & (cl.tri[c] >= 0) \
                 & (t >= tmin[r, None]) & (t < best_t[r, None])
             if any_hit:
                 best_idx[r[ok.any(dim=1)]] = 0
                 continue
-            best_t, best_idx = reduce_best(r, t, ok, c * C, best_t,
-                                           best_idx, R)
+            best_t, best_idx = reduce_best(
+                r, t, ok, c * C, best_t, best_idx, R,
+                (a, b, best_a, best_b) if need_ab else None)
     got = best_idx >= 0
     tmax_t = torch.full_like(best_t, MIRO_TMAX)
     if any_hit:
         tri = torch.where(got, 1, -1).to(torch.int32)
-        return torch.where(got, best_t0, tmax_t), tri
+        return torch.where(got, best_t0, tmax_t), tri, None, None
     tri = torch.where(got, tri_flat[best_idx.clamp(min=0)], -1)
-    return torch.where(got, best_t, tmax_t), tri.to(torch.int32)
+    return (torch.where(got, best_t, tmax_t), tri.to(torch.int32), best_a,
+            best_b)
 
 
-def finish(scene: Scene, o, d, time, t, tri, any_hit: bool) -> Hit:
-    """Hit from the traced (t, tri): in nearest mode the barycentrics are
+def finish(scene: Scene, o, d, time, t, tri, any_hit: bool, a=None,
+           b=None) -> Hit:
+    """Hit from the traced (t, tri): the tracer's own a and b when it
+    returned them (need_ab), else in nearest mode the barycentrics
     recomputed from the winning triangle, as the JAX wrapper does."""
     zeros = torch.zeros_like(t)
+    if a is not None:
+        return Hit(t=t, tri=tri, inst=torch.zeros_like(tri), a=a, b=b)
     if any_hit:
         return Hit(t=t, tri=tri, inst=torch.zeros_like(tri), a=zeros,
                    b=zeros)
@@ -153,11 +205,98 @@ def finish(scene: Scene, o, d, time, t, tri, any_hit: bool) -> Hit:
 
 @torch.no_grad()
 def cluster_trace(scene: Scene, o, d, time, tmin, tmax,
-                  any_hit: bool = False) -> Hit:
-    """Trace a wavefront through scene.clusters in plain PyTorch -> Hit."""
+                  any_hit: bool = False, table=None, mb=None) -> Hit:
+    """Trace a wavefront through scene.clusters (or `table`, such as the
+    motion-blurred partition scene.mb_clusters) in plain PyTorch -> Hit;
+    mb defaults to the scene's motion-blur flag."""
     global CALLS
     CALLS += 1
+    cl = scene.clusters if table is None else table
+    mb = scene.has_motion_blur if mb is None else mb
+    cheap, need_ab = modes(scene, any_hit)
     o, d = o.detach().float().contiguous(), d.detach().float().contiguous()
     time, tmin, tmax = isect.ray_inputs(o, time, tmin, tmax)
-    t, tri = trace_ids(scene.clusters, o, d, tmin, tmax, any_hit)
-    return finish(scene, o, d, time, t, tri, any_hit)
+    t, tri, a, b = trace_ids(cl, o, d, tmin, tmax, cheap,
+                             time if mb else None, need_ab)
+    return finish(scene, o, d, time, t, tri, cheap, a, b)
+
+
+def merge_hits(h1: Hit, h2: Hit) -> Hit:
+    """Nearest of two hits; h2 wins only on a strictly smaller t
+    (raytracer_tpu/render/integrator.py:242-249)."""
+    take2 = h2.valid & (~h1.valid | (h2.t < h1.t))
+    return Hit(*(torch.where(take2, getattr(h2, f), getattr(h1, f))
+                 for f in ('t', 'tri', 'inst', 'a', 'b')))
+
+
+def alpha_aware_trace(scene: Scene, trace_once, o, d, time, tmin, tmax,
+                      any_hit: bool = False, max_passes: int = 12) -> Hit:
+    """Alpha cutouts around a tracer that does not test them: re-trace
+    past each hit with alpha < 0.5 from an advanced per-ray tmin, until
+    every ray has an opaque hit or a miss (src/BVH.cpp:1401-1435).
+
+    The JAX package's march, pass for pass: pass 0 traces every ray; pass
+    p traces the first max(4096, R >> (p + 1)) rows (rounded up to 256) of
+    a stable live-first partition, and live rays past that budget wait.
+    Rays still live after max_passes keep their last cutout hit. The
+    JAX package skips a pass once every ray is settled (lax.cond); here
+    that test is a host sync, and the march stops there, since no later
+    pass could run either. trace_once(o, d, time, tmin, tmax, any_hit)
+    -> Hit takes per-ray tmin."""
+    global MARCH_PASSES, MARCH_SYNCS
+    R = o.shape[0]
+    time, tmin0, tmax_b = isect.ray_inputs(o, time, tmin, tmax)
+    dev = o.device
+    # the march state, updated in place
+    s = dict(tmin=tmin0.clone(),
+             done=torch.zeros(R, dtype=torch.bool, device=dev),
+             t=torch.full((R,), MIRO_TMAX, device=dev),
+             tri=torch.full((R,), -1, dtype=torch.int32, device=dev),
+             inst=torch.zeros(R, dtype=torch.int32, device=dev),
+             a=torch.zeros(R, device=dev), b=torch.zeros(R, device=dev))
+
+    def update(hit, sel):
+        """Fold one pass's hits into rows `sel` (all rows when None)."""
+        read = (lambda x: x) if sel is None else (lambda x: x[sel])
+        live = ~read(s['done'])
+        valid = hit.valid
+        alpha = isect.alpha_of(scene, hit.tri.clamp(min=0), hit.a, hit.b)
+        opaque = valid & (alpha >= 0.5)
+        accept = live & opaque
+        cutout = live & valid & ~opaque
+        miss = live & ~valid
+        # a cutout hit stands in for the opaque one if the passes run out;
+        # a later miss clears it (the ray leaves through the hole)
+        take = accept | cutout
+        new = dict(
+            t=torch.where(miss, MIRO_TMAX,
+                          torch.where(take, hit.t, read(s['t']))),
+            tri=torch.where(miss, -1, torch.where(take, hit.tri,
+                                                  read(s['tri']))),
+            inst=torch.where(take, hit.inst, read(s['inst'])),
+            a=torch.where(take, hit.a, read(s['a'])),
+            b=torch.where(take, hit.b, read(s['b'])),
+            # advance past the cutout (relative and absolute epsilon)
+            tmin=torch.where(cutout, hit.t * (1.0 + 1e-4) + 1e-4,
+                             read(s['tmin'])),
+            done=read(s['done']) | accept | miss)
+        for k, v in new.items():
+            if sel is None:
+                s[k] = v.to(s[k].dtype)
+            else:
+                s[k][sel] = v.to(s[k].dtype)
+
+    update(trace_once(o, d, time, s['tmin'], tmax_b, any_hit), None)
+    MARCH_PASSES += 1
+    for p in range(1, max_passes):
+        MARCH_SYNCS += 1
+        if not bool((~s['done']).any()):
+            break
+        Rp = min(R, max(4096, R >> (p + 1)))
+        Rp = -(-Rp // 256) * 256 if Rp < R else R
+        sel = torch.argsort(s['done'].to(torch.int32), stable=True)[:Rp]
+        tmax_eff = torch.where(s['done'][sel], -1.0, tmax_b[sel])
+        update(trace_once(o[sel], d[sel], time[sel], s['tmin'][sel],
+                          tmax_eff, any_hit), sel)
+        MARCH_PASSES += 1
+    return Hit(t=s['t'], tri=s['tri'], inst=s['inst'], a=s['a'], b=s['b'])

@@ -1,17 +1,20 @@
 """Wrapper of the Hopper cluster-trace kernel (csrc/cluster_trace.cu).
 
-Replaces raytracer_tpu/ops/pallas/cluster_kernel.py:pallas_cluster_trace for
-static single-level scenes, in nearest and any-hit modes. The CUDA source
-is compiled with nvcc into a shared library with a plain C entry point on
-first use (into the package's git-ignored build directory) and called
-through ctypes on PyTorch's current stream.
+Replaces raytracer_tpu/ops/pallas/cluster_kernel.py:pallas_cluster_trace
+in all its modes: nearest, `cheap_any`, `need_ab` (alpha scenes, whose
+any-hit rays are traced as nearest ones) and `mb` (a motion-blurred
+table). The CUDA source is compiled with nvcc into a shared library with a
+plain C entry point on first use (into the package's git-ignored build
+directory) and called through ctypes on PyTorch's current stream.
 
 For CUDA tensors `cluster_trace` launches the kernel or raises; for CPU
 tensors it runs the plain PyTorch version (ops/cluster_trace.py), which is
-the kernel's reference. `LAUNCHES` counts kernel launches.
+the kernel's reference. `LAUNCHES` counts kernel launches, and `MODES`
+counts them by mode (`mode_name`).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import os
 import shutil
@@ -32,7 +35,16 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-fmad=false', '-shared', '-Xcompiler', '-fPIC']
 
 LAUNCHES = 0
+MODES: collections.Counter = collections.Counter()
 _lib = None
+
+
+def mode_name(any_hit: bool, cheap: bool, need_ab: bool,
+              mb: bool = False) -> str:
+    """A launch's mode: 'nearest', 'cheap_any' or 'exact_any' (any-hit in
+    an alpha scene), with '+need_ab' and an 'mb+' prefix."""
+    kind = 'cheap_any' if cheap else 'exact_any' if any_hit else 'nearest'
+    return ('mb+' if mb else '') + kind + ('+need_ab' if need_ab else '')
 
 
 def nvcc() -> str:
@@ -59,8 +71,8 @@ def build() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        _lib = load('cluster_trace', [vp, vp, vp, vp, vp, vp, ci, ci, vp, vp,
-                                      vp, vp, ci, ci, vp, vp, vp])
+        _lib = load('cluster_trace', [vp] * 9 + [ci, ci] + [vp] * 5
+                    + [ci, ci, ci] + [vp] * 5)
     return _lib
 
 
@@ -73,50 +85,76 @@ def check(name, x, dtype, shape, device):
             f'{x.dtype} {tuple(x.shape)} on {x.device}')
 
 
-def launch(cl, o, d, tmin, tmax, any_hit: bool):
-    """Run the kernel on CUDA tensors -> (t, tri), as plain.trace_ids."""
+def ptr(x):
+    """A tensor's device pointer, or None (a null pointer) for None."""
+    return None if x is None else x.data_ptr()
+
+
+def launch(cl, o, d, tmin, tmax, any_hit: bool, time=None, mb: bool = False,
+           need_ab: bool = False, mode: str | None = None):
+    """Run the kernel on CUDA tensors -> (t, tri, a, b), as
+    plain.trace_ids: any_hit is `cheap_any`; mb lerps the table's basis by
+    `time`; a, b are None unless need_ab. `mode` names the launch in
+    MODES."""
     global LAUNCHES
     lib = build()
     R = o.shape[0]
     M, _, C = cl.p0.shape
     dev = o.device
     f32 = torch.float32
-    for name, x, dt, shape in (
-            ('bb_min', cl.bb_min, f32, (M, 3)),
-            ('bb_max', cl.bb_max, f32, (M, 3)),
-            ('p0', cl.p0, f32, (M, 3, C)), ('e1', cl.e1, f32, (M, 3, C)),
-            ('e2', cl.e2, f32, (M, 3, C)),
-            ('tri', cl.tri, torch.int32, (M, C)),
-            ('o', o, f32, (R, 3)), ('d', d, f32, (R, 3)),
-            ('tmin', tmin, f32, (R,)), ('tmax', tmax, f32, (R,))):
+    checks = [('bb_min', cl.bb_min, f32, (M, 3)),
+              ('bb_max', cl.bb_max, f32, (M, 3)),
+              ('p0', cl.p0, f32, (M, 3, C)), ('e1', cl.e1, f32, (M, 3, C)),
+              ('e2', cl.e2, f32, (M, 3, C)),
+              ('tri', cl.tri, torch.int32, (M, C)),
+              ('o', o, f32, (R, 3)), ('d', d, f32, (R, 3)),
+              ('tmin', tmin, f32, (R,)), ('tmax', tmax, f32, (R,))]
+    if mb:
+        checks += [('p0_t1', cl.p0_t1, f32, (M, 3, C)),
+                   ('e1_t1', cl.e1_t1, f32, (M, 3, C)),
+                   ('e2_t1', cl.e2_t1, f32, (M, 3, C)),
+                   ('time', time, f32, (R,))]
+    for name, x, dt, shape in checks:
         check(name, x, dt, shape, dev)
-    if R >= 2 ** 31 or M * C >= 2 ** 31:
+    if R >= 2 ** 31 or M * 3 * C >= 2 ** 31:
         raise ValueError('ray or triangle count exceeds the int32 indexing')
     t = torch.empty(R, dtype=f32, device=dev)
     tri = torch.empty(R, dtype=torch.int32, device=dev)
+    a = torch.empty(R, dtype=f32, device=dev) if need_ab else None
+    b = torch.empty(R, dtype=f32, device=dev) if need_ab else None
+    q = (cl.p0_t1, cl.e1_t1, cl.e2_t1, time) if mb else (None,) * 4
     err = lib.rt_cluster_trace(
         cl.bb_min.data_ptr(), cl.bb_max.data_ptr(), cl.p0.data_ptr(),
-        cl.e1.data_ptr(), cl.e2.data_ptr(), cl.tri.data_ptr(), M, C,
-        o.data_ptr(), d.data_ptr(), tmin.data_ptr(), tmax.data_ptr(), R,
-        int(any_hit), t.data_ptr(), tri.data_ptr(),
+        cl.e1.data_ptr(), cl.e2.data_ptr(), ptr(q[0]), ptr(q[1]), ptr(q[2]),
+        cl.tri.data_ptr(), M, C, o.data_ptr(), d.data_ptr(), tmin.data_ptr(),
+        tmax.data_ptr(), ptr(q[3]), R, int(any_hit), int(mb), t.data_ptr(),
+        tri.data_ptr(), ptr(a), ptr(b),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f'cluster_trace kernel launch failed: CUDA error '
                            f'{err}')
     LAUNCHES += 1
-    return t, tri
+    MODES[mode or mode_name(any_hit, any_hit, need_ab, mb)] += 1
+    return t, tri, a, b
 
 
 @torch.no_grad()
 def cluster_trace(scene: Scene, o, d, time, tmin, tmax,
-                  any_hit: bool = False) -> Hit:
-    """Trace a wavefront through scene.clusters -> Hit (ids and detached
-    floats; intersect.refine_hit recomputes differentiably)."""
+                  any_hit: bool = False, table=None, mb=None) -> Hit:
+    """Trace a wavefront through scene.clusters (or `table`, such as the
+    motion-blurred partition scene.mb_clusters; mb defaults to the scene's
+    motion-blur flag) -> Hit (ids and detached floats;
+    intersect.refine_hit recomputes differentiably)."""
     if o.device.type == 'cpu':
-        return plain.cluster_trace(scene, o, d, time, tmin, tmax, any_hit)
+        return plain.cluster_trace(scene, o, d, time, tmin, tmax, any_hit,
+                                   table, mb)
     if o.device.type != 'cuda':
         raise ValueError(f'cluster_trace: unsupported device {o.device}')
+    cl = scene.clusters if table is None else table
+    mb = scene.has_motion_blur if mb is None else mb
+    cheap, need_ab = plain.modes(scene, any_hit)
     o, d = o.detach().contiguous(), d.detach().contiguous()
     time, tmin, tmax = isect.ray_inputs(o, time, tmin, tmax)
-    t, tri = launch(scene.clusters, o, d, tmin, tmax, any_hit)
-    return plain.finish(scene, o, d, time, t, tri, any_hit)
+    t, tri, a, b = launch(cl, o, d, tmin, tmax, cheap, time, mb, need_ab,
+                          mode_name(any_hit, cheap, need_ab, mb))
+    return plain.finish(scene, o, d, time, t, tri, cheap, a, b)

@@ -2,17 +2,20 @@
 (csrc/icluster_trace.cu).
 
 Replaces raytracer_tpu/ops/pallas/icluster_kernel.py:pallas_icluster_trace
-for static instanced scenes with deep prototypes, in nearest and any-hit
-modes. Built and bound as ops/cuda/cluster_kernel.py builds its kernel
+for instanced scenes with deep prototypes, in all its modes: nearest,
+`cheap_any` and `need_ab` (alpha scenes, whose any-hit rays are traced as
+nearest ones). Built and bound as ops/cuda/cluster_kernel.py builds its kernel
 (nvcc -fmad=false into a plain C library, ctypes, PyTorch's current
 stream).
 
 For CUDA tensors `icluster_trace` launches the kernel or raises; for CPU
 tensors it runs the plain PyTorch version (ops/icluster_trace.py), which is
-the kernel's reference. `LAUNCHES` counts kernel launches.
+the kernel's reference. `LAUNCHES` counts kernel launches,
+and `MODES` counts them by mode.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -20,12 +23,14 @@ import torch
 from ...core.types import Scene
 from .. import icluster_trace as plain
 from .. import intersect as isect
+from ..cluster_trace import modes
 from ..intersect import Hit
 from ..iseg_trace import finish
-from .cluster_kernel import check, load
+from .cluster_kernel import check, load, mode_name, ptr
 
 
 LAUNCHES = 0
+MODES: collections.Counter = collections.Counter()
 _lib = None
 
 
@@ -35,13 +40,15 @@ def build() -> ctypes.CDLL:
     if _lib is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         _lib = load('icluster_trace',
-                    [vp] * 9 + [ci] * 4 + [vp] * 4 + [ci, ci] + [vp] * 4)
+                    [vp] * 9 + [ci] * 4 + [vp] * 4 + [ci, ci] + [vp] * 6)
     return _lib
 
 
-def launch(icl, o, d, tmin, tmax, any_hit: bool):
-    """Run the kernel on CUDA tensors -> (t, tri, inst), as
-    plain.trace_ids."""
+def launch(icl, o, d, tmin, tmax, any_hit: bool, need_ab: bool = False,
+           mode: str | None = None):
+    """Run the kernel on CUDA tensors -> (t, tri, inst, a, b), as
+    plain.trace_ids: any_hit is `cheap_any`, and a, b are None unless
+    need_ab. `mode` names the launch in MODES."""
     global LAUNCHES
     lib = build()
     R = o.shape[0]
@@ -68,19 +75,22 @@ def launch(icl, o, d, tmin, tmax, any_hit: bool):
     t = torch.empty(R, dtype=f32, device=dev)
     tri = torch.empty(R, dtype=i32, device=dev)
     inst = torch.empty(R, dtype=i32, device=dev)
+    a = torch.empty(R, dtype=f32, device=dev) if need_ab else None
+    b = torch.empty(R, dtype=f32, device=dev) if need_ab else None
     err = lib.rt_icluster_trace(
         icl.ibb.data_ptr(), icl.iminv.data_ptr(), icl.imeta.data_ptr(),
         icl.pbb.data_ptr(), icl.pmeta.data_ptr(), icl.p0.data_ptr(),
         icl.e1.data_ptr(), icl.e2.data_ptr(), icl.tri.data_ptr(), I,
         icl.num_instances, MP, C, o.data_ptr(), d.data_ptr(),
         tmin.data_ptr(), tmax.data_ptr(), R, int(any_hit), t.data_ptr(),
-        tri.data_ptr(), inst.data_ptr(),
+        tri.data_ptr(), inst.data_ptr(), ptr(a), ptr(b),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f'icluster_trace kernel launch failed: CUDA error '
                            f'{err}')
     LAUNCHES += 1
-    return t, tri, inst
+    MODES[mode or mode_name(any_hit, any_hit, need_ab)] += 1
+    return t, tri, inst, a, b
 
 
 @torch.no_grad()
@@ -93,7 +103,9 @@ def icluster_trace(scene: Scene, o, d, time, tmin, tmax,
         return plain.icluster_trace(scene, o, d, time, tmin, tmax, any_hit)
     if o.device.type != 'cuda':
         raise ValueError(f'icluster_trace: unsupported device {o.device}')
+    cheap, need_ab = modes(scene, any_hit)
     o, d = o.detach().contiguous(), d.detach().contiguous()
     time, tmin, tmax = isect.ray_inputs(o, time, tmin, tmax)
-    t, tri, inst = launch(scene.iclusters, o, d, tmin, tmax, any_hit)
-    return finish(scene, o, d, time, t, tri, inst, any_hit)
+    t, tri, inst, a, b = launch(scene.iclusters, o, d, tmin, tmax, cheap,
+                                need_ab, mode_name(any_hit, cheap, need_ab))
+    return finish(scene, o, d, time, t, tri, inst, cheap, a, b)

@@ -21,7 +21,8 @@ The Pallas kernel visits a block's instances in block-nearest order, so it
 agrees with this rule on t and on hit or miss for every ray, and on tri
 and inst except where two hits have exactly equal t. Reciprocal clamp,
 best-t start, miss outputs, `cheap_any` and the object-space barycentric
-recompute are those of ops/iseg_trace.py. Rays in 32-ray blocks that
+recompute, and `need_ab` with the exact any-hit of alpha scenes, are those
+of ops/iseg_trace.py. Rays in 32-ray blocks that
 cannot reach the union of the instance boxes are culled first
 (ops/bundle.py, icluster_kernel.py:353-359); the cull changes no hit.
 
@@ -37,7 +38,7 @@ from ..core.types import Scene
 from ..core.vecmath import MIRO_TMAX
 from . import bundle
 from . import intersect as isect
-from .cluster_trace import _mt, rcp, reduce_best, slab_keys
+from .cluster_trace import _mt, modes, rcp, reduce_best, slab_keys
 from .intersect import Hit
 from .iseg_trace import finish, pool_slabs, to_object
 
@@ -49,9 +50,10 @@ TRIPLE_CHUNK = 8192
 CALLS = 0
 
 
-def trace_ids(icl, o, d, tmin, tmax, any_hit: bool):
-    """(t, tri, inst) of the visiting rule above, for (R,) float32 tmin,
-    tmax."""
+def trace_ids(icl, o, d, tmin, tmax, any_hit: bool, need_ab: bool = False):
+    """(t, tri, inst, a, b) of the visiting rule above, for (R,) float32
+    tmin, tmax; any_hit is `cheap_any`, and a, b are None unless
+    need_ab."""
     R = o.shape[0]
     C = icl.tri.shape[1]
     MP = icl.pbb.shape[1]
@@ -62,6 +64,8 @@ def trace_ids(icl, o, d, tmin, tmax, any_hit: bool):
     best_t0 = torch.clamp(tmax, max=MIRO_TMAX)
     best_t = best_t0.clone()
     best_key = torch.full((R,), -1, dtype=torch.int64, device=dev)
+    best_a = torch.zeros(R, device=dev) if need_ab else None
+    best_b = torch.zeros(R, device=dev) if need_ab else None
     ilo, ihi = icl.ibb[:3].T, icl.ibb[3:].T
     lane_m = torch.arange(MP, device=dev)
     axes = torch.arange(3, device=dev)
@@ -102,20 +106,21 @@ def trace_ids(icl, o, d, tmin, tmax, any_hit: bool):
                     best_key[rj[ok.any(dim=1)]] = 0
                     continue
                 order = (inst[pj] * MP + cj) * C
-                best_t, best_key = reduce_best(rj, t, ok, order, best_t,
-                                               best_key, R)
+                best_t, best_key = reduce_best(
+                    rj, t, ok, order, best_t, best_key, R,
+                    (a, b, best_a, best_b) if need_ab else None)
     got = best_key >= 0
     miss_t = torch.full_like(best_t, MIRO_TMAX)
     if any_hit:
         return (torch.where(got, best_t0, miss_t),
                 torch.where(got, 1, -1).to(torch.int32),
-                torch.zeros(R, dtype=torch.int32, device=dev))
+                torch.zeros(R, dtype=torch.int32, device=dev), None, None)
     k = best_key.clamp(min=0)
     inst, c, lane = k // (MP * C), (k // C) % MP, k % C
     row = icl.pmeta[icl.imeta[inst, 0].long(), 0].long() + c
     tri = torch.where(got, icl.tri[row, lane], -1).to(torch.int32)
     inst = torch.where(got, icl.imeta[inst, 1], 0).to(torch.int32)
-    return torch.where(got, best_t, miss_t), tri, inst
+    return torch.where(got, best_t, miss_t), tri, inst, best_a, best_b
 
 
 @torch.no_grad()
@@ -125,7 +130,9 @@ def icluster_trace(scene: Scene, o, d, time, tmin, tmax,
     tables in plain PyTorch -> Hit."""
     global CALLS
     CALLS += 1
+    cheap, need_ab = modes(scene, any_hit)
     o, d = o.detach().float().contiguous(), d.detach().float().contiguous()
     time, tmin, tmax = isect.ray_inputs(o, time, tmin, tmax)
-    t, tri, inst = trace_ids(scene.iclusters, o, d, tmin, tmax, any_hit)
-    return finish(scene, o, d, time, t, tri, inst, any_hit)
+    t, tri, inst, a, b = trace_ids(scene.iclusters, o, d, tmin, tmax, cheap,
+                                   need_ab)
+    return finish(scene, o, d, time, t, tri, inst, cheap, a, b)

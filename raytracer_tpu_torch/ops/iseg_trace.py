@@ -22,9 +22,12 @@ outcome, ray for ray:
     miss outputs are the single-level kernel's (ops/cluster_trace.py);
     `cheap_any` returns tri = 1 (a hit flag, not an id) and
     t = min(tmax, MIRO_TMAX) for a hit (iseg_kernel.py:199-202);
-  * in nearest mode a and b are recomputed in the hit instance's object
-    space from the winning triangle, as the JAX wrapper does
-    (iseg_kernel.py:412-428).
+  * in a scene with alpha maps every trace is `need_ab`: the winning
+    lane's own a and b, computed in the instance's object space, come back
+    (iseg_kernel.py:226-228); and any-hit is exact, the nearest hit, as in
+    ops/cluster_trace.py. Otherwise, in nearest mode a and b are
+    recomputed in the hit instance's object space from the winning
+    triangle, as the JAX wrapper does (iseg_kernel.py:412-428).
 Rays in 32-ray blocks that cannot reach the table's box are culled first
 (ops/bundle.py, as the JAX wrapper does per slice); the cull is
 conservative, so it changes no hit.
@@ -44,7 +47,7 @@ from ..core.vecmath import MIRO_TMAX
 from ..geometry.clusters import KIN
 from . import bundle
 from . import intersect as isect
-from .cluster_trace import _mt, rcp, reduce_best, slab_keys
+from .cluster_trace import _mt, modes, rcp, reduce_best, slab_keys
 from .intersect import Hit
 
 SEG_CHUNK = 1024
@@ -77,9 +80,10 @@ def pool_slabs(icl, rows):
             icl.tri[rows].reshape(P, k * C))
 
 
-def trace_ids(icl, o, d, tmin, tmax, any_hit: bool):
-    """(t, tri, inst) of the visiting rule above, for (R,) float32 tmin,
-    tmax."""
+def trace_ids(icl, o, d, tmin, tmax, any_hit: bool, need_ab: bool = False):
+    """(t, tri, inst, a, b) of the visiting rule above, for (R,) float32
+    tmin, tmax; any_hit is `cheap_any`, and a, b are None unless
+    need_ab."""
     R = o.shape[0]
     C = icl.tri.shape[1]
     KC = KIN * C
@@ -90,6 +94,8 @@ def trace_ids(icl, o, d, tmin, tmax, any_hit: bool):
     best_t0 = torch.clamp(tmax, max=MIRO_TMAX)
     best_t = best_t0.clone()
     best_key = torch.full((R,), -1, dtype=torch.int64, device=dev)
+    best_a = torch.zeros(R, device=dev) if need_ab else None
+    best_b = torch.zeros(R, device=dev) if need_ab else None
     lo_all, hi_all = icl.sbb[:3].T, icl.sbb[3:].T
     kin = torch.arange(KIN, device=dev)
     for s0 in range(0, E, SEG_CHUNK):
@@ -113,27 +119,32 @@ def trace_ids(icl, o, d, tmin, tmax, any_hit: bool):
             if any_hit:
                 best_key[r[ok.any(dim=1)]] = 0
                 continue
-            best_t, best_key = reduce_best(r, t, ok, e * KC, best_t,
-                                           best_key, R)
+            best_t, best_key = reduce_best(
+                r, t, ok, e * KC, best_t, best_key, R,
+                (a, b, best_a, best_b) if need_ab else None)
     got = best_key >= 0
     miss_t = torch.full_like(best_t, MIRO_TMAX)
     if any_hit:
         return (torch.where(got, best_t0, miss_t),
                 torch.where(got, 1, -1).to(torch.int32),
-                torch.zeros(R, dtype=torch.int32, device=dev))
+                torch.zeros(R, dtype=torch.int32, device=dev), None, None)
     k = best_key.clamp(min=0)
     e, lane = k // KC, k % KC
     row = icl.smeta[e, 1].long() + lane // C
     tri = torch.where(got, icl.tri[row, lane % C], -1).to(torch.int32)
     inst = torch.where(got, icl.smeta[e, 2], 0).to(torch.int32)
-    return torch.where(got, best_t, miss_t), tri, inst
+    return torch.where(got, best_t, miss_t), tri, inst, best_a, best_b
 
 
-def finish(scene: Scene, o, d, time, t, tri, inst, any_hit: bool) -> Hit:
-    """Hit from the traced (t, tri, inst): in nearest mode the
-    barycentrics are recomputed from the winning triangle in the hit
-    instance's object space, as the JAX wrappers do."""
+def finish(scene: Scene, o, d, time, t, tri, inst, any_hit: bool, a=None,
+           b=None) -> Hit:
+    """Hit from the traced (t, tri, inst): the tracer's own a and b when
+    it returned them (need_ab), else in nearest mode the barycentrics
+    recomputed from the winning triangle in the hit instance's object
+    space, as the JAX wrappers do."""
     zeros = torch.zeros_like(t)
+    if a is not None:
+        return Hit(t=t, tri=tri, inst=inst, a=a, b=b)
     if any_hit:
         return Hit(t=t, tri=tri, inst=inst, a=zeros, b=zeros)
     p = isect.gather_tri_verts(scene, tri.clamp(min=0), time)
@@ -153,7 +164,9 @@ def iseg_trace(scene: Scene, o, d, time, tmin, tmax,
     PyTorch -> Hit."""
     global CALLS
     CALLS += 1
+    cheap, need_ab = modes(scene, any_hit)
     o, d = o.detach().float().contiguous(), d.detach().float().contiguous()
     time, tmin, tmax = isect.ray_inputs(o, time, tmin, tmax)
-    t, tri, inst = trace_ids(scene.iclusters, o, d, tmin, tmax, any_hit)
-    return finish(scene, o, d, time, t, tri, inst, any_hit)
+    t, tri, inst, a, b = trace_ids(scene.iclusters, o, d, tmin, tmax, cheap,
+                                   need_ab)
+    return finish(scene, o, d, time, t, tri, inst, cheap, a, b)

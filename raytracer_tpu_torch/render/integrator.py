@@ -17,6 +17,7 @@ from ..core import rng
 from ..core import vecmath as vm
 from ..core.types import Scene, RenderSettings, MAT_LAMBERT
 from ..core.vecmath import EPSILON, MIRO_TMAX
+from ..ops import cluster_trace as ct
 from ..ops import intersect as isect
 from ..ops.cuda import cluster_kernel as ck
 from ..ops.cuda import icluster_kernel as ick
@@ -128,40 +129,83 @@ def _sort_wavefront(state: dict) -> dict:
 
 
 def trace_fn(scene: Scene, settings: RenderSettings):
-    """Select the intersector -> tracer(o, d, time, tmin, tmax, any_hit).
+    """Select the intersector -> tracer(o, d, time, tmin, tmax, any_hit),
+    routed as raytracer_tpu/render/integrator.py:283-364 routes
+    'cluster_pallas' and 'cluster2'.
 
-    'auto' traces a single-level scene through scene.clusters, and a
-    two-level one as 'cluster2' does: shallow prototypes (at most 16
-    clusters) through the flat segment tracer, deep ones through the
-    hierarchical instance tracer (integrator.py:317-320 of the JAX
-    package). Each is the CUDA kernel for CUDA tensors and its plain
-    PyTorch version for CPU tensors. 'brute' is the brute-force oracle of
-    single-level scenes."""
+    'auto' traces a single-level scene through scene.clusters (lerping the
+    basis by ray time when the scene is motion-blurred), and a two-level
+    one as 'cluster2' does: shallow prototypes (at most 16 clusters)
+    through the flat segment tracer, deep ones through the hierarchical
+    instance tracer, plus the motion-blurred world partition
+    (scene.mb_clusters) through the cluster tracer in `mb` mode, merged by
+    nearest t. Scenes with alpha maps wrap that in the alpha march; an
+    opaque motion-blurred partition is traced once outside it and bounds
+    the march by its t. Each tracer is the CUDA kernel for CUDA tensors
+    and its plain PyTorch version for CPU tensors; a table is one launch
+    (the JAX package's VMEM chunks of `_mb_chunks` are not needed).
+    'brute' is the brute-force oracle of single-level scenes."""
     mode = settings.intersector
     if mode == 'auto' and scene.single_level:
         if scene.clusters is None:
             raise ValueError('the scene carries no cluster table')
-        trace = ck.cluster_trace
-    elif mode in ('auto', 'cluster2') and not scene.single_level:
-        if scene.mb_clusters is not None:
-            raise NotImplementedError(
-                'motion-blurred world geometry in a two-level scene: '
-                'ROADMAP queue 1 #11')
-        if scene.iclusters.max_proto_clusters <= 16:
-            trace = isk.iseg_trace
-        else:
-            trace = ick.icluster_trace
-    elif mode == 'brute' and scene.single_level:
-        trace = isect.brute_force_trace
-    else:
+
+        def base(o, d, time, tmin, tmax, any_hit):
+            return ck.cluster_trace(scene, o, d, time, tmin, tmax, any_hit)
+        if not scene.has_alpha_maps:
+            return base
+        return lambda o, d, time, tmin, tmax, any_hit: ct.alpha_aware_trace(
+            scene, base, o, d, time, tmin, tmax, any_hit)
+    if mode == 'brute' and scene.single_level:
+        return lambda o, d, time, tmin, tmax, any_hit: \
+            isect.brute_force_trace(scene, o, d, time, tmin, tmax, any_hit)
+    if mode not in ('auto', 'cluster2') or scene.single_level:
         raise NotImplementedError(
             f"intersector {mode!r} on a "
             f"{'single' if scene.single_level else 'two'}-level scene: "
             f"'bvh' comes with ROADMAP queue 1 #9, 'pallas' with queue 2 #5, "
             f"'ring' with queue 1 #14; 'cluster2' traces two-level scenes "
             f"only (the JAX package's XLA 'cluster' tracer is not ported)")
-    return lambda o, d, time, tmin, tmax, any_hit: trace(
-        scene, o, d, time, tmin, tmax, any_hit)
+
+    icl = scene.iclusters
+    if icl is None:
+        inst_trace = None
+    elif icl.max_proto_clusters <= 16:
+        inst_trace = isk.iseg_trace
+    else:
+        inst_trace = ick.icluster_trace
+
+    def trace_mb(o, d, time, tmin, tmax, any_hit, h):
+        h2 = ck.cluster_trace(scene, o, d, time, tmin, tmax, any_hit,
+                              table=scene.mb_clusters, mb=True)
+        return h2 if h is None else ct.merge_hits(h, h2)
+
+    def base(o, d, time, tmin, tmax, any_hit):
+        h = None if inst_trace is None else inst_trace(
+            scene, o, d, time, tmin, tmax, any_hit)
+        if scene.mb_clusters is not None:
+            h = trace_mb(o, d, time, tmin, tmax, any_hit, h)
+        return h
+
+    if not scene.has_alpha_maps:
+        return base
+    if scene.mb_clusters is None or scene.mb_has_alpha or inst_trace is None:
+        return lambda o, d, time, tmin, tmax, any_hit: ct.alpha_aware_trace(
+            scene, base, o, d, time, tmin, tmax, any_hit)
+
+    def inst_only(o, d, time, tmin, tmax, any_hit):
+        return inst_trace(scene, o, d, time, tmin, tmax, any_hit)
+
+    def tracer(o, d, time, tmin, tmax, any_hit):
+        # the opaque motion-blurred partition, traced once, bounds the
+        # march: only instance hits nearer than it matter
+        h_mb = trace_mb(o, d, time, tmin, tmax, any_hit, None)
+        tmax2 = torch.minimum(isect.ray_inputs(o, time, tmin, tmax)[2],
+                              h_mb.t)
+        h = ct.alpha_aware_trace(scene, inst_only, o, d, time, tmin, tmax2,
+                                 any_hit)
+        return ct.merge_hits(h, h_mb)
+    return tracer
 
 
 def radiance(scene: Scene, settings: RenderSettings, o, d, time,
@@ -333,9 +377,11 @@ def _step(scene: Scene, settings: RenderSettings, tracer, state, step_idx,
 
     # ------------------------------------------------ diffuse branch: NEE
     # shadow rays only for lanes whose terms survive
+    # secondary (non-primary) rays draw one dome sample (src/DomeLight.cpp:89)
     lpw, specw3, lp_back = lt.sample_all_lights(
         scene, tracer, P, the_n, rvec, spec_exp, time, k_l1, False,
-        settings, want_back=scene.has_translucency, active=diffuse_branch)
+        settings, want_back=scene.has_translucency, active=diffuse_branch,
+        secondary_mask=(kind != KIND_PRIMARY))
 
     w_d = (tp * rr_recip[:, None]) * diffuse_branch[:, None]
     spec_term = ks * spec_amt[:, None] * specw3

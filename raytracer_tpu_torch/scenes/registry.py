@@ -15,6 +15,7 @@ from ..core.types import Camera, RenderSettings
 from ..geometry.build import SceneBuilder
 from ..geometry import shapes
 from ..io.objload import MeshData, make_single_triangle
+from . import assets
 
 _REGISTRY = {}
 
@@ -236,8 +237,8 @@ def forest_standin(width=256, height=256, n_trees=200, canopy=(60, 64),
     instance tracer), placed n_trees times (alternating prototypes, random
     position, scale and yaw from rng seed 3163513) on a 24 x 32 m patch in
     front of the camera; a ground quad as world geometry and one point
-    light. No textures, alpha cutouts, translucency or dome (ROADMAP queue
-    1 #11)."""
+    light. No textures, alpha cutouts, translucency or dome: those are in
+    `final_forest_standin`."""
     b = SceneBuilder() if builder is None else builder
     bark = b.add_blinn(kd=(0.35, 0.25, 0.15), spec_amt=0.1, spec_exp=10.0)
     leaves = b.add_blinn(kd=(0.2, 0.5, 0.15), spec_amt=0.2, spec_exp=20.0)
@@ -270,4 +271,331 @@ def forest_standin(width=256, height=256, n_trees=200, canopy=(60, 64),
     cam = Camera.make(eye=(0.0, 1.0, 6.0), look_at=(0.0, 1.2, 0.0), fov=50.0)
     settings = RenderSettings(width=width, height=height, path_trace=False,
                               max_bounces=5, max_wavefront_steps=7, **kw)
+    return scene, cam, settings
+
+
+@register('mb_bullet_standin')
+def mb_bullet_standin(size=256, shutter=1.0, builder=None, **kw):
+    """The JAX registry's `mb_bullet` (the motion-blur fixture) without its
+    mesh pair: a shattered sphere (`assets.shattered_sphere`, 224 shards of
+    radius 1) whose t = 1 pose pushes every shard 0.3-0.9 outward stands in
+    for bulletMB_01/02.obj. The same material, floor, light, background,
+    camera rule and 1.0 shutter."""
+    b = SceneBuilder() if builder is None else builder
+    mat = b.add_blinn(kd=(0.8, 0.7, 0.2), spec_amt=0.4, spec_exp=15.0)
+    m0, m1 = assets.shattered_sphere((0.0, 0.0, 0.0), 1.0, 8, 16, 0.6, 11)
+    b.add_mesh(m0, mat, mesh_t1=m1)
+    floor = b.add_lambert(kd=(0.7, 0.7, 0.7))
+    b.add_mesh(make_single_triangle((-20, -2, -20), (0, -2, 20), (20, -2, -20),
+                                    n=(0, 1, 0)), floor)
+    b.add_point_light((5, 10, 5), 500.0)
+    b.set_bg_color((0.1, 0.1, 0.15))
+    scene = b.build(bvh=False)
+    lo = m0.vertices.min(0)
+    hi = m0.vertices.max(0)
+    c = 0.5 * (lo + hi)
+    cam = Camera.make(eye=c + np.asarray([0, 0.5, 3.5]) * (hi - lo).max(),
+                      look_at=c, fov=45.0, shutter=shutter)
+    settings = RenderSettings(width=size, height=size, path_trace=False,
+                              max_wavefront_steps=2, **kw)
+    return scene, cam, settings
+
+
+@register('alpha_leaf_standin')
+def alpha_leaf_standin(size=256, max_bounces=5, builder=None, **kw):
+    """The JAX registry's `alpha_leaf` (makeAlphaTest) without its files:
+    two leaf cards (a 2 x 2 quad each, for leaf_test.obj) moved as there,
+    with a procedural RGBA leaf (`assets.leaf_texture`) as both colour and
+    alpha map (for Tree_03_Leaves.tga), translucency 0.9, the point light
+    from below and behind, a procedural HDR sky as the env map (for
+    Topanga_Forest_B_light.hdr), the same camera, path traced."""
+    b = SceneBuilder() if builder is None else builder
+    leaf_tex = b.add_texture(assets.leaf_texture(128, seed=3))
+    env = b.add_texture(assets.sky_hdr(64, 128, sun_power=40.0))
+    leaf2 = b.add_blinn(kd=(1, 1, 1), translucency=0.9,
+                        tex_color=leaf_tex, tex_alpha=leaf_tex)
+    for x, y in ((-2.0, 0.0), (-1.0, 0.5)):
+        b.add_mesh(shapes.quad((x - 1, y - 1, 0), (x + 1, y - 1, 0),
+                               (x + 1, y + 1, 0), (x - 1, y + 1, 0)), leaf2)
+    b.add_point_light((-10, -10, -10), 4000.0)
+    b.set_env_map(env, 1.0)
+    b.set_bg_color((0, 0, 0))
+    scene = b.build(bvh=False)
+    cam = Camera.make(eye=(0, 3, 6), look_at=(0, 0, 0), fov=45.0,
+                      aperture=0.001, focus_plane=4.0)
+    settings = RenderSettings(width=size, height=size, path_trace=True,
+                              max_bounces=max_bounces,
+                              max_wavefront_steps=max_bounces + 2, **kw)
+    return scene, cam, settings
+
+
+# rows of the procedural dome skies: odd, so that no dome sample direction
+# (taken at row floor(v) of the table, theta = row pi / rows) is exactly
+# horizontal; such a sample grazes a ground plane at y = 0, and whether its
+# shadow ray hits the ground then rests on the last bit of the hit point
+DOME_ROWS = 127
+
+
+@register('dome_standin')
+def dome_standin(size=256, dome_samples=4, builder=None, **kw):
+    """The JAX registry's `dome_teapot` without its files: a procedural
+    lat-long HDR sky with a sun spot (`assets.sky_hdr`, for sky.hdr) as both
+    dome light and env map, a procedural grass texture on the same ground
+    quad, and a 576-triangle sphere for the teapot. The same materials,
+    dome gain and samples, camera and settings. The sky has an odd number
+    of rows (DOME_ROWS)."""
+    b = SceneBuilder() if builder is None else builder
+    sky = b.add_texture(assets.sky_hdr(DOME_ROWS, 256))
+    grass = b.add_texture(assets.solid_texture((0.2, 0.45, 0.1), 64,
+                                               grain=0.4, seed=5))
+    gmat = b.add_blinn(kd=(1, 1, 1), tex_color=grass)
+    b.add_mesh(shapes.quad((-8, 0, -8), (8, 0, -8), (8, 0, 8), (-8, 0, 8)),
+               gmat)
+    tmat = b.add_blinn(kd=(0.9, 0.85, 0.8), spec_amt=0.3, spec_exp=20.0)
+    b.add_mesh(_teapot_sphere(), tmat)
+    b.set_dome_light(sky, gain=1.0, num_samples=dome_samples)
+    b.set_env_map(sky, 1.0)
+    scene = b.build(bvh=False)
+    cam = Camera.make(eye=(0, 2.5, 5), look_at=(0, 0.8, 0), fov=45.0)
+    settings = RenderSettings(width=size, height=size, path_trace=False,
+                              max_wavefront_steps=2, **kw)
+    return scene, cam, settings
+
+
+# the final forest's tree prototypes: (trunk height, trunk radius) of the
+# JAX registry's _procedural_trunk calls, scaled by TRUNK_SCALE so that the
+# trunk reaches the stand-in canopy; leaf cards per canopy
+TREES = ((1.2, 0.05), (1.5, 0.06))
+TRUNK_SCALE = 5.0
+LEAF_CARDS = 1500
+
+
+@register('final_forest_standin')
+def final_forest_standin(width=1920, height=1080, n_trees=200, n_flowers=100,
+                         grass_grid=40, max_bounces=5, dome_samples=2,
+                         builder=None, bvh=False, **kw):
+    """The JAX registry's flagship `final_forest` (makeFinalScene) without
+    asset files, at its defaults: the same rng seed (3163513), tree, flower
+    and grass placement loops, materials, env exposure 1.5, dome gain 0.15,
+    dome samples, thin-lens camera (aperture 0.0018, focus plane 2.0,
+    shutter 0.1) and settings (Whitted, 5 bounces, 7 wavefront steps).
+    Every mesh and image is generated (scenes/assets.py):
+
+    * groundPlane.obj: a 2 km square of 20 x 20 quads, the texture tiled 20
+      times on each; ground-dirt-texture.tga: brown grain;
+    * explosion01/02.obj: a shattered 0.12 m glass sphere near the focus
+      point, shards pushed 0.05-0.15 m outward at t = 1 (motion blur);
+    * cannonBallT1/T2.obj: a 0.05 m sphere moving 0.25 m along x;
+      bw2.tga: black and white checks;
+    * the trees: the JAX registry's procedural trunks, 5 times larger, under
+      a canopy of 1,500 alpha-cut leaf cards (an ellipsoid of radii 0.45,
+      0.3, 0.45 times the trunk height); AL04/AL17 bark and autumn leaves:
+      grain and RGBA leaf images (`assets.leaf_texture`);
+    * the two flowers: a stem, bulbs, a ring of petal cards and leaf cards
+      (alpha-cut on flower01), each at most 16 clusters; their nine images:
+      coloured grain, and a bump map for the bulb;
+    * testGrass.obj: a clump of 12 four-triangle blades; grassblade2.tga:
+      green grain;
+    * sky.hdr and the nyany env map: two procedural HDR skies.
+
+    n_trees=0 leaves out all trees, the four hand-placed ones too, so that
+    the scene's prototypes are all shallow and take the segment tracer.
+    """
+    rng = np.random.default_rng(3163513)
+    b = SceneBuilder() if builder is None else builder
+
+    # env + dome (src/main.cpp:149-165)
+    env = b.add_texture(assets.sky_hdr(128, 256, sun_u=0.7, sun_el=20.0,
+                                       sun_power=60.0,
+                                       zenith=(0.3, 0.35, 0.6)))
+    sky = b.add_texture(assets.sky_hdr(DOME_ROWS, 256))
+    b.set_env_map(env, 1.5)
+    b.set_dome_light(sky, gain=0.15, num_samples=dome_samples)
+    b.set_bg_color((0, 0, 0))
+
+    # ground plane with dirt texture (src/main.cpp:185-227)
+    dirt = b.add_texture(assets.solid_texture((0.35, 0.25, 0.15), 128,
+                                              grain=0.5, seed=21))
+    dirt_mat = b.add_blinn(kd=(0.1, 0.1, 0.1), spec_exp=30.0, ior=1.8,
+                           tex_color=dirt)
+    b.add_mesh(assets.ground_grid(1000.0, 20, 20.0), dirt_mat)
+
+    # motion-blurred dispersive glass explosion (src/main.cpp:167-203)
+    glass = b.add_blinn(kd=(0.9, 0.9, 0.9), spec_exp=30.0, spec_amt=0.0,
+                        ior=1.56, reflect_amt=1.0, refract_amt=1.0,
+                        disperse=True)
+    shards, shards_t1 = assets.shattered_sphere((0.35, 0.45, 0.4), 0.12, 8,
+                                                12, 0.1, 22)
+    b.add_mesh(shards, glass, shards_t1)
+
+    # motion-blurred cannonball (src/main.cpp:205-223)
+    bullet = b.add_texture(assets.checker_texture())
+    cball = b.add_blinn(kd=(0.01, 0.01, 0.01), spec_exp=15.0, spec_amt=0.5,
+                        ior=1.8, spec_gloss=0.9, tex_color=bullet)
+    ball = shapes.uv_sphere((0.05, 0.4, 0.7), 0.05, 10, 16)
+    b.add_mesh(ball, cball, assets.translated(ball, (0.25, 0.0, 0.0)))
+
+    # ---- tree prototypes (src/main.cpp:230-395): trunk + alpha-cut leaves
+    bark2 = b.add_texture(assets.solid_texture((0.3, 0.22, 0.15), 64,
+                                               seed=31))
+    leaves2 = b.add_texture(assets.leaf_texture(128, (0.6, 0.3, 0.08),
+                                                seed=32))
+    bark3 = b.add_texture(assets.solid_texture((0.25, 0.2, 0.16), 64,
+                                               seed=33))
+    leaves3 = b.add_texture(assets.leaf_texture(128, (0.55, 0.45, 0.1),
+                                                seed=34))
+    t2_body_m = b.add_blinn(kd=(0.5, 0.5, 0.5), spec_exp=20.0, spec_amt=0.8,
+                            tex_color=bark2)
+    t2_leaf_m = b.add_blinn(kd=(0.5, 0.5, 0.5), spec_exp=20.0, spec_amt=0.8,
+                            translucency=0.6, tex_color=leaves2,
+                            tex_alpha=leaves2)
+    t3_body_m = b.add_blinn(kd=(0.5, 0.5, 0.5), spec_exp=20.0, spec_amt=0.8,
+                            tex_color=bark3)
+    t3_leaf_m = b.add_blinn(kd=(0.5, 0.5, 0.5), spec_exp=20.0, spec_amt=0.8,
+                            translucency=0.6, tex_color=leaves3,
+                            tex_alpha=leaves3)
+    protos = []
+    for k, ((th, tr), body, leaf) in enumerate(zip(
+            TREES, (t2_body_m, t3_body_m), (t2_leaf_m, t3_leaf_m))):
+        h = th * TRUNK_SCALE
+        b.begin_prototype()
+        b.add_mesh(procedural_trunk(h, tr * TRUNK_SCALE), body)
+        b.add_mesh(assets.random_cards(LEAF_CARDS, (0.0, 0.85 * h, 0.0),
+                                       (0.45 * h, 0.3 * h, 0.45 * h),
+                                       0.08 * h, seed=40 + k, droop=0.5),
+                   leaf)
+        protos.append(b.end_prototype())
+    tree2, tree3 = protos
+
+    # makeTrees placement (src/main.cpp:54-76): ring outside |x|,|z| < 100
+    placed = 0
+    while placed < n_trees:
+        x, z = rng.random(), rng.random()
+        if x * x + z * z > 1.0:
+            continue
+        tx, tz = x * 800.0, -z * 800.0
+        if tx < 100.0 and tz > -100.0:
+            continue
+        m = tf.translate(tx, rng.random() * 0.5 - 0.5, tz) \
+            @ tf.scale(rng.random() * 0.3 + 0.85, rng.random() * 0.3 + 0.85,
+                       rng.random() * 0.3 + 0.85) \
+            @ tf.rotate_y(rng.random() * 360.0)
+        b.add_instance(tree2 if placed % 2 == 0 else tree3, m)
+        placed += 1
+    if n_trees > 0:
+        # the four hand-placed near trees (src/main.cpp:231-238, 283-306)
+        b.add_instance(tree2, tf.translate(62.872, 0, -27.025)
+                       @ tf.scale(0.64))
+        b.add_instance(tree3, tf.translate(0, 0, -21.013))
+        b.add_instance(tree3, tf.translate(43.078, 0, -9.234)
+                       @ tf.rotate_y(-105.05))
+        b.add_instance(tree2, tf.translate(10.92, 0, -53.16)
+                       @ tf.scale(0.71) @ tf.rotate_y(100.0))
+
+    # ---- flower prototypes (src/main.cpp:397-655)
+    fl_bulb = b.add_texture(assets.solid_texture((0.9, 0.8, 0.2), seed=51))
+    fl_bulb_n = b.add_texture(assets.normal_map(seed=52))
+    fl_body_t = b.add_texture(assets.solid_texture((0.2, 0.5, 0.15),
+                                                   seed=53))
+    fl_leaf_t = b.add_texture(assets.solid_texture((0.25, 0.55, 0.2),
+                                                   seed=54))
+    fl_petal = b.add_texture(assets.solid_texture((0.95, 0.5, 0.6),
+                                                  seed=55))
+    fl01_lef1 = b.add_texture(assets.leaf_texture(64, (0.2, 0.5, 0.15),
+                                                  seed=56))
+    fl01_stm1 = b.add_texture(assets.solid_texture((0.3, 0.5, 0.2),
+                                                   seed=57))
+    fl01_flo1 = b.add_texture(assets.solid_texture((0.8, 0.3, 0.5),
+                                                   seed=58))
+    fl01_pet1 = b.add_texture(assets.solid_texture((0.9, 0.6, 0.8),
+                                                   seed=59))
+    fl01_stm2 = b.add_texture(assets.solid_texture((0.9, 0.85, 0.4),
+                                                   seed=60))
+    fl01_lef2 = b.add_texture(assets.leaf_texture(64, (0.25, 0.55, 0.2),
+                                                  seed=61))
+
+    def flower_mat(tex, transl=0.0, alpha=-1, normal=-1):
+        return b.add_blinn(kd=(0.5, 0.5, 0.5), spec_exp=20.0, spec_amt=0.8,
+                           translucency=transl, tex_color=tex,
+                           tex_alpha=alpha, tex_normal=normal)
+
+    def petals(y, r, n, size, seed):
+        ang = np.arange(n) * 2 * np.pi / n
+        ring = np.stack([np.cos(ang), np.zeros(n), np.sin(ang)], -1)
+        return assets.cards((0.0, y, 0.0) + ring * r * 0.5,
+                            ring + np.asarray([0.0, 1.5, 0.0]),
+                            ring, 0.6 * size, size)
+
+    b.begin_prototype()
+    b.add_mesh(shapes.cylinder((0, 0, 0), 0.008, 0.35, n_seg=6),
+               flower_mat(fl_body_t))
+    b.add_mesh(shapes.uv_sphere((0, 0.37, 0), 0.025, 6, 10),
+               flower_mat(fl_bulb, normal=fl_bulb_n))
+    b.add_mesh(assets.random_cards(6, (0, 0.12, 0), (0.06, 0.08, 0.06), 0.08,
+                                   seed=62), flower_mat(fl_leaf_t, transl=0.5))
+    b.add_mesh(petals(0.37, 0.05, 8, 0.06, 63),
+               flower_mat(fl_petal, transl=0.6))
+    flower02 = b.end_prototype()
+
+    b.begin_prototype()
+    b.add_mesh(assets.random_cards(8, (0, 0.08, 0), (0.1, 0.06, 0.1), 0.12,
+                                   seed=64, droop=1.0),
+               flower_mat(fl01_lef1, transl=0.6, alpha=fl01_lef1))
+    b.add_mesh(shapes.cylinder((0, 0, 0), 0.006, 0.3, n_seg=6),
+               flower_mat(fl01_stm1))
+    for k, (x, y, z) in enumerate(((0.0, 0.31, 0.0), (0.03, 0.27, 0.01),
+                                   (-0.02, 0.25, -0.02))):
+        b.add_mesh(shapes.uv_sphere((x, y, z), 0.015, 5, 8),
+                   flower_mat(fl01_flo1))
+    b.add_mesh(petals(0.31, 0.04, 10, 0.05, 65),
+               flower_mat(fl01_pet1, transl=0.6))
+    b.add_mesh(shapes.cylinder((0, 0.3, 0), 0.002, 0.03, n_seg=4),
+               flower_mat(fl01_stm2))
+    b.add_mesh(assets.random_cards(10, (0, 0.18, 0), (0.05, 0.05, 0.05),
+                                   0.05, seed=66),
+               flower_mat(fl01_lef2, transl=0.6, alpha=fl01_lef2))
+    flower01 = b.end_prototype()
+
+    cam_eye = np.asarray((-1.277, 0.158, 2.139), np.float32)
+    # makeFlowers placement (src/main.cpp:78-97): disc around the camera,
+    # the JAX registry's draw order and composition
+    for i in range(n_flowers):
+        while True:
+            x, z = rng.random(), rng.random()
+            if x * x + z * z <= 1.0:
+                break
+        trans = tf.translate(cam_eye[0] + x * 10.0,
+                             rng.random() * 0.05 - 0.025,
+                             cam_eye[2] - z * 10.0)
+        sc = tf.scale(rng.random() * 0.2 + 0.9, rng.random() * 0.2 + 0.95,
+                      rng.random() * 0.2 + 0.9)
+        tilt = tf.rotate_x(rng.random() * 20.0 + 10.0)
+        yaw = tf.rotate_y(rng.random() * 360.0)
+        b.add_instance(flower02 if i % 2 else flower01, trans @ sc @ yaw @ tilt)
+
+    # ---- grass proxy grid (makeProxyGrid, src/main.cpp:38-52)
+    grass_tex = b.add_texture(assets.solid_texture((0.3, 0.6, 0.15), 16,
+                                                   grain=0.3, seed=71))
+    grass_m = b.add_blinn(kd=(0.5, 0.5, 0.5), spec_exp=20.0, spec_amt=0.8,
+                          tex_color=grass_tex)
+    b.begin_prototype()
+    b.add_mesh(assets.grass_clump(12, seed=72), grass_m)
+    grass = b.end_prototype()
+    for i in range(grass_grid):
+        for j in range(grass_grid):
+            m = tf.translate(-2 + i * (rng.random() * 0.2 + 0.2), 0,
+                             3 - j * (rng.random() * 0.2 + 0.2)) \
+                @ tf.scale(rng.random() * 0.3 + 0.85,
+                           rng.random() * 0.3 + 0.7,
+                           rng.random() * 0.3 + 0.85) \
+                @ tf.rotate_y(rng.random() * 360.0)
+            b.add_instance(grass, m)
+
+    scene = b.build(bvh=bvh)
+    cam = Camera.make(eye=cam_eye, look_at=(0.294, 0.511, 0.503),
+                      fov=39.0, aperture=0.0018, focus_plane=2.0,
+                      shutter=0.1)
+    settings = RenderSettings(width=width, height=height, path_trace=False,
+                              max_bounces=max_bounces,
+                              max_wavefront_steps=max_bounces + 2, **kw)
     return scene, cam, settings

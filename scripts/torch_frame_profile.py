@@ -4,12 +4,13 @@
                                            [--trace PATH]
 
 Renders --scene (default `sponza_standin`: 1 spp, 10 bounces; or
-`instanced_grid_standin` / `forest_standin` at their own settings) at
-1920x1080 with raytracer_tpu_torch on CUDA. For each ray tile size 2**k in
+`instanced_grid_standin`, `forest_standin` or `final_forest_standin` at
+their own settings) at 1920x1080 with raytracer_tpu_torch on CUDA. For each ray tile size 2**k in
 --tiles it prints the median wall time of 3 renders after a warm-up. Then
 it profiles one render at the default tile with torch.profiler and prints
-the device time by kernel name, the trace kernels' share, and the device
-busy share (device kernel time over wall time). --trace writes the Chrome
+the device time by kernel name, the trace kernels' share, the device
+busy share (device kernel time over wall time) and, for alpha scenes, the
+alpha march's passes and host syncs. --trace writes the Chrome
 trace. Needs a CUDA device.
 """
 from __future__ import annotations
@@ -29,6 +30,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import raytracer_tpu_torch as rt  # noqa: E402
 from raytracer_tpu_torch.core import rng  # noqa: E402
+from raytracer_tpu_torch.ops import cluster_trace as ct  # noqa: E402
 from raytracer_tpu_torch.scenes import registry  # noqa: E402
 
 DEFAULT_TILE = 1 << 21      # chip_smoke.py's tile: the whole 1080p frame
@@ -50,7 +52,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument('--scene', default='sponza_standin',
                     choices=('sponza_standin', 'instanced_grid_standin',
-                             'forest_standin'))
+                             'forest_standin', 'final_forest_standin'))
     ap.add_argument('--tiles', default='17,19,21')
     ap.add_argument('--trace', default=None)
     args = ap.parse_args()
@@ -78,6 +80,7 @@ def main() -> int:
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    ct.MARCH_PASSES = ct.MARCH_SYNCS = 0
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         rt.render(scene, cam, st, key)
@@ -97,7 +100,9 @@ def main() -> int:
                       'trace_kernel_s': trace_us / 1e6,
                       'trace_kernel_share_of_device':
                           trace_us / max(total_us, 1e-9),
-                      'n_device_kernels': len(events)}))
+                      'n_device_kernels': len(events),
+                      'alpha_march_passes': ct.MARCH_PASSES,
+                      'alpha_march_syncs': ct.MARCH_SYNCS}))
     for name, us in top:
         print(json.dumps({'kernel': name[:90], 'device_ms': us / 1e3,
                           'share': us / max(total_us, 1e-9)}))

@@ -2,9 +2,11 @@
 
 Both builders run the same native SAH cluster build on the same geometry,
 so the cluster tables (flat, or instance and two-level for an instanced
-scene, which the JAX builder builds with its BVH) must be byte-equal, and
-every scene array equal exactly. convert.scene_from_arrays must carry a JAX-built scene across
-without a change, and scene_to_arrays must invert it.
+scene, which the JAX builder builds with its BVH, and the motion-blurred
+partition) must be byte-equal, and every scene array equal exactly: the
+t = 1 pose tables, the texel pool and the dome's CDF tables too.
+convert.scene_from_arrays must carry a JAX-built scene across without a
+change, and scene_to_arrays must invert it.
 """
 import dataclasses
 
@@ -29,6 +31,12 @@ BUILDS = {
         8, 8, builder=b, bvh=b is not None),
     'forest_8': lambda b: registry.forest_standin(
         8, 8, n_trees=8, canopy=(30, 32), builder=b, bvh=b is not None),
+    'mb_bullet': lambda b: registry.mb_bullet_standin(8, builder=b),
+    'alpha_leaf': lambda b: registry.alpha_leaf_standin(8, builder=b),
+    'dome': lambda b: registry.dome_standin(8, builder=b),
+    'final_forest_2': lambda b: registry.final_forest_standin(
+        8, 8, n_trees=2, n_flowers=4, grass_grid=3, builder=b,
+        bvh=b is not None),
 }
 
 
@@ -41,16 +49,20 @@ def pair(request):
 def test_cluster_tables_byte_equal(pair):
     sj, st = pair
     assert st.single_level == sj.single_level
-    name = 'clusters' if st.single_level else 'iclusters'
-    tj, tt = getattr(sj, name), getattr(st, name)
-    for f in dataclasses.fields(tt):
-        b = getattr(tt, f.name)
-        if not isinstance(b, torch.Tensor):
-            assert b == getattr(tj, f.name), f.name
-            continue
-        a, b = np.asarray(getattr(tj, f.name)), b.numpy()
-        assert a.dtype == b.dtype and a.shape == b.shape, f.name
-        assert a.tobytes() == b.tobytes(), f.name
+    names = ['clusters'] if st.single_level else ['iclusters']
+    assert (st.mb_clusters is None) == (sj.mb_clusters is None)
+    if st.mb_clusters is not None:
+        names.append('mb_clusters')
+    for name in names:
+        tj, tt = getattr(sj, name), getattr(st, name)
+        for f in dataclasses.fields(tt):
+            b = getattr(tt, f.name)
+            if not isinstance(b, torch.Tensor):
+                assert b == getattr(tj, f.name), f.name
+                continue
+            a, b = np.asarray(getattr(tj, f.name)), b.numpy()
+            assert a.dtype == b.dtype and a.shape == b.shape, f.name
+            assert a.tobytes() == b.tobytes(), f.name
 
 
 def test_scene_arrays_equal(pair):
@@ -86,19 +98,64 @@ def test_sponza_standin_size():
 
 
 def test_unported_features_raise():
+    """Image files, adaptive sampling, the BVH and motion-blurred
+    prototypes (which need the BVH tracer) still raise; a scene without
+    its cluster table does not convert."""
     from raytracer_tpu_torch import SceneBuilder, render_adaptive
+    from raytracer_tpu_torch.io.objload import make_single_triangle
     b = SceneBuilder()
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        b.add_blinn(tex_color=0)
+        b.add_texture_file('leaf.tga')
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         render_adaptive()
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         b.build(bvh=True)
+    tri = make_single_triangle((0, 0, 0), (1, 0, 0), (0, 1, 0))
+    b.begin_prototype()
+    b.add_mesh(tri, b.add_lambert(), mesh_t1=tri)
+    b.add_instance(b.end_prototype(), np.eye(4))
+    b.add_mesh(make_single_triangle((0, 0, 1), (1, 0, 1), (0, 1, 1)), 0)
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        b.build()
     sj, _, _ = registry.triangle_sphere(size=8, builder=rj.SceneBuilder())
     arrays, static = scene_arrays(sj)
-    for flag in ('has_motion_blur', 'has_alpha_maps'):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            convert.scene_from_arrays(arrays, dict(static, **{flag: True}))
+    arrays = {k: v for k, v in arrays.items() if not k.startswith('clusters')}
+    with pytest.raises(ValueError, match='cluster'):
+        convert.scene_from_arrays(arrays, static)
+
+
+def test_texel_pool_and_dome_tables():
+    """The texel pool and its descriptors, and the dome's CDF tables, as the
+    JAX build makes them (byte-equal), moved to a device as one set."""
+    sj, _, _ = registry.dome_standin(8, builder=rj.SceneBuilder())
+    st, _, _ = registry.dome_standin(8)
+    for group in ('textures', 'dome'):
+        for f in dataclasses.fields(getattr(st, group)):
+            got = getattr(getattr(st, group), f.name)
+            want = getattr(getattr(sj, group), f.name)
+            if isinstance(got, torch.Tensor):
+                want = np.asarray(want)
+                assert got.numpy().dtype == want.dtype, f.name
+                assert got.numpy().tobytes() == want.tobytes(), f.name
+            else:
+                assert got == want, f.name
+    assert st.textures.data.numel() > 0 and st.dome.num_samples == 4
+    assert st.env_tex == st.dome.tex == 0
+    moved = st.to('cpu')
+    assert moved.dome.v_cdf.shape == (256, registry.DOME_ROWS + 1)
+
+
+def test_static_t1_tables_alias():
+    """A static table's t = 1 pose is its t = 0 pose, one buffer, and stays
+    one buffer when the scene moves; a motion-blurred one has its own."""
+    static, _, _ = registry.triangle_sphere(size=8)
+    cl = static.clusters
+    assert cl.p0_t1 is cl.p0 and cl.e2_t1 is cl.e2
+    moved = static.to(torch.device('cpu')).clusters
+    assert moved.p0_t1 is moved.p0
+    mb, _, _ = registry.mb_bullet_standin(8)
+    assert mb.has_motion_blur and mb.clusters.p0_t1 is not mb.clusters.p0
+    assert mb.clusters.nbytes > cl.nbytes
 
 
 def test_camera_from_arrays():

@@ -219,3 +219,162 @@ def test_instanced_render_on_card_matches_cpu(dev):
     d = np.abs(got - want)
     assert (d <= 1e-4 + 1e-3 * np.abs(want)).all(-1).mean() >= 0.99
     assert d.mean() < 1e-3 * np.abs(want).mean()
+
+
+# ------------------------------------------- motion blur and alpha modes
+def _box_rays(bb_min, bb_max, tri, seed, n=R):
+    """Rays from around a table's box aimed at random points inside it,
+    with random shutter times -> CPU tensors (o, d, time)."""
+    rs = np.random.default_rng(seed)
+    real = tri[:, 0] >= 0
+    lo = bb_min[real].amin(0).numpy()
+    hi = bb_max[real].amax(0).numpy()
+    ctr, ext = (lo + hi) / 2, (hi - lo).max()
+    o = ctr + rs.normal(size=(n, 3)) * ext
+    d = ctr + rs.uniform(-0.5, 0.5, (n, 3)) * ext - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    f = lambda x: torch.tensor(np.asarray(x), dtype=torch.float32)
+    return f(o), f(d), f(rs.uniform(size=n))
+
+
+@pytest.fixture(scope='module')
+def forest_small(dev):
+    """final_forest_standin with two trees (the hierarchical tracer) and
+    with none (the segment tracer), on both devices."""
+    out = {}
+    for n_trees in (2, 0):
+        s, cam, _ = registry.final_forest_standin(
+            32, 24, n_trees=n_trees, n_flowers=6, grass_grid=4)
+        out[n_trees] = (s, s.to(dev), cam)
+    return out
+
+
+def _assert_hits_equal(hk, hp, fields=('tri', 'inst', 't', 'a', 'b')):
+    for f in fields:
+        np.testing.assert_array_equal(getattr(hk, f).cpu().numpy(),
+                                      getattr(hp, f).numpy(), err_msg=f)
+
+
+@pytest.mark.parametrize('any_hit', [False, True])
+def test_mb_kernel_matches_plain(dev, any_hit):
+    """The cluster kernel in `mb` mode on mb_bullet_standin (no alpha maps:
+    nearest and cheap any-hit), random shutter times and dead lanes."""
+    host, cam, _ = registry.mb_bullet_standin(16)
+    card = host.to(dev)
+    cl = host.clusters
+    assert cl.p0_t1 is not cl.p0
+    o, d, time = _box_rays(cl.bb_min, cl.bb_max, cl.tri, 4)
+    tmax = torch.full((R,), 1e12)
+    if any_hit:   # stop at 0.5-1.5 times the nearest hit
+        near = ct.cluster_trace(host, o, d, time, 1e-3, tmax, False).t
+        u = torch.tensor(np.random.default_rng(5).uniform(0.5, 1.5, R),
+                         dtype=torch.float32)
+        tmax = torch.clamp(near * u, max=1e12)
+    tmax[::5] = -1.0
+    hp = ct.cluster_trace(host, o, d, time, 1e-3, tmax, any_hit)
+    n0 = ck.MODES['mb+' + ('cheap_any' if any_hit else 'nearest')]
+    hk = ck.cluster_trace(card, o.to(dev), d.to(dev), time.to(dev), 1e-3,
+                          tmax.to(dev), any_hit)
+    torch.cuda.synchronize()
+    assert ck.MODES['mb+' + ('cheap_any' if any_hit else 'nearest')] == n0 + 1
+    assert int((hp.tri >= 0).sum()) > R // 20
+    _assert_hits_equal(hk, hp, ('tri', 't'))
+    np.testing.assert_allclose(hk.a.cpu().numpy(), hp.a.numpy(), atol=1e-6)
+    np.testing.assert_allclose(hk.b.cpu().numpy(), hp.b.numpy(), atol=1e-6)
+
+
+@pytest.mark.parametrize('any_hit', [False, True])
+def test_mb_need_ab_kernel_matches_plain(forest_small, dev, any_hit):
+    """The cluster kernel in `mb` + `need_ab` mode on the forest's
+    motion-blurred partition: nearest and exact any-hit give the same
+    t, tri, a and b bit for bit."""
+    host, card, _ = forest_small[2]
+    cl = host.mb_clusters
+    o, d, time = _box_rays(cl.bb_min, cl.bb_max, cl.tri, 6)
+    tmax = torch.full((R,), 1e12)
+    tmax[::5] = -1.0
+    hp = ct.cluster_trace(host, o, d, time, 1e-3, tmax, any_hit,
+                          table=cl, mb=True)
+    hk = ck.cluster_trace(card, o.to(dev), d.to(dev), time.to(dev), 1e-3,
+                          tmax.to(dev), any_hit, table=card.mb_clusters,
+                          mb=True)
+    torch.cuda.synchronize()
+    assert int((hp.tri >= 0).sum()) > R // 20
+    assert (hp.tri[::5] == -1).all()
+    _assert_hits_equal(hk, hp)
+
+
+@pytest.mark.parametrize('any_hit', [False, True])
+def test_need_ab_kernel_matches_plain(dev, any_hit):
+    """The static cluster kernel in `need_ab` mode on alpha_leaf_standin."""
+    host, cam, _ = registry.alpha_leaf_standin(16)
+    card = host.to(dev)
+    o, d, _ = cam_mod.center_rays(cam, 64, R // 64)
+    tmax = torch.full((R,), 1e12)
+    tmax[::5] = -1.0
+    hp = ct.cluster_trace(host, o, d, 0.5, 1e-3, tmax, any_hit)
+    hk = ck.cluster_trace(card, o.to(dev), d.to(dev), 0.5, 1e-3,
+                          tmax.to(dev), any_hit)
+    torch.cuda.synchronize()
+    assert int((hp.tri >= 0).sum()) > R // 20
+    _assert_hits_equal(hk, hp, ('tri', 't', 'a', 'b'))
+
+
+@pytest.mark.parametrize('n_trees', [2, 0])
+@pytest.mark.parametrize('any_hit', [False, True])
+def test_instanced_need_ab_kernel_matches_plain(forest_small, dev, n_trees,
+                                                any_hit):
+    """The hierarchical (two trees) and segment (no trees) kernels in
+    `need_ab` mode, nearest and exact any-hit, on camera rays and random
+    rays near the ground, with dead lanes."""
+    host, card, cam = forest_small[n_trees]
+    mod, name = (ick, 'icluster_trace') if n_trees else (isk, 'iseg_trace')
+    assert (host.iclusters.max_proto_clusters > 16) == bool(n_trees)
+    o, d = _instanced_rays(host, cam, 'camera')
+    o2, d2 = _instanced_rays(host, cam, 'random', seed=7)
+    o, d = torch.cat([o[:R // 2], o2[:R // 2]]), torch.cat([d[:R // 2],
+                                                           d2[:R // 2]])
+    tmax = torch.full((R,), 1e12)
+    tmax[::5] = -1.0
+    hp = PLAIN[name](host, o, d, 0.0, 1e-3, tmax, any_hit)
+    key = ('exact_any' if any_hit else 'nearest') + '+need_ab'
+    n0 = mod.MODES[key]
+    hk = getattr(mod, name)(card, o.to(dev), d.to(dev), 0.0, 1e-3,
+                            tmax.to(dev), any_hit)
+    torch.cuda.synchronize()
+    assert mod.MODES[key] == n0 + 1
+    assert int((hp.tri >= 0).sum()) > R // 20
+    _assert_hits_equal(hk, hp)
+
+
+def test_alpha_march_on_card_matches_cpu(forest_small, dev):
+    """The whole forest tracer (alpha march, motion-blurred partition
+    hoisted) on the card against the CPU, bit for bit."""
+    from raytracer_tpu_torch.core.types import RenderSettings
+    from raytracer_tpu_torch.render import integrator
+    host, card, cam = forest_small[2]
+    o, d = _instanced_rays(host, cam, 'camera')
+    time = torch.tensor(np.random.default_rng(8).uniform(0.9, 1.0, R),
+                        dtype=torch.float32)
+    for any_hit in (False, True):
+        hp = integrator.trace_fn(host, RenderSettings())(
+            o, d, time, 1e-3, 1e12, any_hit)
+        hk = integrator.trace_fn(card, RenderSettings())(
+            o.to(dev), d.to(dev), time.to(dev), 1e-3, 1e12, any_hit)
+        _assert_hits_equal(hk, hp)
+
+
+def test_forest_render_on_card_matches_cpu(forest_small, dev):
+    s, cam, st = registry.final_forest_standin(
+        32, 24, n_trees=2, n_flowers=6, grass_grid=4, max_bounces=1,
+        dome_samples=1)
+    key = rng.PRNGKey(13)
+    want = rt.render(s, cam, st, key).numpy()
+    n0, c0 = ick.LAUNCHES + ck.LAUNCHES, ict.CALLS + ct.CALLS
+    got = rt.render(s.to(dev), cam.to(dev), st, key)
+    torch.cuda.synchronize()
+    assert ick.LAUNCHES + ck.LAUNCHES > n0 and ict.CALLS + ct.CALLS == c0
+    got = got.cpu().numpy()
+    dd = np.abs(got - want)
+    assert (dd <= 1e-4 + 1e-3 * np.abs(want)).all(-1).mean() >= 0.99
+    assert dd.mean() < 1e-3 * np.abs(want).mean()

@@ -36,6 +36,8 @@ from raytracer_tpu.ops.pallas import icluster_kernel as jick
 from raytracer_tpu.ops.pallas import iseg_kernel as jisk
 from raytracer_tpu.render import integrator as jint
 from raytracer_tpu_torch.core.types import RenderSettings
+from raytracer_tpu_torch.geometry.clusters import build_clusters as cl_build
+from raytracer_tpu_torch.ops import cluster_trace as tct
 from raytracer_tpu_torch.ops import bundle
 from raytracer_tpu_torch.ops import icluster_trace as ict
 from raytracer_tpu_torch.ops import intersect as tisect
@@ -290,8 +292,9 @@ def test_hit_attributes_and_refine_hit_on_instance_hits(scenes):
 
 def test_routing_and_unported_modes(scenes):
     """'auto' and 'cluster2' take the segment tracer for shallow
-    prototypes and the hierarchical one for deep ones; 'brute' and motion-
-    blurred world geometry raise."""
+    prototypes and the hierarchical one for deep ones, and trace a
+    motion-blurred world partition with the cluster tracer in `mb` mode;
+    'brute' raises."""
     name, _, sp, cam, _ = scenes
     plain = TRACERS[name][1]
     mod = ist if plain is ist.iseg_trace else ict
@@ -303,6 +306,19 @@ def test_routing_and_unported_modes(scenes):
         assert mod.CALLS == calls + 1
     with pytest.raises(NotImplementedError):
         tint.trace_fn(sp, RenderSettings(intersector='brute'))
-    with pytest.raises(NotImplementedError, match='#11'):
-        tint.trace_fn(dataclasses.replace(sp, mb_clusters=sp.iclusters),
-                      RenderSettings())
+    # the world prototype's triangles once more, as a (static) partition:
+    # its hits tie with the instance tracer's, which keeps them
+    icl = sp.iclusters
+    world = icl.tri[:int(icl.pmeta[0, 1])].reshape(-1)
+    mb = dataclasses.replace(
+        sp, has_motion_blur=True,
+        mb_clusters=cl_build(sp.geom, tri_ids=world[world >= 0].numpy()))
+    calls, mb_calls = mod.CALLS, tct.CALLS
+    args = (torch.from_numpy(o), torch.from_numpy(d), 0.5, 1e-3, 1e12,
+            False)
+    h = tint.trace_fn(mb, RenderSettings())(*args)
+    assert mod.CALLS == calls + 1 and tct.CALLS == mb_calls + 1
+    want = plain(sp, *args)
+    for f in ('t', 'tri', 'inst'):
+        np.testing.assert_array_equal(getattr(h, f).numpy(),
+                                      getattr(want, f).numpy())

@@ -67,7 +67,8 @@ def test_render_teapots_matches_jax():
 
 
 def test_instanced_render_without_jax():
-    """The port builds and renders both instanced paths with jax, flax and
+    """The port builds and renders both instanced paths, and the final
+    forest (alpha march, motion blur, dome), with jax, flax and
     raytracer_tpu unimportable."""
     code = '\n'.join([
         'import sys',
@@ -77,7 +78,10 @@ def test_instanced_render_without_jax():
         'from raytracer_tpu_torch.core import rng',
         'from raytracer_tpu_torch.scenes import registry',
         'for make, kw in ((registry.instanced_teapots_standin, {}),',
-        '                 (registry.forest_standin, dict(n_trees=8))):',
+        '                 (registry.forest_standin, dict(n_trees=8)),',
+        '                 (registry.final_forest_standin, dict(',
+        '                     n_trees=2, n_flowers=4, grass_grid=3,',
+        '                     max_bounces=1))):',
         '    scene, cam, st = make(8, 8, **kw)',
         '    img = rt.render(scene, cam, st, rng.PRNGKey(0))',
         '    assert img.shape == (8, 8, 3) and bool(img.isfinite().all())',
