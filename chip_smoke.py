@@ -1,14 +1,17 @@
 """Smoke run of raytracer_tpu_torch on one NVIDIA GPU: `python3 chip_smoke.py`.
 
-Drives the PyTorch/CUDA port's serving paths, forward renders through
-`raytracer_tpu_torch.render` at 1920x1080, 1 spp, in phases:
+Drives the PyTorch/CUDA port's serving paths (forward renders through
+`raytracer_tpu_torch.render`) and its training path (forward + backward
+through `parallel/sharding.loss_and_grads_scanned`, Adam steps through
+`train_step`) at 1920x1080, 1 spp, in phases:
 
   1. device: the card's name and power limit; TF32 off;
-  2. build: the three CUDA kernels (cluster, segment and hierarchical
-     instance trace; one nvcc each, all started together) and the native
-     host library, all compiled from this checkout;
+  2. build: the four CUDA kernels (cluster, segment and hierarchical
+     instance trace, the brute-force MT sweep; one nvcc each, all started
+     together) and the native host library, all compiled from this
+     checkout;
   3. scene: the 174,724-triangle `sponza_standin` atrium, built on the
-     host, moved to the card;
+     card;
   4. the cluster kernel against its plain PyTorch version, both on the
      card, at 32,768 coherent (camera) and incoherent (random) rays,
      nearest and any-hit, with CUDA-event times (median of 5 after a
@@ -36,14 +39,35 @@ Drives the PyTorch/CUDA port's serving paths, forward renders through
  10. the same scene without trees (shallow prototypes only): the segment
      kernel's `need_ab` modes against the plain version, and the frame;
  11. a reduced forest (4 trees, 64x48, 3 steps) rendered on the CPU and on
-     the card, held as in phase 6.
+     the card, held as in phase 6;
+ 12. the MT kernel against its plain version, both on the card, on the
+     12-sphere atrium (8,836 triangles) at 32,768 coherent and incoherent
+     rays, nearest and any-hit at the bounds of phase 9 (every 4th lane
+     starts past its hit, every 16th is dead), and on a random soup with
+     forced ties (duplicate triangles at other ids): bit for bit;
+ 13. the trainer at full width, bench.py's step on the port
+     (`raytracer_tpu_torch.bench`: `sponza_standin`, 10 bounces, all six
+     leaves, zero target, median of 5 after a warm-up): the cluster kernel
+     carries every trace; the loss and every grad are finite, the
+     vertex, kd and rect-power grads nonzero; then 3 Adam steps toward a
+     target rendered with kd x 0.7, the same key each step, the
+     wavefront sort off: the loss falls;
+ 14. the 'pallas' path: one fwd+bwd step of the 12-sphere atrium at
+     1080p, 10 bounces, with intersector 'pallas': the MT kernel carries
+     every trace;
+ 15. CPU/GPU parity of the loss and grads at 64x48, 3 bounces, for the
+     12-sphere atrium under 'auto' and 'pallas'.
 
-Any failure raises. The last two lines are the kernels' JSON record (one
-entry per kernel and mode group) and {"ok": true, "device": {...}}. Needs
-a CUDA device; there is no CPU mode.
+Each path (phases 5, 7, 9, 10, 13, 14) is driven with every launch and
+plain-version count set to 0 just before and read just after. Any failure
+raises. The last two lines are the kernels' JSON record (one entry per
+kernel and mode group, with the least time its work could take on the
+card) and {"ok": true, "device": {...}}. Needs a CUDA device; there is no
+CPU mode.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 from concurrent.futures import ThreadPoolExecutor
@@ -55,14 +79,17 @@ import numpy as np
 import torch
 
 import raytracer_tpu_torch as rt
-from raytracer_tpu_torch import native
+from raytracer_tpu_torch import bench, native
 from raytracer_tpu_torch.core import rng
 from raytracer_tpu_torch.ops import cluster_trace as ct
 from raytracer_tpu_torch.ops import icluster_trace as ict
 from raytracer_tpu_torch.ops import iseg_trace as ist
+from raytracer_tpu_torch.ops import mt_trace as tmt
 from raytracer_tpu_torch.ops.cuda import cluster_kernel as ck
 from raytracer_tpu_torch.ops.cuda import icluster_kernel as ick
 from raytracer_tpu_torch.ops.cuda import iseg_kernel as isk
+from raytracer_tpu_torch.ops.cuda import mt_kernel as mtk
+from raytracer_tpu_torch.parallel import sharding as ts
 from raytracer_tpu_torch.render import camera as cam_mod
 from raytracer_tpu_torch.scenes import registry
 
@@ -88,6 +115,62 @@ INSTANCED = (
      INSTANCED_REPLACES[1][1]))
 # the reduced final forest of the CPU/GPU parity check (phase 11)
 FOREST_PARITY = dict(n_trees=4, n_flowers=20, grass_grid=8, max_bounces=1)
+KERNELS = (ck, isk, ick, mtk)
+PLAINS = (ct, ist, ict, tmt)
+# the 'pallas' cells: sponza_standin cut to 12 spheres (8,836 triangles)
+MT_SPHERES = 12
+MT_REPLACES = 'raytracer_tpu/ops/pallas/mt_kernel.py:122'
+# the trainer's CPU/GPU parity check (phase 15)
+TRAIN_PARITY = dict(width=64, height=48, max_bounces=3, n_spheres=12)
+
+
+# the least time of a kernel's work on the card: H100 SXM peaks,
+# float32 outside the tensor cores and HBM3
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+# float32 operations of one (ray, box) slab test (6 subtractions, 6
+# multiplies, 10 min/max, 2 compares), one Moller-Trumbore test
+# (ops/mt_trace._mt_block: 45 multiplies, adds and the divide) and the
+# `mb` lerp of a lane's nine basis values (9 subtractions, multiplies and
+# adds)
+BOX_OPS, MT_OPS, LERP_OPS = 24, 45, 27
+
+
+class Work:
+    """Operations and bytes of a kernel's cases, summed: the bound_ms of
+    the kernels line is the larger of ops / PEAK_FLOPS and bytes /
+    PEAK_BYTES."""
+
+    def __init__(self):
+        self.ops = 0.0
+        self.nbytes = 0.0
+
+    def add(self, ops, nbytes):
+        self.ops += ops
+        self.nbytes += nbytes
+
+    def add_counted(self, plain_call, table_bytes, rays, ray_bytes,
+                    mb=False):
+        """A cluster-table trace: the slab and triangle tests the plain
+        version performs for these rays (the off-by-default counters of
+        ops/cluster_trace.py), each table byte once, and `ray_bytes` of
+        inputs and outputs per ray."""
+        ct.TESTS.update(box=0, tri=0)
+        ct.COUNT_TESTS = True
+        try:
+            plain_call()
+        finally:
+            ct.COUNT_TESTS = False
+        self.add(ct.TESTS['box'] * BOX_OPS
+                 + ct.TESTS['tri'] * (MT_OPS + (LERP_OPS if mb else 0)),
+                 table_bytes + rays * ray_bytes)
+
+    def bound(self) -> dict:
+        f = self.ops / PEAK_FLOPS * 1e3
+        b = self.nbytes / PEAK_BYTES * 1e3
+        return dict(bound_ms=max(f, b),
+                    bound_by='operations' if f >= b else 'bytes',
+                    library_ms=None)
 
 
 def phase(tag: str, **fields) -> None:
@@ -125,8 +208,10 @@ def test_rays(cam, dev):
 
 
 def compare_kernel(scene, cam, dev):
-    """Phase 4: kernel vs plain on the card -> (max |dt|, ms, plain ms)."""
+    """Phase 4: kernel vs plain on the card -> (max |dt|, ms, plain ms,
+    bound fields)."""
     max_err, ms_k, ms_p = 0.0, 0.0, 0.0
+    work = Work()
     tmax_far = torch.full((N_RAYS,), 1e12, device=dev)
     for kind, (o, d, dist) in test_rays(cam, dev).items():
         for any_hit in (False, True):
@@ -136,6 +221,9 @@ def compare_kernel(scene, cam, dev):
             t_p, hp = cuda_ms(lambda: ct.cluster_trace(scene, *args))
             ms_k += t_k
             ms_p += t_p
+            # o, d, tmin, tmax in; t, tri out
+            work.add_counted(lambda: ct.cluster_trace(scene, *args),
+                             scene.clusters.nbytes, N_RAYS, 40)
             hits = int((hp.tri >= 0).sum())
             dt = (hk.t - hp.t).abs()
             t_ok = bool((dt <= 1e-5 * hp.t.abs()).all())
@@ -156,7 +244,7 @@ def compare_kernel(scene, cam, dev):
             assert bad == 0, f'{kind} any_hit={any_hit}: {bad} rays disagree'
             assert t_ok, f'{kind}: t disagrees beyond rtol 1e-5'
             assert hits > N_RAYS // 20, 'too few hits to compare'
-    return max_err, ms_k, ms_p
+    return max_err, ms_k, ms_p, work.bound()
 
 
 def instanced_rays(scene, cam, dev):
@@ -184,6 +272,7 @@ def compare_instanced(scene, cam, kernel, plain, dev):
     at 0.5-1.5 times their nearest hit's distance, so about half of them
     find a hit. tri and inst may differ only where t is exactly equal."""
     max_err, ms_k, ms_p = 0.0, 0.0, 0.0
+    work = Work()
     rs = np.random.default_rng(KEY + 1)
     for kind, (o, d) in instanced_rays(scene, cam, dev).items():
         near = None
@@ -199,6 +288,9 @@ def compare_instanced(scene, cam, kernel, plain, dev):
             t_p, hp = cuda_ms(lambda: plain(scene, *args))
             ms_k += t_k
             ms_p += t_p
+            # o, d, tmin, tmax in; t, tri, inst out
+            work.add_counted(lambda: plain(scene, *args),
+                             scene.iclusters.nbytes, N_RAYS, 44)
             if not any_hit:
                 near = hp.t
             hits = int((hp.tri >= 0).sum())
@@ -218,7 +310,29 @@ def compare_instanced(scene, cam, kernel, plain, dev):
             assert bad == 0, f'{kind} any_hit={any_hit}: {bad} rays disagree'
             assert t_ok, f'{kind}: t disagrees beyond rtol 1e-5'
             assert hits > N_RAYS // 20, 'too few hits to compare'
-    return max_err, ms_k, ms_p
+    return max_err, ms_k, ms_p, work.bound()
+
+
+def reset_counts() -> None:
+    """Every kernel's launch counts and every plain version's call count
+    to 0, just before a path is driven."""
+    for mod in KERNELS:
+        mod.LAUNCHES = 0
+        mod.MODES.clear()
+    for mod in PLAINS:
+        mod.CALLS = 0
+    ct.MARCH_PASSES = ct.MARCH_SYNCS = 0
+
+
+def check_only(kernel, tag) -> int:
+    """After a driven path: `kernel` launched, no other kernel, no plain
+    version -> its launch count."""
+    plain_calls = sum(m.CALLS for m in PLAINS)
+    assert kernel.LAUNCHES > 0, f'{tag}: the path never launched the kernel'
+    assert plain_calls == 0, f'{tag}: the path called a plain version'
+    assert not any(m.LAUNCHES for m in KERNELS if m is not kernel), \
+        f'{tag}: the path launched another kernel'
+    return kernel.LAUNCHES
 
 
 def render_cell(scene, cam, st, key, kernel, tag, also=(), **fields):
@@ -228,21 +342,16 @@ def render_cell(scene, cam, st, key, kernel, tag, also=(), **fields):
     (the kernel's launch count, {kernel module: launches by mode}), both
     read right after that first render."""
     torch.cuda.reset_peak_memory_stats()
-    for mod in (ck, isk, ick):
-        mod.LAUNCHES = 0
-        mod.MODES.clear()
-    for mod in (ct, ist, ict):
-        mod.CALLS = 0
-    ct.MARCH_PASSES = ct.MARCH_SYNCS = 0
+    reset_counts()
     t0 = time.perf_counter()
     img = rt.render(scene, cam, st, key)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = kernel.LAUNCHES
-    plain_calls = ct.CALLS + ist.CALLS + ict.CALLS
+    plain_calls = sum(m.CALLS for m in PLAINS)
     march = dict(passes=ct.MARCH_PASSES, syncs=ct.MARCH_SYNCS)
-    modes = {m: dict(m.MODES) for m in (ck, isk, ick) if m.LAUNCHES}
-    others = [m.LAUNCHES for m in (ck, isk, ick)
+    modes = {m: dict(m.MODES) for m in KERNELS if m.LAUNCHES}
+    others = [m.LAUNCHES for m in KERNELS
               if m is not kernel and m not in also]
     assert launches > 0, f'{tag}: the render never launched the kernel'
     for m in also:
@@ -313,12 +422,13 @@ def march_inputs(near, hit, rs):
             torch.where(dead, -1.0, tmax_any))
 
 
-def compare_modes(tag, trace_k, trace_p, rays):
+def compare_modes(tag, trace_k, trace_p, rays, table_bytes, mb=False):
     """A kernel's new modes (nearest and exact any-hit of an alpha scene)
     against its plain version on the card, at the bounds of march_inputs:
     hit or miss, tri, inst, t, a and b must agree bit for bit -> (max
-    |error|, ms, plain ms)."""
+    |error|, ms, plain ms, bound fields)."""
     max_err, ms_k, ms_p = 0.0, 0.0, 0.0
+    work = Work()
     rs = np.random.default_rng(KEY + 4)
     for kind, (o, d, times) in rays.items():
         first = trace_p(o, d, times, 1e-3, 1e12, False)
@@ -330,6 +440,9 @@ def compare_modes(tag, trace_k, trace_p, rays):
             t_p, hp = cuda_ms(lambda: trace_p(*args))
             ms_k += t_k
             ms_p += t_p
+            # o, d, time, tmin, tmax in; t, tri, inst, a, b out
+            work.add_counted(lambda: trace_p(*args), table_bytes, N_RAYS,
+                             56, mb)
             hits = int((hp.tri >= 0).sum())
             hitmiss = int((hk.valid != hp.valid).sum())
             differ = int(((hk.tri != hp.tri) | (hk.inst != hp.inst)).sum())
@@ -344,16 +457,15 @@ def compare_modes(tag, trace_k, trace_p, rays):
             assert hitmiss == 0 and differ == 0, f'{tag} {kind}: ids differ'
             assert max(errs.values()) == 0.0, f'{tag} {kind}: t, a, b differ'
             assert hits > N_RAYS // 20, 'too few hits to compare'
-    return max_err, ms_k, ms_p
+    return max_err, ms_k, ms_p, work.bound()
 
 
 def forest_cell(dev, key, records, n_trees: int) -> None:
     """Phases 9 and 10: final_forest_standin at 1080p, its new kernel modes
     against their plain versions, and its frame."""
     t0 = time.perf_counter()
-    scene_h, cam_h, st = registry.final_forest_standin(
-        WIDTH, HEIGHT, n_trees=n_trees, ray_tile=RAY_TILE)
-    scene, cam = scene_h.to(dev), cam_h.to(dev)
+    scene, cam, st = registry.final_forest_standin(
+        WIDTH, HEIGHT, n_trees=n_trees, ray_tile=RAY_TILE, device=dev)
     torch.cuda.synchronize()
     icl, mb = scene.iclusters, scene.mb_clusters
     deep = icl.max_proto_clusters > 16
@@ -369,31 +481,31 @@ def forest_cell(dev, key, records, n_trees: int) -> None:
           **fields)
     assert scene.has_alpha_maps and scene.has_motion_blur
     if deep:
-        err, t_k, t_p = compare_modes(
+        err, t_k, t_p, bnd = compare_modes(
             'mb_need_ab_kernel_vs_plain',
             lambda *a: ck.cluster_trace(scene, *a, table=mb, mb=True),
             lambda *a: ct.cluster_trace(scene, *a, table=mb, mb=True),
-            mb_rays(mb, cam, dev))
+            mb_rays(mb, cam, dev), mb.nbytes, mb=True)
         records.append(dict(
             name='cluster_trace[mb+need_ab]', route='cuda',
             source='raytracer_tpu_torch/csrc/cluster_trace.cu',
             replaces='raytracer_tpu/ops/pallas/cluster_kernel.py:293',
-            max_abs_err=err, ms=t_k, plain_ms=t_p))
+            max_abs_err=err, ms=t_k, plain_ms=t_p, **bnd))
     inst_rays = instanced_rays(scene, cam, dev)
     shutter = float(cam.shutter)
     rs = np.random.default_rng(KEY + 3)
     rays = {k: (o, d, torch.as_tensor(
         1.0 - shutter * rs.uniform(size=N_RAYS), dtype=torch.float32,
         device=dev)) for k, (o, d) in inst_rays.items()}
-    err, t_k, t_p = compare_modes(
+    err, t_k, t_p, bnd = compare_modes(
         f'{name}_need_ab_kernel_vs_plain',
         lambda *a: getattr(kernel, name)(scene, *a),
-        lambda *a: getattr(plain, name)(scene, *a), rays)
+        lambda *a: getattr(plain, name)(scene, *a), rays, icl.nbytes)
     replaces = dict(INSTANCED_REPLACES)[name]
     records.append(dict(name=f'{name}[need_ab]', route='cuda',
                         source=f'raytracer_tpu_torch/csrc/{name}.cu',
                         replaces=replaces, max_abs_err=err, ms=t_k,
-                        plain_ms=t_p))
+                        plain_ms=t_p, **bnd))
     _, modes = render_cell(scene, cam, st, key, kernel,
                            f'render_1080p_final_forest_{n_trees}', also=(ck,),
                            **fields)
@@ -403,7 +515,7 @@ def forest_cell(dev, key, records, n_trees: int) -> None:
     if deep:
         records[-2]['launches'] = sum(modes[ck].values())
     records[-1]['launches'] = sum(modes[kernel].values())
-    del scene, scene_h
+    del scene
 
 
 def check_parity(scene, cam, st, key, kernel, dev, tag) -> None:
@@ -421,6 +533,199 @@ def check_parity(scene, cam, st, key, kernel, dev, tag) -> None:
     rel = float(diff.mean() / np.abs(img_cpu).mean())
     phase(tag, pixels_within=within, mean_rel_diff=rel)
     assert within >= 0.99 and rel < 1e-3, f'{tag}: CPU and GPU disagree'
+
+
+def triangle_soup(dev, T=4133, n_dup=64):
+    """A random soup of T triangles (4,133 is 8 tiles and 37 lanes) whose
+    last n_dup repeat the first n_dup (exact ties, the lower id wins),
+    every 9th a padding lane, and N_RAYS rays aimed at random points of
+    random triangles (half at a duplicated one) -> (o, d, (p0, p1, p2,
+    valid))."""
+    rs = np.random.default_rng(KEY + 6)
+    c = rs.uniform(-2, 2, (T, 3))
+    p = [c, c + rs.normal(size=(T, 3)) * 0.5, c + rs.normal(size=(T, 3)) * 0.5]
+    for x in p:
+        x[T - n_dup:] = x[:n_dup]
+    valid = np.ones(T, np.int32)
+    valid[::9] = 0
+    valid[T - n_dup:] = valid[:n_dup]
+    k = np.where(rs.uniform(size=N_RAYS) < 0.5,
+                 rs.integers(0, n_dup, N_RAYS), rs.integers(0, T, N_RAYS))
+    u, v = rs.uniform(size=N_RAYS), rs.uniform(size=N_RAYS)
+    flip = u + v > 1
+    u, v = np.where(flip, 1 - u, u), np.where(flip, 1 - v, v)
+    tgt = p[0][k] + u[:, None] * (p[1][k] - p[0][k]) \
+        + v[:, None] * (p[2][k] - p[0][k])
+    d = rs.normal(size=(N_RAYS, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o = tgt - d * rs.uniform(1, 4, N_RAYS)[:, None]
+    f = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    return f(o), f(d), (f(p[0]), f(p[1]), f(p[2]),
+                        torch.as_tensor(valid, device=dev))
+
+
+def compare_mt(scene, cam, dev):
+    """Phase 12: the MT kernel against its plain version, both on the
+    card, on the 12-sphere atrium's triangles at 32,768 coherent and
+    incoherent rays (nearest and any-hit, at the bounds of march_inputs)
+    and on the random soup with forced ties: t, tri, a and b bit for bit
+    -> (max |error|, ms, plain ms, bound fields)."""
+    f = scene.geom.face_v.long()
+    v = scene.geom.vertices
+    tris = (v[f[:, 0]], v[f[:, 1]], v[f[:, 2]],
+            torch.ones(f.shape[0], dtype=torch.int32, device=dev))
+    rs = np.random.default_rng(KEY + 5)
+    cases = []
+    for kind, (o, d, _) in test_rays(cam, dev).items():
+        first = tmt.mt_trace(o, d, *tris, 1e-3, 1e12)
+        tmin, tmax_near, tmax_any = march_inputs(first[0], first[1] >= 0, rs)
+        cases += [(kind, 'nearest', o, d, tris, tmin, tmax_near),
+                  (kind, 'any', o, d, tris, tmin, tmax_any)]
+    o, d, soup = triangle_soup(dev)
+    lane = torch.arange(N_RAYS, device=dev)
+    cases.append(('soup_ties', 'nearest', o, d, soup,
+                  torch.full((N_RAYS,), 1e-3, device=dev),
+                  torch.where(lane % 16 == 3, -1.0, 1e12)))
+    max_err, ms_k, ms_p = 0.0, 0.0, 0.0
+    work = Work()
+    for kind, mode, o, d, tr, tmin, tmax in cases:
+        args = (o, d, *tr, tmin, tmax)
+        t_k, hk = cuda_ms(lambda: mtk.mt_trace(*args))
+        t_p, hp = cuda_ms(lambda: tmt.mt_trace(*args))
+        ms_k += t_k
+        ms_p += t_p
+        T = tr[0].shape[0]
+        live = int((tmin < tmax).sum())
+        # every live (ray, triangle) pair; o, d, tmin, tmax and the corners
+        # and flags in, t, tri, a, b out
+        work.add(live * T * MT_OPS, N_RAYS * 48 + T * 40)
+        hits = int((hp[1] >= 0).sum())
+        errs = {n: float((x.double() - y.double()).abs().max())
+                for n, x, y in zip(('t', 'tri', 'a', 'b'), hk, hp)}
+        max_err = max(max_err, errs['t'], errs['a'], errs['b'])
+        phase('mt_kernel_vs_plain', rays=kind, mode=mode, n=N_RAYS,
+              triangles=T, live=live, hits=hits,
+              tri_mismatch=int((hk[1] != hp[1]).sum()),
+              **{f'max_abs_d{n}': e for n, e in errs.items() if n != 'tri'},
+              kernel_ms=t_k, plain_ms=t_p)
+        assert max(errs.values()) == 0.0, f'{kind} {mode}: kernel != plain'
+        assert hits > N_RAYS // 20, 'too few hits to compare'
+        if kind == 'soup_ties':
+            assert bool((hk[1] < T - 64).all()), 'a tie went to the copy'
+    return max_err, ms_k, ms_p, work.bound()
+
+
+def check_grads(grads, tag, nonzero=('vertices', 'kd', 'rect_power')):
+    for k, g in grads.items():
+        assert bool(torch.isfinite(g).all()), f'{tag}: {k} grad not finite'
+    for k in nonzero:
+        assert float(grads[k].abs().max()) > 0, f'{tag}: {k} grad is zero'
+
+
+def train_cell(scene, cam, st, key) -> None:
+    """Phase 13: bench.py's step on the port (raytracer_tpu_torch.bench:
+    warm-up, then the median of 5 fwd+bwd steps), every trace through the
+    cluster kernel; then 3 Adam steps toward a target rendered with kd
+    scaled by 0.7, the same key each step: the loss must fall. The
+    descent runs with the wavefront sort off: a sorted wavefront hands the
+    random numbers of each bounce out by the hit points' Morton order, so
+    the vertex step reshuffles them between rays and the fixed-key noise
+    of target and render no longer cancels (the loss rose, 0.53 -> 0.79,
+    with the sort on)."""
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    res = bench.run(WIDTH, HEIGHT, BOUNCES, tile=bench.TRAIN_TILE,
+                    built=(scene, cam, st))
+    launches = check_only(ck, 'train_1080p')
+    grads = res.pop('_grads')
+    loss = float(res.pop('_loss'))
+    assert np.isfinite(loss), 'non-finite loss'
+    check_grads(grads, 'train_1080p')
+    phase('train_1080p', launches=launches,
+          launches_by_mode=dict(ck.MODES), loss=loss,
+          grad_max_abs={k: float(g.abs().max()) if g.numel() else 0.0
+                        for k, g in grads.items()}, **res)
+    print(json.dumps(res), flush=True)
+    del grads
+    st = dataclasses.replace(st, sort_rays=False)
+    target_p = ts.get_params(scene)
+    target_p['kd'] = target_p['kd'] * 0.7
+    with torch.no_grad():
+        target = rt.render(ts.apply_params(scene, target_p), cam, st, key)
+    params = ts.get_params(scene)
+    # Adam: vertices by 1e-4 a step, the other leaves by 1e-2
+    opt = torch.optim.Adam([
+        {'params': [params['vertices']], 'lr': 1e-4},
+        {'params': [params[k] for k in ts.PARAM_KEYS if k != 'vertices'],
+         'lr': 1e-2}])
+    losses, walls = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        params, loss = ts.train_step(params, opt, scene, cam, st, target,
+                                     key, tile=bench.TRAIN_TILE)
+        losses.append(float(loss))
+        walls.append(time.perf_counter() - t0)
+    phase('train_adam_3_steps', losses=losses, wall_s=walls,
+          kd=params['kd'].tolist())
+    assert all(np.isfinite(losses)) and losses[2] < losses[0], \
+        'the loss did not fall'
+
+
+def pallas_cell(dev, key) -> int:
+    """Phase 14: one fwd+bwd step of the 12-sphere atrium at 1080p, 10
+    bounces, with intersector 'pallas': the MT kernel must carry every
+    trace -> its launch count."""
+    scene, cam, st = registry.sponza_standin(
+        WIDTH, HEIGHT, max_bounces=BOUNCES, n_spheres=MT_SPHERES,
+        ray_tile=bench.TRAIN_TILE, intersector='pallas', device=dev)
+    target = torch.zeros((HEIGHT, WIDTH, 3), device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    loss, grads = ts.loss_and_grads_scanned(ts.get_params(scene), scene, cam,
+                                            st, target, key,
+                                            tile=bench.TRAIN_TILE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = check_only(mtk, 'train_1080p_pallas')
+    assert bool(torch.isfinite(loss)), 'non-finite loss'
+    check_grads(grads, 'train_1080p_pallas')
+    phase('train_1080p_pallas', launches=launches, wall_s=wall,
+          primary_rays_per_s=WIDTH * HEIGHT / wall, loss=float(loss),
+          triangles=scene.num_tris, bounces=BOUNCES,
+          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return launches
+
+
+def train_parity(intersector, key, dev) -> None:
+    """Phase 15: loss and grads of the 12-sphere atrium at 64x48, 3
+    bounces, against a zero target, on the CPU (plain versions) and on
+    the card (kernels): loss within rtol 1e-4, each leaf within rtol 1e-3
+    and atol 1e-4 x max|leaf| of the CPU's."""
+    host, cam, st = registry.sponza_standin(
+        **TRAIN_PARITY, intersector=intersector, device='cpu')
+    target = torch.zeros((st.height, st.width, 3))
+    lw, gw = ts.loss_and_grads_scanned(ts.get_params(host), host, cam, st,
+                                       target, key)
+    card = host.to(dev)
+    kernel = ck if intersector == 'auto' else mtk
+    n0 = kernel.LAUNCHES
+    lg, gg = ts.loss_and_grads_scanned(ts.get_params(card), card,
+                                       cam.to(dev), st, target.to(dev), key)
+    assert kernel.LAUNCHES > n0
+    worst = {}
+    for k in ts.PARAM_KEYS:
+        g, w = gg[k].cpu(), gw[k]
+        assert bool(torch.isfinite(g).all()), k
+        atol = 1e-4 * float(w.abs().max()) if w.numel() else 0.0
+        excess = (g - w).abs() - (atol + 1e-3 * w.abs())
+        worst[k] = float(excess.max()) if w.numel() else 0.0
+    rel = abs(float(lg) - float(lw)) / abs(float(lw))
+    phase('train_cpu_gpu_parity', intersector=intersector,
+          loss_cpu=float(lw), loss_gpu=float(lg), loss_rel_diff=rel,
+          grad_excess_over_tol=worst)
+    assert rel <= 1e-4, f'{intersector}: losses differ'
+    assert max(worst.values()) <= 0.0, f'{intersector}: grads differ'
 
 
 def check_image(img, shape) -> None:
@@ -450,18 +755,18 @@ def main(dev=None) -> int:
         return time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(5) as pool:
         jobs = {name: pool.submit(timed, fn) for name, fn in (
             ('cluster_trace_s', ck.build), ('iseg_trace_s', isk.build),
-            ('icluster_trace_s', ick.build), ('native_host_s', native.get_lib))}
+            ('icluster_trace_s', ick.build), ('mt_trace_s', mtk.build),
+            ('native_host_s', native.get_lib))}
         built = {name: job.result() for name, job in jobs.items()}
     phase('build', wall_s=time.perf_counter() - t0, **built)
 
     # ----------------------------------------------------------- 3. scene
     t0 = time.perf_counter()
-    scene_h, cam_h, st = registry.sponza_standin(
-        WIDTH, HEIGHT, max_bounces=BOUNCES, ray_tile=RAY_TILE)
-    scene, cam = scene_h.to(dev), cam_h.to(dev)
+    scene, cam, st = registry.sponza_standin(
+        WIDTH, HEIGHT, max_bounces=BOUNCES, ray_tile=RAY_TILE, device=dev)
     torch.cuda.synchronize()
     phase('scene', triangles=scene.num_tris,
           clusters=scene.clusters.num_clusters,
@@ -470,28 +775,26 @@ def main(dev=None) -> int:
     assert scene.num_tris == 174_724
 
     # ------------------------------------------- 4. kernel against plain
-    max_err, ms_k, ms_p = compare_kernel(scene, cam, dev)
+    max_err, ms_k, ms_p, bnd = compare_kernel(scene, cam, dev)
     records = [{
         'name': 'cluster_trace', 'route': 'cuda',
         'source': 'raytracer_tpu_torch/csrc/cluster_trace.cu',
         'replaces': 'raytracer_tpu/ops/pallas/cluster_kernel.py:293',
-        'max_abs_err': max_err, 'ms': ms_k, 'plain_ms': ms_p}]
+        'max_abs_err': max_err, 'ms': ms_k, 'plain_ms': ms_p, **bnd}]
 
     # ------------------------------------------------------ 5. full render
     key = rng.PRNGKey(KEY)
     records[0]['launches'] = render_cell(scene, cam, st, key, ck,
                                          'render_1080p')[0]
-    del scene, scene_h
 
     # ------------------------------------------------- 6. CPU/GPU parity
-    scene_s, cam_s, st_s = registry.sponza_standin(**PARITY)
+    scene_s, cam_s, st_s = registry.sponza_standin(**PARITY, device='cpu')
     check_parity(scene_s, cam_s, st_s, key, ck, dev, 'cpu_gpu_parity')
 
     # --------------------------------------------- 7. two-level instancing
     for make, n_inst, kernel, plain, name, replaces in INSTANCED:
         t0 = time.perf_counter()
-        scene_h, cam_h, st = make(WIDTH, HEIGHT, ray_tile=RAY_TILE)
-        scene, cam = scene_h.to(dev), cam_h.to(dev)
+        scene, cam, st = make(WIDTH, HEIGHT, ray_tile=RAY_TILE, device=dev)
         torch.cuda.synchronize()
         icl = scene.iclusters
         fields = dict(instances=icl.num_instances, segments=icl.num_entries,
@@ -499,19 +802,20 @@ def main(dev=None) -> int:
                       triangles=scene.num_tris, table_mb=icl.nbytes / 1e6)
         phase(f'scene_{name}', build_s=time.perf_counter() - t0, **fields)
         assert icl.num_instances == n_inst
-        err, t_k, t_p = compare_instanced(scene, cam, getattr(kernel, name),
-                                          getattr(plain, name), dev)
+        err, t_k, t_p, bnd = compare_instanced(
+            scene, cam, getattr(kernel, name), getattr(plain, name), dev)
         launches, _ = render_cell(scene, cam, st, key, kernel,
                                   f'render_1080p_{name}', **fields)
         records.append({'name': name, 'route': 'cuda',
                         'source': f'raytracer_tpu_torch/csrc/{name}.cu',
                         'replaces': replaces, 'launches': launches,
-                        'max_abs_err': err, 'ms': t_k, 'plain_ms': t_p})
-        del scene, scene_h
+                        'max_abs_err': err, 'ms': t_k, 'plain_ms': t_p,
+                        **bnd})
+        del scene
 
     # ------------------------------------- 8. instanced CPU/GPU parity
     scene_s, cam_s, st_s = registry.instanced_teapots_standin(
-        PARITY['width'], PARITY['height'])
+        PARITY['width'], PARITY['height'], device='cpu')
     check_parity(scene_s, cam_s, st_s, key, isk, dev,
                  'cpu_gpu_parity_instanced')
 
@@ -521,14 +825,37 @@ def main(dev=None) -> int:
 
     # ---------------------------------- 11. the forest's CPU/GPU parity
     scene_s, cam_s, st_s = registry.final_forest_standin(
-        PARITY['width'], PARITY['height'], **FOREST_PARITY)
+        PARITY['width'], PARITY['height'], **FOREST_PARITY, device='cpu')
     assert st_s.max_wavefront_steps == 3
     check_parity(scene_s, cam_s, st_s, key, ick, dev,
                  'cpu_gpu_parity_final_forest')
 
+    # ---------------------------- 12. the MT kernel against its plain version
+    scene, cam, _ = registry.sponza_standin(n_spheres=MT_SPHERES, device=dev)
+    err, t_k, t_p, bnd = compare_mt(scene, cam, dev)
+    records.append(dict(name='mt_trace', route='cuda',
+                        source='raytracer_tpu_torch/csrc/mt_trace.cu',
+                        replaces=MT_REPLACES, max_abs_err=err, ms=t_k,
+                        plain_ms=t_p, **bnd))
+
+    # ------------------------- 13. the trainer at full width (bench.py's step)
+    scene, cam, st = registry.sponza_standin(
+        WIDTH, HEIGHT, max_bounces=BOUNCES, ray_tile=bench.TRAIN_TILE,
+        device=dev)
+    train_cell(scene, cam, st, key)
+    del scene
+
+    # ---------------------------------- 14. the 'pallas' path at 1080p
+    records[-1]['launches'] = pallas_cell(dev, key)
+
+    # ------------------------------ 15. the trainer's CPU/GPU parity
+    for intersector in ('auto', 'pallas'):
+        train_parity(intersector, key, dev)
+
     print(json.dumps({'kernels': [
         {k: r[k] for k in ('name', 'route', 'source', 'replaces', 'launches',
-                           'max_abs_err', 'ms', 'plain_ms')}
+                           'max_abs_err', 'ms', 'plain_ms', 'bound_ms',
+                           'bound_by', 'library_ms')}
         for r in records]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

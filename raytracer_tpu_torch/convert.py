@@ -4,8 +4,11 @@ A JAX `Scene` is a pytree; flattened, its leaves are keyed by dotted paths
 such as 'geom.vertices' or 'clusters.p0', and its static fields (the
 pytree_node=False flags) are named the same way. `scene_from_arrays` builds
 this package's Scene from such a dict, and `scene_to_arrays` is its
-inverse over the fields this package keeps. This module sees numpy arrays
-only, never a jax object. Leaves this package does not read (the BVH, the
+inverse over the fields this package keeps; `params_from_arrays` and
+`params_to_arrays` do the same for the trainer's six parameter leaves
+(parallel/sharding.get_params). Scenes, cameras and parameters land on
+`device`, the card unless the caller names another. This module sees numpy
+arrays only, never a jax object. Leaves this package does not read (the BVH, the
 instance table's BVH roots, the edge table, `materials.kt`) are ignored.
 """
 from __future__ import annotations
@@ -64,9 +67,11 @@ def _group(cls, prefix: str, arrays: dict, static: dict):
     return cls(**kw)
 
 
-def scene_from_arrays(arrays: dict[str, np.ndarray], static: dict) -> T.Scene:
-    """A CPU Scene from a JAX scene's leaves (dotted paths) and static
-    fields (STATIC_FIELDS)."""
+def scene_from_arrays(arrays: dict[str, np.ndarray], static: dict,
+                      device=T.CUDA) -> T.Scene:
+    """A Scene on `device` from a JAX scene's leaves (dotted paths) and
+    static fields (STATIC_FIELDS)."""
+    dev = T.device_of(device)
     _check_tables(arrays, static)
     groups = {k: _group(cls, k, arrays, static) for k, cls in _GROUPS.items()}
     groups.update({k: _group(cls, k, arrays, static)
@@ -76,7 +81,7 @@ def scene_from_arrays(arrays: dict[str, np.ndarray], static: dict) -> T.Scene:
         **groups,
         env_exposure=torch.from_numpy(np.array(arrays['env_exposure'])),
         bg_color=torch.from_numpy(np.array(arrays['bg_color'])),
-        **{k: static[k] for k in SCENE_FLAGS})
+        **{k: static[k] for k in SCENE_FLAGS}).to(dev)
 
 
 def scene_to_arrays(scene: T.Scene) -> tuple[dict, dict]:
@@ -98,7 +103,29 @@ def scene_to_arrays(scene: T.Scene) -> tuple[dict, dict]:
     return arrays, static
 
 
-def camera_from_arrays(arrays: dict[str, np.ndarray]) -> T.Camera:
-    """A CPU Camera from a JAX Camera's leaves, keyed by field name."""
+def camera_from_arrays(arrays: dict[str, np.ndarray],
+                       device=T.CUDA) -> T.Camera:
+    """A Camera on `device` from a JAX Camera's leaves, keyed by field
+    name."""
+    dev = T.device_of(device)
     return T.Camera(**{k: torch.from_numpy(np.array(arrays[k], np.float32))
-                       for k in _CAMERA_FIELDS})
+                       for k in _CAMERA_FIELDS}).to(dev)
+
+
+# the trainer's parameter leaves (parallel/sharding.PARAM_KEYS)
+PARAM_KEYS = ('vertices', 'kd', 'spec_exp', 'tex_data', 'point_power',
+              'rect_power')
+
+
+def params_from_arrays(params: dict[str, np.ndarray],
+                       device=T.CUDA) -> dict[str, torch.Tensor]:
+    """The JAX package's `get_params` dict (numpy arrays) as this package's
+    float32 leaves on `device`."""
+    dev = T.device_of(device)
+    return {k: torch.tensor(np.asarray(params[k], np.float32), device=dev)
+            for k in PARAM_KEYS}
+
+
+def params_to_arrays(params: dict[str, torch.Tensor]) -> dict:
+    """The inverse of params_from_arrays: numpy arrays on the host."""
+    return {k: params[k].detach().cpu().numpy().copy() for k in PARAM_KEYS}

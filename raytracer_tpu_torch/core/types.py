@@ -13,6 +13,11 @@ table (#13). A two-level scene carries its instance table and its
 instanced cluster tables (geometry/clusters.InstancedClusters), and the
 cluster table of its motion-blurred world triangles.
 
+Scene builders (geometry/build.SceneBuilder.build, scenes/registry,
+convert) put their tensors on the card unless the caller names another
+device: `device_of` resolves their `device=` argument, whose default is
+CUDA, and raises when no card is present.
+
 `.to(device)` keeps tensors that alias each other aliased: a static
 cluster table's t = 1 pose tables are its t = 0 tables, as in the JAX
 build, and stay one buffer on the device.
@@ -25,6 +30,19 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+
+CUDA = torch.device('cuda')
+
+
+def device_of(device) -> torch.device:
+    """The device a builder puts its scene on; a CUDA device must exist."""
+    dev = torch.device(device)
+    if dev.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: scenes are built on the card by default; pass "
+            "device='cpu' to build on the CPU")
+    return dev
 
 
 class TensorData:
@@ -209,7 +227,7 @@ class RenderSettings:
     shadow_segments: int = 4
     light_noise_cutoff: float = 0.0
     use_schlick: bool = False
-    intersector: str = 'auto'                # 'auto' | 'cluster2' | 'brute'
+    intersector: str = 'auto'    # 'auto' | 'cluster2' | 'brute' | 'pallas'
     ray_tile: int = 8 * 128
     sort_rays: bool = True
     # secondary (non-primary) rays draw one sample of the dome light

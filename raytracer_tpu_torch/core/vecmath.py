@@ -18,6 +18,15 @@ TWO_PI_SQ = 2.0 * PI * PI
 GAMMA = 2.2               # src/Image.cpp:14
 
 
+def take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[idx] along the first axis, as index_select: its backward is an
+    index_add (atomic adds on the card), where advanced indexing's sorts
+    the indices and sums each run of duplicates serially, which is slow
+    when millions of rays read a few rows (a material table)."""
+    out = torch.index_select(x, 0, idx.reshape(-1).long())
+    return out.reshape(tuple(idx.shape) + tuple(x.shape[1:]))
+
+
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Dot product over the last axis, which is dropped."""
     return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
@@ -52,11 +61,22 @@ def normalize(a: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
     return a * torch.rsqrt(torch.clamp(length2(a), min=eps))[..., None]
 
 
+def sqrt_pos(x: torch.Tensor) -> torch.Tensor:
+    """sqrt(max(x, 0)) whose gradient is 0, not inf, where x <= 0.
+
+    The JAX package writes sqrt(maximum(0, x)); at x == 0 exactly (normal
+    incidence in the Fresnel terms, a grazing refraction) the sqrt's
+    derivative is inf, and the zero cotangent of a branch that a `where`
+    drops then makes it 0 * inf = NaN, which reaches the vertex
+    gradients. Same forward values."""
+    pos = x > 0.0
+    return torch.where(pos, torch.sqrt(torch.where(pos, x, 1.0)), 0.0)
+
+
 def refract(d, n, v_dot_n, eta):
     """Refraction direction (src/Blinn.cpp:305-307); under total internal
     reflection the sqrt clamps to 0, as the reference's max(0, .)."""
-    sqrt_part = torch.sqrt(torch.clamp(
-        1.0 - (eta * eta) * (1.0 - v_dot_n * v_dot_n), min=0.0))
+    sqrt_part = sqrt_pos(1.0 - (eta * eta) * (1.0 - v_dot_n * v_dot_n))
     t = eta[..., None] * d + n * (eta * v_dot_n - sqrt_part)[..., None]
     return normalize(t)
 
@@ -64,11 +84,10 @@ def refract(d, n, v_dot_n, eta):
 def fresnel(n1, n2, cos_theta_i):
     """Full Fresnel reflectance, s-polarisation form (src/Material.h:47-54)."""
     cos_theta_i = torch.clamp(cos_theta_i, 0.0, 1.0)
-    sin_theta_i = torch.sqrt(torch.clamp(1.0 - cos_theta_i * cos_theta_i,
-                                         min=0.0))
+    sin_theta_i = sqrt_pos(1.0 - cos_theta_i * cos_theta_i)
     n1_cos = n1 * cos_theta_i
     s = n1 * sin_theta_i / n2
-    n2_cos = n2 * torch.sqrt(torch.clamp(1.0 - s * s, min=0.0))
+    n2_cos = n2 * sqrt_pos(1.0 - s * s)
     rs = (n1_cos - n2_cos) / torch.clamp(n1_cos + n2_cos, min=1e-12)
     return rs * rs
 
@@ -80,8 +99,7 @@ def schlick_fresnel(n1, n2, cos_theta_i):
     n = n1 / n2
     sin_t2 = n * n * (1.0 - cos_theta_i * cos_theta_i)
     tir = (n1 > n2) & (sin_t2 > 1.0)
-    cos_x = torch.where(n1 > n2, torch.sqrt(torch.clamp(1.0 - sin_t2, min=0.0)),
-                        cos_theta_i)
+    cos_x = torch.where(n1 > n2, sqrt_pos(1.0 - sin_t2), cos_theta_i)
     x = 1.0 - cos_x
     out = r0 + (1.0 - r0) * x * x * x * x * x
     return torch.where(tir, torch.ones_like(out), out)

@@ -4,8 +4,9 @@ Port of raytracer_tpu/geometry/build.py, single-level or instanced, with
 textures given as numpy images, motion blur, alpha maps, the env map and
 the dome light: the same method names and defaults, the same array
 layout, the same texel pool, dome tables, instance table and cluster
-tables. Everything here is numpy until `build` wraps the arrays as CPU
-tensors; move the scene with `scene.to(device)`. Not built: the BVH
+tables. Everything here is numpy until `build` wraps the arrays as
+tensors and puts them on its `device` (the card unless the caller names
+another). Not built: the BVH
 (ROADMAP queue 1 #9) and the edge tables (queue 1 #13), which this
 package's render path does not read. Reading image files
 (`add_texture_file`) waits for `io/imageio.py` (queue 1 #9).
@@ -295,12 +296,14 @@ class SceneBuilder:
             fast_shadows=self._dome['fast_shadows'],
             num_samples=self._dome['num_samples'])
 
-    def build(self, bvh: bool = False) -> T.Scene:
-        """Assemble the scene (on the CPU) with its cluster tables: the
-        flat table of a single-level scene, or the instance table and the
-        two-level tables of an instanced one."""
+    def build(self, bvh: bool = False, device=T.CUDA) -> T.Scene:
+        """Assemble the scene with its cluster tables (the flat table of a
+        single-level scene, or the instance table and the two-level tables
+        of an instanced one) on `device`; raises on the default CUDA device
+        when no card is present."""
         if bvh:
             raise NotImplementedError('BVH build: ROADMAP queue 1 #9')
+        dev = T.device_of(device)
         assert self._open_proto is None, 'unclosed prototype'
         assert self._ntri > 0, 'empty scene'
         t = torch.from_numpy
@@ -400,4 +403,5 @@ class SceneBuilder:
             mb_has_alpha=bool(alpha_of_face[geom.face_mb].any()),
             has_material_env=bool((materials.tex_env >= 0).any()),
             has_dispersion=bool(materials.disperse.any()),
-            has_translucency=bool((materials.translucency > 0.01).any()))
+            has_translucency=bool((materials.translucency > 0.01).any())
+        ).to(dev)

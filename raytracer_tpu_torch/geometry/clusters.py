@@ -12,8 +12,12 @@ rows hold far-away point boxes (lo == hi == 3e37) that fail every slab test.
 A table over motion-blurred triangles also stores the t = 1 pose basis
 (`*_t1`); its boxes bound both poses, and the tracers lerp the basis by ray
 time. A static table's `*_t1` are its t = 0 tensors themselves (one
-buffer, as in the JAX build). `refresh_iclusters` comes with the trainer
-(ROADMAP queue 1 #7).
+buffer, as in the JAX build).
+
+`refresh_clusters` and `refresh_iclusters` re-derive the tables from the
+current vertices on their device (the trainer's per-step refresh,
+parallel/sharding.apply_params), as the JAX package's functions of the
+same names do.
 """
 from __future__ import annotations
 
@@ -287,3 +291,119 @@ def build_instanced_clusters(geom: Geometry, instances: list[dict],
             [np.arange(n, dtype=np.int32) for n in proto_len])),
         cluster_size=C, num_instances=n_inst, num_entries=n_ent,
         max_proto_clusters=int(proto_len.max())), mb_clusters
+
+
+def _basis(verts, faces, valid):
+    """MT basis (p0, p1 - p0, p2 - p0) of faces (..., 3) -> three
+    (..., 3) tensors, zero on padding lanes (det == 0: never hit)."""
+    p0 = verts[faces[..., 0]]
+    return tuple(torch.where(valid[..., None], x, 0.0)
+                 for x in (p0, verts[faces[..., 1]] - p0,
+                           verts[faces[..., 2]] - p0))
+
+
+def _corner_boxes(pts, valid):
+    """Per-row box of corners pts (M, C, k, 3) over the valid lanes ->
+    lo, hi (M, 3); rows without a valid lane get the never-hit box."""
+    m4 = valid[..., None, None]
+    lo = torch.where(m4, pts, torch.inf).amin(dim=(1, 2))
+    hi = torch.where(m4, pts, -torch.inf).amax(dim=(1, 2))
+    anyv = valid.any(dim=1)[:, None]
+    never = torch.tensor(NEVER, device=pts.device)
+    return torch.where(anyv, lo, never), torch.where(anyv, hi, never)
+
+
+@torch.no_grad()
+def refresh_clusters(clusters: Clusters, geom: Geometry, mb: bool) -> Clusters:
+    """The table re-derived from the CURRENT vertices (raytracer_tpu
+    /geometry/clusters.py:refresh_clusters): the MT basis and the boxes,
+    which bound both poses when `mb`. Topology stays fixed; rows without
+    a triangle keep the never-hit 3e37 box. A static table's t = 1 tensors
+    stay its t = 0 tensors."""
+    valid = clusters.tri >= 0
+    faces = geom.face_v[clusters.tri.clamp(min=0).long()].long()
+    p0, e1, e2 = _basis(geom.vertices.detach(), faces, valid)
+    pts = torch.stack([p0, p0 + e1, p0 + e2], dim=2)      # (M, C, 3, 3)
+    if mb:
+        q0, q1, q2 = _basis(geom.vertices_t1.detach(), faces, valid)
+        pts = torch.cat([pts, torch.stack([q0, q0 + q1, q0 + q2], dim=2)],
+                        dim=2)
+    bb_min, bb_max = _corner_boxes(pts, valid)
+    soa = lambda x: x.transpose(1, 2).contiguous()    # (M, C, 3) -> (M, 3, C)
+    p0, e1, e2 = soa(p0), soa(e1), soa(e2)
+    q0, q1, q2 = (soa(q0), soa(q1), soa(q2)) if mb else (p0, e1, e2)
+    return dataclasses.replace(clusters, bb_min=bb_min, bb_max=bb_max,
+                               p0=p0, e1=e1, e2=e2, p0_t1=q0, e1_t1=q1,
+                               e2_t1=q2)
+
+
+def _world_boxes(lo, hi, m):
+    """Object boxes lo, hi (K, 3) through affine maps m (K, 3, 4) -> world
+    lo, hi (K, 3), over the 8 corners (src/ProxyObject.cpp:97-130)."""
+    bits = ((torch.arange(8, device=lo.device)[:, None]
+             >> torch.tensor([2, 1, 0], device=lo.device)) & 1).float()
+    c = lo[:, None] * (1 - bits)[None] + hi[:, None] * bits[None]  # (K, 8, 3)
+    m = m[:, None]
+    wc = torch.stack([m[..., i, 0] * c[..., 0] + m[..., i, 1] * c[..., 1]
+                      + m[..., i, 2] * c[..., 2] + m[..., i, 3]
+                      for i in range(3)], dim=-1)                  # (K, 8, 3)
+    return wc.amin(dim=1), wc.amax(dim=1)
+
+
+@torch.no_grad()
+def refresh_iclusters(icl: InstancedClusters, geom: Geometry,
+                      inst_table: Instances) -> InstancedClusters:
+    """The two-level tables re-derived from the CURRENT vertices
+    (raytracer_tpu/geometry/clusters.py:refresh_iclusters): the pool's MT
+    basis, the prototype cluster boxes (pbb), the instance world boxes
+    (ibb) and the segment world boxes (sbb). Topology and the instance
+    transforms stay fixed."""
+    tri = icl.tri
+    Mtot, C = tri.shape
+    dev = tri.device
+    valid = tri >= 0
+    faces = geom.face_v[tri.clamp(min=0).long()].long()
+    p0, e1, e2 = _basis(geom.vertices.detach(), faces, valid)
+    cb_lo, cb_hi = _corner_boxes(
+        torch.stack([p0, p0 + e1, p0 + e2], dim=2), valid)   # (Mtot, 3)
+
+    # the cluster boxes into the (P*6, MP) lane layout
+    gp = icl.pool_proto.long()
+    lc = icl.pool_local.long()[:, None]
+    rows_lo = 6 * gp[:, None] + torch.arange(3, device=dev)
+    pbb = icl.pbb.clone()
+    pbb[rows_lo, lc] = cb_lo
+    pbb[rows_lo + 3, lc] = cb_hi
+
+    # prototype boxes -> instance world boxes
+    P = icl.pmeta.shape[0]
+    safe_lo = torch.where(cb_lo < 1e37, cb_lo, torch.inf)
+    safe_hi = torch.where(cb_hi < 1e37, cb_hi, -torch.inf)
+    seg = gp[:, None].expand(-1, 3)
+    plo = torch.full((P, 3), torch.inf, device=dev).scatter_reduce(
+        0, seg, safe_lo, 'amin', include_self=False)
+    phi = torch.full((P, 3), -torch.inf, device=dev).scatter_reduce(
+        0, seg, safe_hi, 'amax', include_self=False)
+    m_all = inst_table.m.detach()
+    NI = icl.num_instances
+    imeta = icl.imeta.long()
+    wlo, whi = _world_boxes(plo[imeta[:NI, 0]], phi[imeta[:NI, 0]],
+                            m_all[imeta[:NI, 1]])
+    ibb = icl.ibb.clone()
+    ibb[:3, :NI] = wlo.T
+    ibb[3:, :NI] = whi.T
+
+    # KIN-cluster chunk boxes -> segment world boxes
+    ch_lo = safe_lo.reshape(-1, KIN, 3).amin(dim=1)
+    ch_hi = safe_hi.reshape(-1, KIN, 3).amax(dim=1)
+    nE = icl.num_entries
+    smeta = icl.smeta.long()
+    cid = smeta[:nE, 1] // KIN
+    slo, shi = _world_boxes(ch_lo[cid], ch_hi[cid], m_all[smeta[:nE, 2]])
+    sbb = icl.sbb.clone()
+    sbb[:3, :nE] = slo.T
+    sbb[3:, :nE] = shi.T
+
+    soa = lambda x: x.transpose(1, 2).reshape(Mtot * 3, C)
+    return dataclasses.replace(icl, p0=soa(p0), e1=soa(e1), e2=soa(e2),
+                               pbb=pbb, ibb=ibb, sbb=sbb)

@@ -1,9 +1,10 @@
 """The native cluster-table builder, loaded with ctypes.
 
-Compiles raytracer_tpu/native/rt_native.cpp (a framework-free C ABI) with
-g++ into this package's git-ignored build directory on first use, and binds
-`rt_build_clusters` only. The JAX package's own loader is not imported: its
-package __init__ pulls in jax. A failed build raises; there is no fallback.
+Compiles this package's own rt_native.cpp (a framework-free C ABI: the
+binned-SAH cluster build, the same arithmetic as the JAX package's native
+builder) with g++ into the package's git-ignored build directory on first
+use, and binds `rt_build_clusters`. Nothing outside this package is read.
+A failed build raises; there is no fallback.
 """
 from __future__ import annotations
 
@@ -17,8 +18,7 @@ import threading
 import numpy as np
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SRC = os.path.join(os.path.dirname(_PKG), 'raytracer_tpu', 'native',
-                   'rt_native.cpp')
+SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'rt_native.cpp')
 BUILD_DIR = os.path.join(_PKG, '_build')
 _FLAGS = ['-O3', '-shared', '-fPIC', '-std=c++17']
 _lock = threading.Lock()

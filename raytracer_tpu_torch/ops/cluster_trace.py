@@ -53,6 +53,12 @@ CALLS = 0
 # alpha-march passes traced (each one tracer call) and host syncs taken
 MARCH_PASSES = 0
 MARCH_SYNCS = 0
+# with COUNT_TESTS set, the (ray, box) slab tests and (ray, triangle-lane)
+# Moller-Trumbore tests that the plain tracers (this one, the segment and
+# the hierarchical one) perform, summed into TESTS['box'] and
+# TESTS['tri']: the work counts of a trace's least time on the card
+COUNT_TESTS = False
+TESTS = {'box': 0, 'tri': 0}
 
 
 def modes(scene: Scene, any_hit: bool) -> tuple[bool, bool]:
@@ -70,6 +76,8 @@ def rcp(v):
 def _mt(o, d, p0, e1, e2):
     """The kernel's Moller-Trumbore on the stored basis; o, d (P, 3, 1),
     p0/e1/e2 (P, 3, C) -> t, a, b, det of shape (P, C)."""
+    if COUNT_TESTS:
+        TESTS['tri'] += p0.shape[0] * p0.shape[2]
     ox, oy, oz = o[:, 0], o[:, 1], o[:, 2]
     dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
     e1x, e1y, e1z = e1[:, 0], e1[:, 1], e1[:, 2]
@@ -95,6 +103,8 @@ def slab_keys(lo, hi, o, inv, tmin, tmax):
     """Entry keys of (R,) rays against boxes lo, hi of shape (1 or R, n, 3)
     -> (R, n); +inf where the slab test fails (the Pallas kernels'
     slab6)."""
+    if COUNT_TESTS:
+        TESTS['box'] += o.shape[0] * lo.shape[1]
     t0 = (lo - o[:, None]) * inv[:, None]
     t1 = (hi - o[:, None]) * inv[:, None]
     n, f = torch.minimum(t0, t1), torch.maximum(t0, t1)

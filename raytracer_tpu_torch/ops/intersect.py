@@ -52,10 +52,10 @@ def gather_tri_verts(scene: Scene, tri, time):
     """Triangle corners -> (..., 3, 3) [corner, xyz]. A motion-blurred
     scene lerps them by ray time, v0 + time (v1 - v0) (MBObject::intersect,
     src/MBObject.cpp:26-107); static triangles have v1 == v0."""
-    f = scene.geom.face_v[tri].long()
-    v0 = scene.geom.vertices[f]
+    f = vm.take(scene.geom.face_v, tri)
+    v0 = vm.take(scene.geom.vertices, f)
     if scene.has_motion_blur:
-        v1 = scene.geom.vertices_t1[f]
+        v1 = vm.take(scene.geom.vertices_t1, f)
         w = torch.as_tensor(time, dtype=v0.dtype, device=v0.device)
         w = w.expand(tri.shape)[..., None, None]
         return v0 + w * (v1 - v0)
@@ -138,17 +138,26 @@ def refine_hit(scene: Scene, o, d, time, hit: Hit):
     gradients flow through the recomputation. On a two-level scene the ray
     moves into the hit instance's object space through m_inv[inst], a
     constant: transform gradients are not computed (as in the JAX
-    package)."""
+    package). Lanes without a hit recompute against a fixed triangle
+    that a fixed ray meets head-on: against the clamped id 0 a ray in
+    that triangle's plane has det == 0, and the 0 * inf of its dropped
+    branch would make the vertex gradients NaN (a guard the JAX package
+    lacks)."""
+    v = hit.valid
     tri = torch.clamp(hit.tri, min=0)
     p = gather_tri_verts(scene, tri, time)
     if not scene.single_level:
         mi = scene.instances.m_inv[hit.inst.clamp(min=0).long()].detach()
         o, d = vm.transform_point(mi, o), vm.transform_vector(mi, d)
+    keep = v[..., None]
+    o = torch.where(keep, o, o.new_tensor([0.0, 0.0, -1.0]))
+    d = torch.where(keep, d, d.new_tensor([0.0, 0.0, 1.0]))
+    p = torch.where(keep[..., None], p, p.new_tensor(
+        [[0.0, 0.0, 0.0], [1.0, 0.0, 0.0], [0.0, 1.0, 0.0]]))
     t, a, b, _ = mt_intersect(o, d, p[..., 0, :], p[..., 1, :], p[..., 2, :])
     t = hit.t + (t - t.detach())
     a = hit.a + (a - a.detach())
     b = hit.b + (b - b.detach())
-    v = hit.valid
     return (torch.where(v, t, torch.full_like(t, MIRO_TMAX)),
             torch.where(v, a, torch.zeros_like(a)),
             torch.where(v, b, torch.zeros_like(b)))

@@ -22,6 +22,7 @@ from ..ops import intersect as isect
 from ..ops.cuda import cluster_kernel as ck
 from ..ops.cuda import icluster_kernel as ick
 from ..ops.cuda import iseg_kernel as isk
+from ..ops.cuda import mt_kernel as mtk
 from ..shading import textures as tex
 from ..shading import lights as lt
 
@@ -29,8 +30,7 @@ IOR_STACK = 12  # the reference's IORList depth (src/Ray.h:151-178)
 KIND_PRIMARY, KIND_GI, KIND_REFLECT, KIND_REFRACT = 0, 1, 2, 3
 
 
-def _take(x, idx):
-    return x[idx.long()]
+_take = vm.take
 
 
 def _bary(vals, c, a, b):
@@ -49,7 +49,7 @@ def hit_attributes(scene: Scene, tri, inst, a, b):
     c = 1.0 - a - b
     fn = _take(g.face_n, tri).long()
     N = vm.normalize(_bary(g.normals[fn], c, a, b))
-    p = g.vertices[_take(g.face_v, tri).long()]              # (R,3,3)
+    p = _take(g.vertices, _take(g.face_v, tri))             # (R,3,3)
     geoN = vm.normalize(vm.cross(p[..., 1, :] - p[..., 0, :],
                                  p[..., 2, :] - p[..., 0, :]))
     has_uv = _take(g.face_has_uv, tri)
@@ -125,7 +125,7 @@ def _sort_wavefront(state: dict) -> dict:
             morton = morton | (((q[:, ax] >> bit) & 1) << (3 * bit + ax))
     key = ((~alive).to(torch.int32) << 20) | (octant << 12) | morton
     perm = torch.argsort(key, stable=True)
-    return {k: v[perm] for k, v in state.items()}
+    return {k: _take(v, perm) for k, v in state.items()}
 
 
 def trace_fn(scene: Scene, settings: RenderSettings):
@@ -144,7 +144,10 @@ def trace_fn(scene: Scene, settings: RenderSettings):
     the march by its t. Each tracer is the CUDA kernel for CUDA tensors
     and its plain PyTorch version for CPU tensors; a table is one launch
     (the JAX package's VMEM chunks of `_mb_chunks` are not needed).
-    'brute' is the brute-force oracle of single-level scenes."""
+    'brute' is the brute-force oracle of single-level scenes, and
+    'pallas' the brute-force Moller-Trumbore sweep (the JAX package's
+    Pallas MT kernel; here mt_kernel.brute_trace: the CUDA kernel for
+    CUDA tensors, its plain version for CPU ones), also single-level."""
     mode = settings.intersector
     if mode == 'auto' and scene.single_level:
         if scene.clusters is None:
@@ -159,13 +162,17 @@ def trace_fn(scene: Scene, settings: RenderSettings):
     if mode == 'brute' and scene.single_level:
         return lambda o, d, time, tmin, tmax, any_hit: \
             isect.brute_force_trace(scene, o, d, time, tmin, tmax, any_hit)
+    if mode == 'pallas' and scene.single_level:
+        return lambda o, d, time, tmin, tmax, any_hit: \
+            mtk.brute_trace(scene, o, d, time, tmin, tmax, any_hit)
     if mode not in ('auto', 'cluster2') or scene.single_level:
         raise NotImplementedError(
             f"intersector {mode!r} on a "
             f"{'single' if scene.single_level else 'two'}-level scene: "
-            f"'bvh' comes with ROADMAP queue 1 #9, 'pallas' with queue 2 #5, "
-            f"'ring' with queue 1 #14; 'cluster2' traces two-level scenes "
-            f"only (the JAX package's XLA 'cluster' tracer is not ported)")
+            f"'bvh' comes with ROADMAP queue 1 #9, 'ring' with queue 1 #14; "
+            f"'brute' and 'pallas' trace single-level scenes and "
+            f"'cluster2' two-level ones only (the JAX package's XLA "
+            f"'cluster' tracer is not ported)")
 
     icl = scene.iclusters
     if icl is None:
@@ -298,11 +305,11 @@ def _step(scene: Scene, settings: RenderSettings, tracer, state, step_idx,
     L = L + torch.where(add_env[:, None], tp * env_out, 0.0)
 
     # ----------------------------------------------------------- hit shading
-    kd = mats.kd[mat]
+    kd = _take(mats.kd, mat)
     ka = mats.ka[mat]
     ks = mats.ks[mat]
     le = mats.le[mat]
-    spec_exp = mats.spec_exp[mat]
+    spec_exp = _take(mats.spec_exp, mat)
     spec_amt = mats.spec_amt[mat]
     reflect_amt0 = mats.reflect_amt[mat]
     refract_amt0 = mats.refract_amt[mat]

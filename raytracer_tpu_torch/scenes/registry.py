@@ -5,13 +5,15 @@ raytracer_tpu/scenes/registry.py. `builder=` takes any object with the
 SceneBuilder interface, so a test can pass `raytracer_tpu.SceneBuilder()`
 and have the JAX package build the very same scene (instanced scenes then
 take `bvh=True`, which the JAX builder needs and this package's refuses).
+`device=` (default: the card) is where the scene and camera land; a
+foreign builder's scene comes back as that builder made it.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from ..core import transforms as tf
-from ..core.types import Camera, RenderSettings
+from ..core.types import CUDA, Camera, RenderSettings, device_of
 from ..geometry.build import SceneBuilder
 from ..geometry import shapes
 from ..io.objload import MeshData, make_single_triangle
@@ -31,8 +33,19 @@ def make(name, **kwargs):
     return _REGISTRY[name](**kwargs)
 
 
+def _build(b, bvh, device):
+    """The builder's scene: on `device` from this package's builder."""
+    if isinstance(b, SceneBuilder):
+        return b.build(bvh=bvh, device=device)
+    return b.build(bvh=bvh)
+
+
+def _on(cam, device):
+    return cam.to(device_of(device))
+
+
 @register('triangle_sphere')
-def triangle_sphere(size=256, builder=None, **kw):
+def triangle_sphere(size=256, builder=None, device=CUDA, **kw):
     """Single triangle + sphere + point light, Lambert (the JAX registry's
     `triangle_sphere`, BASELINE config #1)."""
     b = SceneBuilder() if builder is None else builder
@@ -42,11 +55,11 @@ def triangle_sphere(size=256, builder=None, **kw):
     b.add_mesh(shapes.uv_sphere((0, 1, 0), 1.0, 12, 24, with_uv=False), lam)
     b.add_point_light((10, 10, 10), 700.0)
     b.set_bg_color((0.0, 0.0, 0.2))
-    scene = b.build(bvh=False)
+    scene = _build(b, False, device)
     cam = Camera.make(eye=(0, 3, 6), look_at=(0, 0, 0), fov=45.0)
     settings = RenderSettings(width=size, height=size, path_trace=False,
                               max_bounces=5, max_wavefront_steps=2, **kw)
-    return scene, cam, settings
+    return scene, _on(cam, device), settings
 
 
 # the rect light's plane; the emitter quad sits this far below it, closer
@@ -57,7 +70,8 @@ QUAD_DROP = 1e-5
 
 @register('sponza_standin')
 def sponza_standin(width=1920, height=1080, max_bounces=10, rect_samples=1,
-                   ray_tile=8 * 128, n_spheres=300, builder=None, **kw):
+                   ray_tile=8 * 128, n_spheres=300, builder=None,
+                   device=CUDA, **kw):
     """The JAX registry's `sponza_proxy(hd=True)` built from procedural
     shapes alone: the same shell, two colonnade stories, gallery slabs,
     balustrades, camera, rect light and clutter RNG (seed 3163513).
@@ -111,13 +125,13 @@ def sponza_standin(width=1920, height=1080, max_bounces=10, rect_samples=1,
     b.add_rect_light((8.0, RECT_Y, 2), (8.0, RECT_Y, -2.0), (-8, RECT_Y, 2),
                      power=1.5, num_samples=rect_samples)
     b.set_bg_color((0.0, 0.0, 0.2))
-    scene = b.build(bvh=False)
+    scene = _build(b, False, device)
     cam = Camera.make(eye=(8, 1.5, 1), look_at=(0, 2.5, -1), fov=55.0)
     settings = RenderSettings(width=width, height=height, path_trace=True,
                               max_bounces=max_bounces,
                               max_wavefront_steps=max_bounces + 2,
                               ray_tile=ray_tile, **kw)
-    return scene, cam, settings
+    return scene, _on(cam, device), settings
 
 
 def _teapot_sphere() -> MeshData:
@@ -128,7 +142,7 @@ def _teapot_sphere() -> MeshData:
 
 @register('instanced_teapots_standin')
 def instanced_teapots_standin(width=256, height=256, grid=4, builder=None,
-                              bvh=False, **kw):
+                              bvh=False, device=CUDA, **kw):
     """The JAX registry's `instanced_teapots` without asset files: the
     same grid x grid layout, rotations and scales (rng seed 3163513),
     floor, light and camera, with `_teapot_sphere` as the prototype."""
@@ -153,17 +167,17 @@ def instanced_teapots_standin(width=256, height=256, grid=4, builder=None,
                                     n=(0, 1, 0)), floor)
     b.add_point_light((20, 30, 20), 5000.0)
     b.set_bg_color((0.05, 0.05, 0.1))
-    scene = b.build(bvh=bvh)
+    scene = _build(b, bvh, device)
     cam = Camera.make(eye=(0, 8, grid * 2.5 + 6), look_at=(0, 0.5, 0),
                       fov=45.0)
     settings = RenderSettings(width=width, height=height, path_trace=False,
                               max_wavefront_steps=2, **kw)
-    return scene, cam, settings
+    return scene, _on(cam, device), settings
 
 
 @register('instanced_grid_standin')
 def instanced_grid_standin(width=256, height=256, n=100_000, spacing=2.0,
-                           builder=None, bvh=False, **kw):
+                           builder=None, bvh=False, device=CUDA, **kw):
     """The JAX registry's `instanced_grid` without asset files: n
     instances on the same jittered grid with the same rotations, scales,
     light, camera and settings, with `_teapot_sphere` as the prototype
@@ -196,12 +210,12 @@ def instanced_grid_standin(width=256, height=256, n=100_000, spacing=2.0,
         b.add_instance(proto, ms[k])
     b.add_point_light((0, g * spacing, 0), float(g * spacing) ** 2 * 2.0)
     b.set_bg_color((0.05, 0.05, 0.1))
-    scene = b.build(bvh=bvh)
+    scene = _build(b, bvh, device)
     cam = Camera.make(eye=(0, g * spacing * 0.12, g * spacing * 0.55),
                       look_at=(0, 0.0, 0), fov=50.0)
     settings = RenderSettings(width=width, height=height, path_trace=False,
                               max_wavefront_steps=2, **kw)
-    return scene, cam, settings
+    return scene, _on(cam, device), settings
 
 
 def procedural_trunk(height=1.2, radius=0.05) -> MeshData:
@@ -229,7 +243,7 @@ def procedural_trunk(height=1.2, radius=0.05) -> MeshData:
 
 @register('forest_standin')
 def forest_standin(width=256, height=256, n_trees=200, canopy=(60, 64),
-                   builder=None, bvh=False, **kw):
+                   builder=None, bvh=False, device=CUDA, **kw):
     """An instanced forest without asset files, in the manner of the JAX
     registry's `final_forest`: two tree prototypes, each a procedural
     trunk under an opaque sphere canopy (canopy=(60, 64): 7,552 triangles,
@@ -267,15 +281,15 @@ def forest_standin(width=256, height=256, n_trees=200, canopy=(60, 64),
                            (40, 0, -40), with_uv=False), ground)
     b.add_point_light((10.0, 30.0, 10.0), 15000.0)
     b.set_bg_color((0.4, 0.5, 0.7))
-    scene = b.build(bvh=bvh)
+    scene = _build(b, bvh, device)
     cam = Camera.make(eye=(0.0, 1.0, 6.0), look_at=(0.0, 1.2, 0.0), fov=50.0)
     settings = RenderSettings(width=width, height=height, path_trace=False,
                               max_bounces=5, max_wavefront_steps=7, **kw)
-    return scene, cam, settings
+    return scene, _on(cam, device), settings
 
 
 @register('mb_bullet_standin')
-def mb_bullet_standin(size=256, shutter=1.0, builder=None, **kw):
+def mb_bullet_standin(size=256, shutter=1.0, builder=None, device=CUDA, **kw):
     """The JAX registry's `mb_bullet` (the motion-blur fixture) without its
     mesh pair: a shattered sphere (`assets.shattered_sphere`, 224 shards of
     radius 1) whose t = 1 pose pushes every shard 0.3-0.9 outward stands in
@@ -290,7 +304,7 @@ def mb_bullet_standin(size=256, shutter=1.0, builder=None, **kw):
                                     n=(0, 1, 0)), floor)
     b.add_point_light((5, 10, 5), 500.0)
     b.set_bg_color((0.1, 0.1, 0.15))
-    scene = b.build(bvh=False)
+    scene = _build(b, False, device)
     lo = m0.vertices.min(0)
     hi = m0.vertices.max(0)
     c = 0.5 * (lo + hi)
@@ -298,11 +312,12 @@ def mb_bullet_standin(size=256, shutter=1.0, builder=None, **kw):
                       look_at=c, fov=45.0, shutter=shutter)
     settings = RenderSettings(width=size, height=size, path_trace=False,
                               max_wavefront_steps=2, **kw)
-    return scene, cam, settings
+    return scene, _on(cam, device), settings
 
 
 @register('alpha_leaf_standin')
-def alpha_leaf_standin(size=256, max_bounces=5, builder=None, **kw):
+def alpha_leaf_standin(size=256, max_bounces=5, builder=None, device=CUDA,
+                       **kw):
     """The JAX registry's `alpha_leaf` (makeAlphaTest) without its files:
     two leaf cards (a 2 x 2 quad each, for leaf_test.obj) moved as there,
     with a procedural RGBA leaf (`assets.leaf_texture`) as both colour and
@@ -320,13 +335,13 @@ def alpha_leaf_standin(size=256, max_bounces=5, builder=None, **kw):
     b.add_point_light((-10, -10, -10), 4000.0)
     b.set_env_map(env, 1.0)
     b.set_bg_color((0, 0, 0))
-    scene = b.build(bvh=False)
+    scene = _build(b, False, device)
     cam = Camera.make(eye=(0, 3, 6), look_at=(0, 0, 0), fov=45.0,
                       aperture=0.001, focus_plane=4.0)
     settings = RenderSettings(width=size, height=size, path_trace=True,
                               max_bounces=max_bounces,
                               max_wavefront_steps=max_bounces + 2, **kw)
-    return scene, cam, settings
+    return scene, _on(cam, device), settings
 
 
 # rows of the procedural dome skies: odd, so that no dome sample direction
@@ -337,7 +352,7 @@ DOME_ROWS = 127
 
 
 @register('dome_standin')
-def dome_standin(size=256, dome_samples=4, builder=None, **kw):
+def dome_standin(size=256, dome_samples=4, builder=None, device=CUDA, **kw):
     """The JAX registry's `dome_teapot` without its files: a procedural
     lat-long HDR sky with a sun spot (`assets.sky_hdr`, for sky.hdr) as both
     dome light and env map, a procedural grass texture on the same ground
@@ -355,11 +370,11 @@ def dome_standin(size=256, dome_samples=4, builder=None, **kw):
     b.add_mesh(_teapot_sphere(), tmat)
     b.set_dome_light(sky, gain=1.0, num_samples=dome_samples)
     b.set_env_map(sky, 1.0)
-    scene = b.build(bvh=False)
+    scene = _build(b, False, device)
     cam = Camera.make(eye=(0, 2.5, 5), look_at=(0, 0.8, 0), fov=45.0)
     settings = RenderSettings(width=size, height=size, path_trace=False,
                               max_wavefront_steps=2, **kw)
-    return scene, cam, settings
+    return scene, _on(cam, device), settings
 
 
 # the final forest's tree prototypes: (trunk height, trunk radius) of the
@@ -373,7 +388,7 @@ LEAF_CARDS = 1500
 @register('final_forest_standin')
 def final_forest_standin(width=1920, height=1080, n_trees=200, n_flowers=100,
                          grass_grid=40, max_bounces=5, dome_samples=2,
-                         builder=None, bvh=False, **kw):
+                         builder=None, bvh=False, device=CUDA, **kw):
     """The JAX registry's flagship `final_forest` (makeFinalScene) without
     asset files, at its defaults: the same rng seed (3163513), tree, flower
     and grass placement loops, materials, env exposure 1.5, dome gain 0.15,
@@ -591,11 +606,11 @@ def final_forest_standin(width=1920, height=1080, n_trees=200, n_flowers=100,
                 @ tf.rotate_y(rng.random() * 360.0)
             b.add_instance(grass, m)
 
-    scene = b.build(bvh=bvh)
+    scene = _build(b, bvh, device)
     cam = Camera.make(eye=cam_eye, look_at=(0.294, 0.511, 0.503),
                       fov=39.0, aperture=0.0018, focus_plane=2.0,
                       shutter=0.1)
     settings = RenderSettings(width=width, height=height, path_trace=False,
                               max_bounces=max_bounces,
                               max_wavefront_steps=max_bounces + 2, **kw)
-    return scene, cam, settings
+    return scene, _on(cam, device), settings

@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from ..core.types import TexturePack
-from ..core.vecmath import PI, INV_PI
+from ..core.vecmath import PI, INV_PI, take
 
 
 def _wrap_uv(u, v):
@@ -83,7 +83,7 @@ def tex_lookup(tp: TexturePack, tex_id, u, v):
     if tp.data.shape[0] == 0:
         return _no_texture_rgba(u)
     idx, state = _lookup_plan(tp, tex_id, u, v)
-    return _lookup_combine(tp.data[idx], state)
+    return _lookup_combine(take(tp.data, idx), state)
 
 
 def tex_lookup_batch(tp: TexturePack, queries):
@@ -91,7 +91,7 @@ def tex_lookup_batch(tp: TexturePack, queries):
     if tp.data.shape[0] == 0:
         return [_no_texture_rgba(u) for (_, u, _) in queries]
     plans = [_lookup_plan(tp, t, u, v) for (t, u, v) in queries]
-    vals = tp.data[torch.cat([p[0] for p in plans], dim=-1)]
+    vals = take(tp.data, torch.cat([p[0] for p in plans], dim=-1))
     return [_lookup_combine(vals[..., 16 * i:16 * (i + 1)], p[1])
             for i, p in enumerate(plans)]
 

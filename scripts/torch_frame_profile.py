@@ -1,7 +1,7 @@
 """Where a 1080p frame of the PyTorch port spends its time, on one GPU.
 
     python3 scripts/torch_frame_profile.py [--scene NAME] [--tiles 17,19,21]
-                                           [--trace PATH]
+                                           [--trace PATH] [--train]
 
 Renders --scene (default `sponza_standin`: 1 spp, 10 bounces; or
 `instanced_grid_standin`, `forest_standin` or `final_forest_standin` at
@@ -11,7 +11,15 @@ it profiles one render at the default tile with torch.profiler and prints
 the device time by kernel name, the trace kernels' share, the device
 busy share (device kernel time over wall time) and, for alpha scenes, the
 alpha march's passes and host syncs. --trace writes the Chrome
-trace. Needs a CUDA device.
+trace.
+
+--train does the same for one training step (parallel/sharding
+.loss_and_grads_scanned: forward + backward to all six parameter leaves
+against a zero target): per tile the median wall of 3 steps and the peak
+memory (or "oom"); then one profiled step at the largest tile that fits,
+split into forward and backward device time with the top kernels of each;
+then the backward device time of each leaf alone (a profiled step whose
+only leaf that requires grad is that one). Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -31,6 +39,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import raytracer_tpu_torch as rt  # noqa: E402
 from raytracer_tpu_torch.core import rng  # noqa: E402
 from raytracer_tpu_torch.ops import cluster_trace as ct  # noqa: E402
+from raytracer_tpu_torch.parallel import sharding  # noqa: E402
+from raytracer_tpu_torch.render import camera as cam_mod  # noqa: E402
 from raytracer_tpu_torch.scenes import registry  # noqa: E402
 
 DEFAULT_TILE = 1 << 21      # chip_smoke.py's tile: the whole 1080p frame
@@ -48,6 +58,125 @@ def wall(fn, reps=3):
     return statistics.median(times), times
 
 
+def device_events(prof):
+    """The device kernels of a profile (not the phase annotations, which
+    the profiler also lists on the device's timeline)."""
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.name not in ('forward', 'backward')]
+
+
+def by_name(events, top=15):
+    """(total device us, the `top` kernel names by device time)."""
+    acc: dict[str, float] = {}
+    for e in events:
+        acc[e.name] = acc.get(e.name, 0.0) + e.device_time_total
+    total = sum(acc.values())
+    return total, sorted(acc.items(), key=lambda kv: -kv[1])[:top]
+
+
+def train_step(scene, cam, st, params, grad_leaves, tile, backward=True):
+    """The scanned step of parallel/sharding, spelled out so a profile can
+    mark its phases and a run can differentiate some leaves only: per tile
+    the forward render and loss (`forward`), then loss.backward()
+    (`backward`) into the leaves in grad_leaves."""
+    W, H = st.width, st.height
+    R = W * H
+    dev = scene.geom.vertices.device
+    px, py = cam_mod.pixel_coords(W, H, dev)
+    msk = torch.ones(R, device=dev)
+    pad = (-R) % tile
+    if pad:
+        px, py, msk = (torch.cat([x, x.new_zeros(pad)]) for x in (px, py, msk))
+    with torch.no_grad():
+        base = sharding.apply_params(scene, params)
+    leaves = {k: v.detach().requires_grad_(k in grad_leaves)
+              for k, v in params.items()}
+    key = rng.PRNGKey(0)
+    for ti in range(px.shape[0] // tile):
+        sl = slice(ti * tile, (ti + 1) * tile)
+        with torch.profiler.record_function('forward'), \
+                torch.set_grad_enabled(backward):
+            s = sharding.apply_params(base, leaves, refresh=False)
+            L = sharding._render_local(s, cam, st, 1, px[sl], py[sl],
+                                       rng.fold_in(key, ti))
+            loss = torch.sum(msk[sl, None] * L ** 2)
+        if backward and loss.requires_grad:   # an empty leaf has none
+            torch.cuda.synchronize()
+            with torch.profiler.record_function('backward'):
+                loss.backward()
+    torch.cuda.synchronize()
+
+
+def main_train(args, scene, cam, st) -> int:
+    W, H = st.width, st.height
+    params = sharding.get_params(scene)
+    leaves = set(sharding.PARAM_KEYS)
+    fits = {}
+    for k in (int(x) for x in args.tiles.split(',') if x):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            med, times = wall(lambda: train_step(scene, cam, st, params,
+                                                 leaves, 1 << k))
+        except torch.cuda.OutOfMemoryError:
+            print(json.dumps({'ray_tile': 1 << k, 'fwd_bwd': 'oom'}))
+            continue
+        fits[k] = med
+        print(json.dumps({
+            'ray_tile': 1 << k, 'fwd_bwd_median_s': med, 'wall_s': times,
+            'primary_rays_per_s': W * H / med,
+            'peak_mem_gb': torch.cuda.max_memory_allocated() / 1e9}))
+    tile = 1 << max(fits)
+    torch.cuda.empty_cache()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        train_step(scene, cam, st, params, leaves, tile)
+        wall_s = time.perf_counter() - t0
+    bwd_start = min(e.time_range.start for e in prof.events()
+                    if e.name == 'backward')
+    dev_ev = device_events(prof)
+    fwd = [e for e in dev_ev if e.time_range.start < bwd_start]
+    bwd = [e for e in dev_ev if e.time_range.start >= bwd_start]
+    total_us = sum(e.device_time_total for e in dev_ev)
+    # the profiler slows the host: the busy share is also given against
+    # the unprofiled median step at this tile
+    rec = {'train_profile_tile': tile, 'profiled_wall_s': wall_s,
+           'device_kernel_s': total_us / 1e6,
+           'device_busy_share': total_us / 1e6 / wall_s,
+           'device_share_of_unprofiled_step':
+               total_us / 1e6 / fits[max(fits)],
+           'n_device_kernels': len(dev_ev)}
+    for tag, evs in (('forward', fwd), ('backward', bwd)):
+        t_us, top = by_name(evs)
+        rec[f'{tag}_device_s'] = t_us / 1e6
+        rec[f'{tag}_kernels'] = len(evs)
+        for name, us in top:
+            print(json.dumps({'phase': tag, 'kernel': name[:90],
+                              'device_ms': us / 1e3,
+                              'share': us / max(t_us, 1e-9)}))
+    print(json.dumps(rec))
+    if args.trace:
+        os.makedirs(os.path.dirname(args.trace) or '.', exist_ok=True)
+        prof.export_chrome_trace(args.trace)
+    # the backward device time of each leaf alone (an empty leaf has no
+    # backward pass)
+    split = {}
+    for k in sharding.PARAM_KEYS + ('all',):
+        grad_leaves = leaves if k == 'all' else {k}
+        with torch.profiler.profile(activities=acts) as prof:
+            train_step(scene, cam, st, params, grad_leaves, tile)
+        starts = [e.time_range.start for e in prof.events()
+                  if e.name == 'backward']
+        split[f'backward_{k}_device_s'] = sum(
+            e.device_time_total for e in device_events(prof)
+            if starts and e.time_range.start >= min(starts)) / 1e6
+    print(json.dumps({'per_leaf_backward': split, 'ray_tile': tile}))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument('--scene', default='sponza_standin',
@@ -55,15 +184,16 @@ def main() -> int:
                              'forest_standin', 'final_forest_standin'))
     ap.add_argument('--tiles', default='17,19,21')
     ap.add_argument('--trace', default=None)
+    ap.add_argument('--train', action='store_true')
     args = ap.parse_args()
     assert torch.cuda.is_available(), 'needs a CUDA device'
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True).stdout.strip())
-    dev = torch.device('cuda', 0)
-    scene_h, cam_h, st = registry.make(args.scene, width=1920, height=1080,
-                                       ray_tile=DEFAULT_TILE)
-    scene, cam = scene_h.to(dev), cam_h.to(dev)
+    scene, cam, st = registry.make(args.scene, width=1920, height=1080,
+                                   ray_tile=DEFAULT_TILE)
+    if args.train:
+        return main_train(args, scene, cam, st)
     key = rng.PRNGKey(2024)
     W, H = st.width, st.height
 
@@ -86,8 +216,7 @@ def main() -> int:
         rt.render(scene, cam, st, key)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = device_events(prof)
     by_name: dict[str, float] = {}
     for e in events:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total

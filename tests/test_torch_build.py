@@ -21,20 +21,21 @@ from raytracer_tpu_torch import convert
 from raytracer_tpu_torch.core.types import Camera
 from raytracer_tpu_torch.scenes import registry
 
-from .torch_port_util import scene_arrays, to_port
+from .torch_port_util import cpu, scene_arrays, to_port
 
 BUILDS = {
-    'triangle_sphere': lambda b: registry.triangle_sphere(size=8, builder=b),
-    'sponza_standin_12': lambda b: registry.sponza_standin(
+    'triangle_sphere': lambda b: cpu(registry.triangle_sphere, size=8,
+                                     builder=b),
+    'sponza_standin_12': lambda b: cpu(registry.sponza_standin,
         32, 24, max_bounces=3, n_spheres=12, builder=b),
-    'instanced_teapots': lambda b: registry.instanced_teapots_standin(
+    'instanced_teapots': lambda b: cpu(registry.instanced_teapots_standin,
         8, 8, builder=b, bvh=b is not None),
-    'forest_8': lambda b: registry.forest_standin(
+    'forest_8': lambda b: cpu(registry.forest_standin,
         8, 8, n_trees=8, canopy=(30, 32), builder=b, bvh=b is not None),
-    'mb_bullet': lambda b: registry.mb_bullet_standin(8, builder=b),
-    'alpha_leaf': lambda b: registry.alpha_leaf_standin(8, builder=b),
-    'dome': lambda b: registry.dome_standin(8, builder=b),
-    'final_forest_2': lambda b: registry.final_forest_standin(
+    'mb_bullet': lambda b: cpu(registry.mb_bullet_standin, 8, builder=b),
+    'alpha_leaf': lambda b: cpu(registry.alpha_leaf_standin, 8, builder=b),
+    'dome': lambda b: cpu(registry.dome_standin, 8, builder=b),
+    'final_forest_2': lambda b: cpu(registry.final_forest_standin,
         8, 8, n_trees=2, n_flowers=4, grass_grid=3, builder=b,
         bvh=b is not None),
 }
@@ -83,14 +84,14 @@ def test_convert_round_trip(pair):
     assert st2 == static
     for k, v in at.items():
         np.testing.assert_array_equal(v, aj[k], err_msg=k)
-    again = convert.scene_from_arrays(at, st2)
+    again = cpu(convert.scene_from_arrays, at, st2)
     for k, v in convert.scene_to_arrays(again)[0].items():
         np.testing.assert_array_equal(v, at[k], err_msg=k)
 
 
 def test_sponza_standin_size():
     """The full stand-in: 300 spheres of 576 triangles around the atrium."""
-    scene, cam, st = registry.sponza_standin()
+    scene, cam, st = cpu(registry.sponza_standin)
     assert scene.num_tris == 174_724
     assert scene.clusters.num_clusters == 2032
     assert (st.width, st.height, st.max_bounces) == (1920, 1080, 10)
@@ -116,19 +117,20 @@ def test_unported_features_raise():
     b.add_instance(b.end_prototype(), np.eye(4))
     b.add_mesh(make_single_triangle((0, 0, 1), (1, 0, 1), (0, 1, 1)), 0)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        b.build()
-    sj, _, _ = registry.triangle_sphere(size=8, builder=rj.SceneBuilder())
+        cpu(b.build)
+    sj, _, _ = cpu(registry.triangle_sphere, size=8,
+                   builder=rj.SceneBuilder())
     arrays, static = scene_arrays(sj)
     arrays = {k: v for k, v in arrays.items() if not k.startswith('clusters')}
     with pytest.raises(ValueError, match='cluster'):
-        convert.scene_from_arrays(arrays, static)
+        cpu(convert.scene_from_arrays, arrays, static)
 
 
 def test_texel_pool_and_dome_tables():
     """The texel pool and its descriptors, and the dome's CDF tables, as the
     JAX build makes them (byte-equal), moved to a device as one set."""
-    sj, _, _ = registry.dome_standin(8, builder=rj.SceneBuilder())
-    st, _, _ = registry.dome_standin(8)
+    sj, _, _ = cpu(registry.dome_standin, 8, builder=rj.SceneBuilder())
+    st, _, _ = cpu(registry.dome_standin, 8)
     for group in ('textures', 'dome'):
         for f in dataclasses.fields(getattr(st, group)):
             got = getattr(getattr(st, group), f.name)
@@ -148,12 +150,12 @@ def test_texel_pool_and_dome_tables():
 def test_static_t1_tables_alias():
     """A static table's t = 1 pose is its t = 0 pose, one buffer, and stays
     one buffer when the scene moves; a motion-blurred one has its own."""
-    static, _, _ = registry.triangle_sphere(size=8)
+    static, _, _ = cpu(registry.triangle_sphere, size=8)
     cl = static.clusters
     assert cl.p0_t1 is cl.p0 and cl.e2_t1 is cl.e2
     moved = static.to(torch.device('cpu')).clusters
     assert moved.p0_t1 is moved.p0
-    mb, _, _ = registry.mb_bullet_standin(8)
+    mb, _, _ = cpu(registry.mb_bullet_standin, 8)
     assert mb.has_motion_blur and mb.clusters.p0_t1 is not mb.clusters.p0
     assert mb.clusters.nbytes > cl.nbytes
 
@@ -165,8 +167,57 @@ def test_camera_from_arrays():
     cj = JCamera.make(**kw)
     leaves = jax.tree_util.tree_flatten_with_path(cj)[0]
     arrays = {path[0].name: np.asarray(v) for path, v in leaves}
-    got, want = convert.camera_from_arrays(arrays), Camera.make(**kw)
+    got, want = cpu(convert.camera_from_arrays, arrays), Camera.make(**kw)
     for k in ('eye', 'view_dir', 'up', 'fov', 'focus_plane', 'aperture',
               'shutter'):
         np.testing.assert_array_equal(getattr(got, k).numpy(),
                                       getattr(want, k).numpy(), err_msg=k)
+
+
+@pytest.mark.parametrize('entry', ['registry', 'builder', 'convert',
+                                   'camera', 'params'])
+def test_builders_default_to_the_card(entry):
+    """Scenes, cameras and parameters land on the card unless the caller
+    names another device; without a card the default raises (it never
+    builds on the CPU quietly), and device='cpu' builds there."""
+    from raytracer_tpu_torch import SceneBuilder
+    from raytracer_tpu_torch.io.objload import make_single_triangle
+    sj, _, _ = cpu(registry.triangle_sphere, size=8,
+                   builder=rj.SceneBuilder())
+    arrays, static = scene_arrays(sj)
+    cam_arrays = {k: np.asarray(v) for k, v in
+                  dataclasses.asdict(JCamera.make(eye=(0, 1, 2),
+                                                  look_at=(0, 0, 0))).items()}
+
+    def builder(**kw):
+        b = SceneBuilder()
+        b.add_mesh(make_single_triangle((0, 0, 0), (1, 0, 0), (0, 1, 0)),
+                   b.add_lambert())
+        return b.build(**kw)
+
+    make = dict(
+        registry=lambda **kw: registry.triangle_sphere(size=8, **kw)[0],
+        builder=builder,
+        convert=lambda **kw: convert.scene_from_arrays(arrays, static, **kw),
+        camera=lambda **kw: convert.camera_from_arrays(cam_arrays, **kw),
+        params=lambda **kw: convert.params_from_arrays(
+            {k: np.zeros(2, np.float32) for k in convert.PARAM_KEYS},
+            **kw))[entry]
+    if torch.cuda.is_available():
+        assert _devices(make()) == {'cuda'}
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    assert _devices(make(device='cpu')) == {'cpu'}
+
+
+def _devices(x):
+    """Device types of a params dict, a Scene or a Camera."""
+    if isinstance(x, dict):
+        vals = list(x.values())
+    elif hasattr(x, 'geom'):
+        vals = [x.geom.vertices, x.materials.kd, x.env_exposure,
+                x.clusters.p0, x.clusters.tri]
+    else:
+        vals = [x.eye, x.fov]
+    return {v.device.type for v in vals}

@@ -28,13 +28,13 @@ from raytracer_tpu_torch.ops import intersect as tisect
 from raytracer_tpu_torch.render import camera as tcam
 from raytracer_tpu_torch.scenes import registry
 
-from .torch_port_util import random_rays, to_port
+from .torch_port_util import cpu, random_rays, to_port
 
 R = 512
 SCENES = {
-    'triangle_sphere': lambda: registry.triangle_sphere(
+    'triangle_sphere': lambda: cpu(registry.triangle_sphere,
         size=8, builder=rj.SceneBuilder()),
-    'sponza_standin_12': lambda: registry.sponza_standin(
+    'sponza_standin_12': lambda: cpu(registry.sponza_standin,
         32, 24, max_bounces=3, n_spheres=12, builder=rj.SceneBuilder()),
 }
 

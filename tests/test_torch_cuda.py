@@ -1,5 +1,7 @@
-"""The CUDA trace kernels (cluster, segment and hierarchical instance trace)
-against their plain PyTorch versions, on the card. Every test here needs an
+"""The CUDA trace kernels (cluster, segment and hierarchical instance trace,
+and the brute-force Moller-Trumbore sweep) against their plain PyTorch
+versions, and the trainer's loss and gradients against the CPU's, on the
+card. Every test here needs an
 NVIDIA GPU and nvcc, and skips elsewhere.
 
 This file imports torch and the port only, so it runs on a machine without
@@ -21,11 +23,16 @@ from raytracer_tpu_torch.core import rng
 from raytracer_tpu_torch.ops import cluster_trace as ct
 from raytracer_tpu_torch.ops import icluster_trace as ict
 from raytracer_tpu_torch.ops import iseg_trace as ist
+from raytracer_tpu_torch.ops import mt_trace as tmt
 from raytracer_tpu_torch.ops.cuda import cluster_kernel as ck
 from raytracer_tpu_torch.ops.cuda import icluster_kernel as ick
 from raytracer_tpu_torch.ops.cuda import iseg_kernel as isk
+from raytracer_tpu_torch.ops.cuda import mt_kernel as mtk
+from raytracer_tpu_torch.parallel import sharding as ts
 from raytracer_tpu_torch.render import camera as cam_mod
 from raytracer_tpu_torch.scenes import registry
+
+from .torch_port_util import cpu, triangle_soup
 
 pytestmark = pytest.mark.cuda
 R = 4096
@@ -42,10 +49,10 @@ def dev():
                                         'sponza_full'])
 def scene(request, dev):
     if request.param == 'triangle_sphere':
-        s, cam, st = registry.triangle_sphere(size=16)
+        s, cam, st = cpu(registry.triangle_sphere, size=16)
     else:
         n = 12 if request.param == 'sponza_12' else 300
-        s, cam, st = registry.sponza_standin(32, 24, max_bounces=3,
+        s, cam, st = cpu(registry.sponza_standin, 32, 24, max_bounces=3,
                                              n_spheres=n)
     return s, s.to(dev), cam
 
@@ -116,7 +123,7 @@ def test_kernel_rejects_bad_inputs(scene, dev):
 
 
 def test_render_on_card_matches_cpu(dev):
-    scene, cam, st = registry.sponza_standin(32, 24, max_bounces=3,
+    scene, cam, st = cpu(registry.sponza_standin, 32, 24, max_bounces=3,
                                              n_spheres=12)
     key = rng.PRNGKey(11)
     want = rt.render(scene, cam, st, key).numpy()
@@ -147,7 +154,7 @@ PLAIN = {'iseg_trace': ist.iseg_trace, 'icluster_trace': ict.icluster_trace}
 @pytest.fixture(scope='module', params=sorted(INSTANCED))
 def instanced(request, dev):
     make, kw, mod, name = INSTANCED[request.param]
-    s, cam, _ = make(32, 24, **kw)
+    s, cam, _ = cpu(make, 32, 24, **kw)
     return s, s.to(dev), cam, mod, name
 
 
@@ -208,7 +215,7 @@ def test_instanced_kernel_rejects_bad_inputs(instanced, dev):
 
 
 def test_instanced_render_on_card_matches_cpu(dev):
-    scene, cam, st = registry.instanced_teapots_standin(32, 24)
+    scene, cam, st = cpu(registry.instanced_teapots_standin, 32, 24)
     key = rng.PRNGKey(11)
     want = rt.render(scene, cam, st, key).numpy()
     n0, c0 = isk.LAUNCHES, ist.CALLS
@@ -243,7 +250,7 @@ def forest_small(dev):
     with none (the segment tracer), on both devices."""
     out = {}
     for n_trees in (2, 0):
-        s, cam, _ = registry.final_forest_standin(
+        s, cam, _ = cpu(registry.final_forest_standin,
             32, 24, n_trees=n_trees, n_flowers=6, grass_grid=4)
         out[n_trees] = (s, s.to(dev), cam)
     return out
@@ -259,7 +266,7 @@ def _assert_hits_equal(hk, hp, fields=('tri', 'inst', 't', 'a', 'b')):
 def test_mb_kernel_matches_plain(dev, any_hit):
     """The cluster kernel in `mb` mode on mb_bullet_standin (no alpha maps:
     nearest and cheap any-hit), random shutter times and dead lanes."""
-    host, cam, _ = registry.mb_bullet_standin(16)
+    host, cam, _ = cpu(registry.mb_bullet_standin, 16)
     card = host.to(dev)
     cl = host.clusters
     assert cl.p0_t1 is not cl.p0
@@ -307,7 +314,7 @@ def test_mb_need_ab_kernel_matches_plain(forest_small, dev, any_hit):
 @pytest.mark.parametrize('any_hit', [False, True])
 def test_need_ab_kernel_matches_plain(dev, any_hit):
     """The static cluster kernel in `need_ab` mode on alpha_leaf_standin."""
-    host, cam, _ = registry.alpha_leaf_standin(16)
+    host, cam, _ = cpu(registry.alpha_leaf_standin, 16)
     card = host.to(dev)
     o, d, _ = cam_mod.center_rays(cam, 64, R // 64)
     tmax = torch.full((R,), 1e12)
@@ -365,7 +372,7 @@ def test_alpha_march_on_card_matches_cpu(forest_small, dev):
 
 
 def test_forest_render_on_card_matches_cpu(forest_small, dev):
-    s, cam, st = registry.final_forest_standin(
+    s, cam, st = cpu(registry.final_forest_standin,
         32, 24, n_trees=2, n_flowers=6, grass_grid=4, max_bounces=1,
         dome_samples=1)
     key = rng.PRNGKey(13)
@@ -378,3 +385,92 @@ def test_forest_render_on_card_matches_cpu(forest_small, dev):
     dd = np.abs(got - want)
     assert (dd <= 1e-4 + 1e-3 * np.abs(want)).all(-1).mean() >= 0.99
     assert dd.mean() < 1e-3 * np.abs(want).mean()
+
+
+@pytest.mark.parametrize('T', [1000, 4133])
+def test_mt_kernel_matches_plain(dev, T):
+    """The MT kernel bit for bit with its plain version on a soup with
+    forced ties, padding lanes, per-ray bounds and dead rays; 4,133
+    triangles is 8 tiles and 37 lanes."""
+    args = triangle_soup(T, R, seed=T)[:-1]
+    want = tmt.mt_trace(*map(torch.from_numpy, args))
+    n0 = mtk.LAUNCHES
+    got = mtk.mt_trace(*[torch.from_numpy(x).to(dev) for x in args])
+    torch.cuda.synchronize()
+    assert mtk.LAUNCHES == n0 + 1
+    assert int((want[1] >= 0).sum()) > R // 4
+    for g, w, f in zip(got, want, ('t', 'tri', 'a', 'b')):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy(), err_msg=f)
+    assert (got[1].cpu()[3::16] == -1).all()
+
+
+@pytest.mark.parametrize('kind', ['random', 'camera'])
+@pytest.mark.parametrize('any_hit', [False, True])
+def test_brute_trace_kernel_matches_plain(dev, kind, any_hit):
+    """intersector 'pallas' on the 12-sphere sponza_standin: the kernel
+    on the card against the plain version on the CPU."""
+    host, cam, _ = cpu(registry.sponza_standin, 32, 24, max_bounces=3,
+                       n_spheres=12)
+    card = host.to(dev)
+    o, d, dist = _rays(host, cam, kind)
+    tmax = dist if any_hit else torch.full((R,), 1e12)
+    tmax[::5] = -1.0
+    hp = mtk.brute_trace(host, o, d, 0.0, 1e-3, tmax, any_hit)
+    n0 = mtk.LAUNCHES
+    hk = mtk.brute_trace(card, o.to(dev), d.to(dev), 0.0, 1e-3,
+                         tmax.to(dev), any_hit)
+    torch.cuda.synchronize()
+    assert mtk.LAUNCHES == n0 + 1
+    assert int((hp.tri >= 0).sum()) > R // 20
+    _assert_hits_equal(hk, hp)
+
+
+def test_mt_kernel_rejects_bad_inputs(dev):
+    o, d, p0, p1, p2, valid, tmin, tmax = (
+        torch.from_numpy(x).to(dev) for x in triangle_soup(64, 32, 1)[:-1])
+    with pytest.raises(ValueError):
+        mtk.launch(o.double(), d, p0, p1, p2, valid, tmin, tmax)
+    with pytest.raises(ValueError):
+        mtk.launch(o, d, p0, p1, p2, valid.long(), tmin, tmax)
+    with pytest.raises(ValueError):
+        mtk.launch(o, d, p0.cpu(), p1, p2, valid, tmin, tmax)
+
+
+def _assert_grads_close(got, want):
+    """Loss within rtol 1e-4; each leaf within rtol 1e-3 and atol 1e-4 x
+    max|leaf| of the CPU's (scatter sums in another order, and the card's
+    transcendental functions differ from the CPU's by an ulp)."""
+    (lg, gg), (lw, gw) = got, want
+    np.testing.assert_allclose(float(lg), float(lw), rtol=1e-4)
+    for k in ts.PARAM_KEYS:
+        g, w = gg[k].cpu().numpy(), gw[k].numpy()
+        assert g.shape == w.shape and np.isfinite(g).all(), k
+        atol = 1e-4 * (float(np.abs(w).max()) if w.size else 0.0)
+        np.testing.assert_allclose(g, w, rtol=1e-3, atol=atol, err_msg=k)
+
+
+@pytest.mark.parametrize('intersector', ['auto', 'pallas'])
+def test_loss_and_grads_on_card_match_cpu(dev, intersector):
+    """One fwd+bwd step of the 12-sphere sponza_standin at 32x24, 3
+    bounces, against bench.py's zero target: the card (kernels) against
+    the CPU (plain versions); then an Adam step on the card."""
+    host, cam, st = cpu(registry.sponza_standin, 32, 24, max_bounces=3,
+                        n_spheres=12, intersector=intersector)
+    key = rng.PRNGKey(5)
+    target = torch.zeros((24, 32, 3))
+    want = ts.loss_and_grads_scanned(ts.get_params(host), host, cam, st,
+                                     target, key)
+    card, cam_d = host.to(dev), cam.to(dev)
+    params = ts.get_params(card)
+    mod = ck if intersector == 'auto' else mtk
+    n0, c0 = mod.LAUNCHES, ct.CALLS + tmt.CALLS
+    got = ts.loss_and_grads_scanned(params, card, cam_d, st, target.to(dev),
+                                    key)
+    torch.cuda.synchronize()
+    assert mod.LAUNCHES > n0 and ct.CALLS + tmt.CALLS == c0
+    _assert_grads_close(got, want)
+    v0 = params['vertices'].clone()
+    params, loss = ts.train_step(params, ts.make_optimizer(params, lr=1e-3),
+                                 card, cam_d, st, target.to(dev), key)
+    assert bool(torch.isfinite(loss)) and not torch.equal(
+        params['vertices'], v0)

@@ -28,14 +28,14 @@ from raytracer_tpu_torch.scenes import registry
 from raytracer_tpu_torch.shading import lights as tlt
 
 from .test_torch_render import _assert_images_close
-from .torch_port_util import jax_camera, jax_settings, to_port
+from .torch_port_util import cpu, jax_camera, jax_settings, to_port
 
 R = 1024
 
 
 @pytest.fixture(scope='module')
 def dome():
-    sj, cam, st = registry.dome_standin(24, builder=rj.SceneBuilder())
+    sj, cam, st = cpu(registry.dome_standin, 24, builder=rj.SceneBuilder())
     return sj, to_port(sj), cam, st
 
 

@@ -37,7 +37,7 @@ from raytracer_tpu_torch.render import integrator as tint
 from raytracer_tpu_torch.scenes import registry
 
 from .test_torch_render import _assert_images_close
-from .torch_port_util import jax_camera, jax_settings, to_port
+from .torch_port_util import cpu, jax_camera, jax_settings, to_port
 
 SMALL = dict(width=32, height=24, n_flowers=16, grass_grid=5, max_bounces=1,
              dome_samples=1)
@@ -45,7 +45,7 @@ SMALL = dict(width=32, height=24, n_flowers=16, grass_grid=5, max_bounces=1,
 
 def test_full_size_counts():
     """The default scene: every instance, table and flag of the cell."""
-    scene, cam, st = registry.final_forest_standin()
+    scene, cam, st = cpu(registry.final_forest_standin)
     icl = scene.iclusters
     # the world's static part, 204 trees, 100 flowers, 1,600 grass clumps
     assert icl.num_instances == 1 + 204 + 100 + 1600
@@ -64,7 +64,7 @@ def test_full_size_counts():
 
 
 def test_no_trees_takes_the_segment_tracer():
-    scene, _, _ = registry.final_forest_standin(8, 8, n_trees=0)
+    scene, _, _ = cpu(registry.final_forest_standin, 8, 8, n_trees=0)
     assert scene.iclusters.max_proto_clusters <= 16
     assert scene.iclusters.num_instances == 1 + 100 + 1600
 
@@ -72,7 +72,7 @@ def test_no_trees_takes_the_segment_tracer():
 def test_routing_hoists_the_opaque_mb_partition():
     """Per trace: one `mb` launch of the partition, then the march's passes
     of the hierarchical tracer."""
-    scene, cam, _ = registry.final_forest_standin(16, 16, n_trees=2,
+    scene, cam, _ = cpu(registry.final_forest_standin, 16, 16, n_trees=2,
                                                   n_flowers=6, grass_grid=4)
     o, d, _ = tcam.center_rays(cam, 16, 16)
     tracer = tint.trace_fn(scene, RenderSettings())
@@ -92,7 +92,7 @@ def test_routing_hoists_the_opaque_mb_partition():
 
 def test_render_final_forest_matches_jax():
     n_trees = 3
-    sj, cam, st = registry.final_forest_standin(
+    sj, cam, st = cpu(registry.final_forest_standin,
         builder=rj.SceneBuilder(), bvh=True, n_trees=n_trees, **SMALL)
     st = dataclasses.replace(st, max_wavefront_steps=2)
     want = jr.render(sj, jax_camera(cam),
@@ -104,7 +104,7 @@ def test_render_final_forest_matches_jax():
     assert ict.CALLS > calls and ct.CALLS > mb_calls
     _assert_images_close(got.numpy(), np.asarray(want))
     # the port's own build renders the very same image
-    own, _, _ = registry.final_forest_standin(n_trees=n_trees, **SMALL)
+    own, _, _ = cpu(registry.final_forest_standin, n_trees=n_trees, **SMALL)
     np.testing.assert_array_equal(
         rt.render(own, cam, st, rng.PRNGKey(11)).numpy(), got.numpy())
     assert isinstance(got, torch.Tensor)

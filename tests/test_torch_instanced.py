@@ -47,7 +47,7 @@ from raytracer_tpu_torch.render import camera as tcam
 from raytracer_tpu_torch.render import integrator as tint
 from raytracer_tpu_torch.scenes import registry
 
-from .torch_port_util import to_port
+from .torch_port_util import cpu, to_port
 
 R = 256
 # shallow prototypes take the segment tracer, deep ones the hierarchical one
@@ -62,7 +62,7 @@ TRACERS = {'teapots': (jisk.pallas_iseg_trace, ist.iseg_trace),
 def _both(name, **kw):
     make, base = SCENES.get(name, (None, {}))
     make = make or getattr(registry, name)
-    sj, cam, st = make(32, 24, builder=rj.SceneBuilder(), bvh=True,
+    sj, cam, st = cpu(make, 32, 24, builder=rj.SceneBuilder(), bvh=True,
                        **{**base, **kw})
     return sj, to_port(sj), cam, st
 
@@ -129,7 +129,7 @@ def test_build_tables_byte_equal(name):
     """The port's own build against the JAX build of the same calls."""
     sj, _, _, _ = _both(name)
     make, kw = SCENES[name]
-    sp, _, _ = make(32, 24, **kw)
+    sp, _, _ = cpu(make, 32, 24, **kw)
     assert not sp.single_level
     icl = sp.iclusters
     for f in dataclasses.fields(icl):

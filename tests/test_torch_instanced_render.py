@@ -25,7 +25,7 @@ from raytracer_tpu_torch.ops import iseg_trace as ist
 from raytracer_tpu_torch.scenes import registry
 
 from .test_torch_render import _assert_images_close
-from .torch_port_util import jax_camera, jax_settings, to_port
+from .torch_port_util import cpu, jax_camera, jax_settings, to_port
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # (builder, its arguments, the plain tracer the port takes)
@@ -40,7 +40,8 @@ SCENES = {
 @pytest.mark.parametrize('name', sorted(SCENES))
 def test_render_center_matches_jax(name):
     make, kw, plain = SCENES[name]
-    sj, cam, st = make(48, 32, builder=rj.SceneBuilder(), bvh=True, **kw)
+    sj, cam, st = cpu(make, 48, 32, builder=rj.SceneBuilder(), bvh=True,
+                      **kw)
     want = jr.render_center(sj, jax_camera(cam),
                             jax_settings(st, intersector='cluster2'),
                             jax.random.PRNGKey(3))
@@ -49,7 +50,7 @@ def test_render_center_matches_jax(name):
     assert plain.CALLS > calls
     _assert_images_close(got.numpy(), np.asarray(want))
     # the port's own build (no BVH) renders the very same image
-    own, cam2, st2 = make(48, 32, **kw)
+    own, cam2, st2 = cpu(make, 48, 32, **kw)
     np.testing.assert_array_equal(
         rt.render_center(own, cam2, st2, rng.PRNGKey(3)).numpy(),
         got.numpy())
@@ -57,7 +58,7 @@ def test_render_center_matches_jax(name):
 
 def test_render_teapots_matches_jax():
     """Jittered eye rays and two samples per pixel."""
-    sj, cam, st = registry.instanced_teapots_standin(
+    sj, cam, st = cpu(registry.instanced_teapots_standin,
         32, 24, builder=rj.SceneBuilder(), bvh=True)
     want = jr.render(sj, jax_camera(cam),
                      jax_settings(st, intersector='cluster2'),
@@ -82,7 +83,7 @@ def test_instanced_render_without_jax():
         '                 (registry.final_forest_standin, dict(',
         '                     n_trees=2, n_flowers=4, grass_grid=3,',
         '                     max_bounces=1))):',
-        '    scene, cam, st = make(8, 8, **kw)',
+        "    scene, cam, st = make(8, 8, device='cpu', **kw)",
         '    img = rt.render(scene, cam, st, rng.PRNGKey(0))',
         '    assert img.shape == (8, 8, 3) and bool(img.isfinite().all())',
         '    assert float(img.mean()) > 0',

@@ -48,13 +48,14 @@ from raytracer_tpu_torch.render import camera as tcam
 from raytracer_tpu_torch.scenes import registry
 
 from .test_torch_render import _assert_images_close
-from .torch_port_util import jax_camera, jax_settings, random_rays, to_port
+from .torch_port_util import (cpu, jax_camera, jax_settings, random_rays,
+                              to_port)
 
 R = 512
 
 
 def _pair(make, **kw):
-    sj, cam, st = make(builder=rj.SceneBuilder(), **kw)
+    sj, cam, st = cpu(make, builder=rj.SceneBuilder(), **kw)
     return sj, to_port(sj), cam, st
 
 

@@ -9,6 +9,7 @@ and rsqrt come from different libraries; one ulp can flip a grazing hit or
 a sort bucket on a handful of pixels, which then take other samples.
 """
 import os
+import shutil
 import subprocess
 import sys
 from dataclasses import replace
@@ -24,7 +25,7 @@ from raytracer_tpu_torch.core import rng
 from raytracer_tpu_torch.ops import cluster_trace as ct
 from raytracer_tpu_torch.scenes import registry
 
-from .torch_port_util import jax_camera, jax_settings, to_port
+from .torch_port_util import cpu, jax_camera, jax_settings, to_port
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -40,14 +41,14 @@ def _assert_images_close(got, want):
 
 @pytest.fixture(scope='module')
 def triangle_sphere():
-    sj, cam, st = registry.triangle_sphere(size=24, builder=rj.SceneBuilder())
+    sj, cam, st = cpu(registry.triangle_sphere, size=24, builder=rj.SceneBuilder())
     return sj, to_port(sj), cam, st
 
 
 @pytest.fixture(scope='module')
 def sponza():
     """sponza_standin cut to 12 spheres, 32 x 24 pixels, 3 bounces."""
-    sj, cam, st = registry.sponza_standin(32, 24, max_bounces=3, n_spheres=12,
+    sj, cam, st = cpu(registry.sponza_standin, 32, 24, max_bounces=3, n_spheres=12,
                                           builder=rj.SceneBuilder())
     return sj, to_port(sj), cam, st
 
@@ -84,23 +85,46 @@ def test_render_sponza_standin(sponza):
     _assert_images_close(got.numpy(), np.asarray(want))
 
 
-def test_imports_without_jax():
-    """The port imports and renders with jax, flax and raytracer_tpu
-    unimportable."""
+def test_imports_without_jax(tmp_path):
+    """The port builds a scene, renders and takes a train step with jax,
+    flax, optax and raytracer_tpu unimportable, from a copy of its package
+    alone: no file of the JAX package is within reach, and the native
+    library builds into the copy's own _build directory."""
+    shutil.copytree(os.path.join(REPO, 'raytracer_tpu_torch'),
+                    tmp_path / 'raytracer_tpu_torch',
+                    ignore=shutil.ignore_patterns('_build', '__pycache__'))
     code = '\n'.join([
-        'import sys',
-        "for m in ('jax', 'flax', 'raytracer_tpu'):",
+        'import os, sys',
+        "for m in ('jax', 'flax', 'optax', 'raytracer_tpu'):",
         '    sys.modules[m] = None',
+        'import torch',
         'import raytracer_tpu_torch as rt',
+        'from raytracer_tpu_torch import native',
         'from raytracer_tpu_torch.core import rng',
+        'from raytracer_tpu_torch.parallel import sharding',
         'from raytracer_tpu_torch.scenes import registry',
-        'scene, cam, st = registry.triangle_sphere(size=8)',
+        'here = os.getcwd()',
+        'assert rt.__file__.startswith(here) and native.SRC.startswith(here)',
+        "scene, cam, st = registry.triangle_sphere(size=8, device='cpu')",
+        'assert native.BUILD_DIR.startswith(here) and os.listdir(',
+        '    native.BUILD_DIR)',
         'img = rt.render(scene, cam, st, rng.PRNGKey(0))',
         'assert img.shape == (8, 8, 3) and bool(img.isfinite().all())',
         'assert float(img.mean()) > 0',
-        "assert not any(m.startswith(('jax', 'flax', 'raytracer_tpu.'))",
+        'params = sharding.get_params(scene)',
+        'opt = sharding.make_optimizer(params, lr=1e-2)',
+        'v0 = params["vertices"].clone()',
+        'params, loss = sharding.train_step(params, opt, scene, cam, st,',
+        '                                   torch.zeros(8, 8, 3),',
+        '                                   rng.PRNGKey(1))',
+        'assert bool(loss.isfinite()) and float(loss) > 0',
+        'assert not torch.equal(params["vertices"], v0)',
+        "assert not any(m.startswith(('jax', 'flax', 'optax',",
+        "                             'raytracer_tpu.'))",
         '               for m in sys.modules if sys.modules[m] is not None)',
         "print('ok')"])
-    res = subprocess.run([sys.executable, '-c', code], cwd=REPO,
-                         capture_output=True, text=True, timeout=300)
+    env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
+    res = subprocess.run([sys.executable, '-c', code], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=300,
+                         env=env)
     assert res.returncode == 0 and res.stdout.strip() == 'ok', res.stderr
