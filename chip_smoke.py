@@ -8,14 +8,16 @@ through `parallel/sharding.loss_and_grads_scanned`, Adam steps through
   1. device: the card's name and power limit; TF32 off;
   2. build: the four CUDA kernels (cluster, segment and hierarchical
      instance trace, the brute-force MT sweep; one nvcc each, all started
-     together) and the native host library, all compiled from this
-     checkout;
+     together, the trace kernels with csrc/trace_common.cuh) and the native
+     host library, all compiled from this checkout; each kernel's
+     registers, spills and shared memory (ptxas -v);
   3. scene: the 174,724-triangle `sponza_standin` atrium, built on the
      card;
   4. the cluster kernel against its plain PyTorch version, both on the
      card, at 32,768 coherent (camera) and incoherent (random) rays,
-     nearest and any-hit, with CUDA-event times (median of 5 after a
-     warm-up);
+     nearest and any-hit, bit for bit, with CUDA-event times (median of 5
+     after a warm-up) and the box and triangle tests per ray of the plain
+     version's group walk, which is the kernel's;
   5. the full 1080p, 10-bounce path-traced render with intersector 'auto':
      the kernel must carry every trace (launch count > 0, plain-version
      calls 0); then the median wall time of 3 renders;
@@ -24,8 +26,9 @@ through `parallel/sharding.loss_and_grads_scanned`, Adam steps through
   7. two-level instancing, for `instanced_grid_standin` (100,000
      instances, shallow prototype: the segment kernel) and `forest_standin`
      (200 trees, deep prototypes: the hierarchical instance kernel): the
-     kernel against its plain version as in phase 4, then the 1080p render
-     at the scene's own settings as in phase 5;
+     kernel against its plain version as in phase 4 (t, tri and inst bit
+     for bit), then the 1080p render at the scene's own settings as in
+     phase 5;
   8. `instanced_teapots_standin` rendered at 64x48 on the CPU and on the
      card, held as in phase 6;
   9. the asset-free `final_forest_standin` at its defaults (204 alpha-cut
@@ -150,11 +153,12 @@ class Work:
         self.nbytes += nbytes
 
     def add_counted(self, plain_call, table_bytes, rays, ray_bytes,
-                    mb=False):
+                    mb=False) -> dict:
         """A cluster-table trace: the slab and triangle tests the plain
-        version performs for these rays (the off-by-default counters of
-        ops/cluster_trace.py), each table byte once, and `ray_bytes` of
-        inputs and outputs per ray."""
+        version performs for these rays in its group walk, which is the
+        kernel's (the off-by-default counters of ops/cluster_trace.py),
+        each table byte once, and `ray_bytes` of inputs and outputs per
+        ray -> the tests per ray."""
         ct.TESTS.update(box=0, tri=0)
         ct.COUNT_TESTS = True
         try:
@@ -164,6 +168,8 @@ class Work:
         self.add(ct.TESTS['box'] * BOX_OPS
                  + ct.TESTS['tri'] * (MT_OPS + (LERP_OPS if mb else 0)),
                  table_bytes + rays * ray_bytes)
+        return dict(box_tests_per_ray=ct.TESTS['box'] / rays,
+                    tri_tests_per_ray=ct.TESTS['tri'] / rays)
 
     def bound(self) -> dict:
         f = self.ops / PEAK_FLOPS * 1e3
@@ -222,27 +228,18 @@ def compare_kernel(scene, cam, dev):
             ms_k += t_k
             ms_p += t_p
             # o, d, tmin, tmax in; t, tri out
-            work.add_counted(lambda: ct.cluster_trace(scene, *args),
-                             scene.clusters.nbytes, N_RAYS, 40)
+            tests = work.add_counted(lambda: ct.cluster_trace(scene, *args),
+                                     scene.clusters.nbytes, N_RAYS, 40)
             hits = int((hp.tri >= 0).sum())
-            dt = (hk.t - hp.t).abs()
-            t_ok = bool((dt <= 1e-5 * hp.t.abs()).all())
-            if any_hit:
-                bad = int((hk.valid != hp.valid).sum())
-                err = float(dt.max())
-            else:
-                # tri may differ only at a near-tie: |dt| <= 1e-5 t
-                same = hk.tri == hp.tri
-                bad = int((~same & (dt > 1e-5 * hp.t.abs())).sum())
-                err = float(dt[same].max())
+            bad = int((hk.tri != hp.tri).sum())
+            err = float((hk.t - hp.t).abs().max())
             max_err = max(max_err, err)
             phase('kernel_vs_plain', rays=kind, mode='any' if any_hit
-                  else 'nearest', n=N_RAYS, hits=hits,
-                  tri_mismatch_not_tie=bad,
-                  tri_mismatch=int((hk.tri != hp.tri).sum()),
-                  max_abs_dt=err, kernel_ms=t_k, plain_ms=t_p)
+                  else 'nearest', n=N_RAYS, hits=hits, tri_mismatch=bad,
+                  max_abs_dt=err, kernel_ms=t_k, plain_ms=t_p, **tests)
+            # the same walk and arithmetic: bit for bit
             assert bad == 0, f'{kind} any_hit={any_hit}: {bad} rays disagree'
-            assert t_ok, f'{kind}: t disagrees beyond rtol 1e-5'
+            assert err == 0.0, f'{kind} any_hit={any_hit}: t disagrees'
             assert hits > N_RAYS // 20, 'too few hits to compare'
     return max_err, ms_k, ms_p, work.bound()
 
@@ -270,7 +267,7 @@ def compare_instanced(scene, cam, kernel, plain, dev):
     """Phase 7a: an instanced kernel against its plain version on the card
     -> (max |dt|, ms, plain ms). Nearest rays first; any-hit rays then stop
     at 0.5-1.5 times their nearest hit's distance, so about half of them
-    find a hit. tri and inst may differ only where t is exactly equal."""
+    find a hit. t, tri and inst must agree bit for bit."""
     max_err, ms_k, ms_p = 0.0, 0.0, 0.0
     work = Work()
     rs = np.random.default_rng(KEY + 1)
@@ -289,26 +286,23 @@ def compare_instanced(scene, cam, kernel, plain, dev):
             ms_k += t_k
             ms_p += t_p
             # o, d, tmin, tmax in; t, tri, inst out
-            work.add_counted(lambda: plain(scene, *args),
-                             scene.iclusters.nbytes, N_RAYS, 44)
+            tests = work.add_counted(lambda: plain(scene, *args),
+                                     scene.iclusters.nbytes, N_RAYS, 44)
             if not any_hit:
                 near = hp.t
             hits = int((hp.tri >= 0).sum())
             hitmiss = int((hk.valid != hp.valid).sum())
-            dt = (hk.t - hp.t).abs()
-            t_ok = bool((dt <= 1e-5 * hp.t.abs()).all())
-            differ = (hk.tri != hp.tri) | (hk.inst != hp.inst)
-            bad = int((differ & (dt > 0)).sum())
-            err = float(dt.max())
+            differ = int(((hk.tri != hp.tri) | (hk.inst != hp.inst)).sum())
+            err = float((hk.t - hp.t).abs().max())
             max_err = max(max_err, err)
             phase('instanced_kernel_vs_plain', rays=kind,
                   mode='any' if any_hit else 'nearest', n=N_RAYS, hits=hits,
-                  hit_miss_mismatch=hitmiss, tri_inst_mismatch_not_tie=bad,
-                  tri_inst_mismatch=int(differ.sum()), max_abs_dt=err,
-                  kernel_ms=t_k, plain_ms=t_p)
+                  hit_miss_mismatch=hitmiss, tri_inst_mismatch=differ,
+                  max_abs_dt=err, kernel_ms=t_k, plain_ms=t_p, **tests)
+            # the same walk and arithmetic: bit for bit
             assert hitmiss == 0, f'{kind} any_hit={any_hit}: hit/miss differ'
-            assert bad == 0, f'{kind} any_hit={any_hit}: {bad} rays disagree'
-            assert t_ok, f'{kind}: t disagrees beyond rtol 1e-5'
+            assert differ == 0, f'{kind} any_hit={any_hit}: ids disagree'
+            assert err == 0.0, f'{kind} any_hit={any_hit}: t disagrees'
             assert hits > N_RAYS // 20, 'too few hits to compare'
     return max_err, ms_k, ms_p, work.bound()
 
@@ -441,8 +435,8 @@ def compare_modes(tag, trace_k, trace_p, rays, table_bytes, mb=False):
             ms_k += t_k
             ms_p += t_p
             # o, d, time, tmin, tmax in; t, tri, inst, a, b out
-            work.add_counted(lambda: trace_p(*args), table_bytes, N_RAYS,
-                             56, mb)
+            tests = work.add_counted(lambda: trace_p(*args), table_bytes,
+                                     N_RAYS, 56, mb)
             hits = int((hp.tri >= 0).sum())
             hitmiss = int((hk.valid != hp.valid).sum())
             differ = int(((hk.tri != hp.tri) | (hk.inst != hp.inst)).sum())
@@ -453,7 +447,7 @@ def compare_modes(tag, trace_k, trace_p, rays, table_bytes, mb=False):
                   n=N_RAYS, hits=hits, hit_miss_mismatch=hitmiss,
                   tri_inst_mismatch=differ,
                   **{f'max_abs_d{f}': e for f, e in errs.items()},
-                  kernel_ms=t_k, plain_ms=t_p)
+                  kernel_ms=t_k, plain_ms=t_p, **tests)
             assert hitmiss == 0 and differ == 0, f'{tag} {kind}: ids differ'
             assert max(errs.values()) == 0.0, f'{tag} {kind}: t, a, b differ'
             assert hits > N_RAYS // 20, 'too few hits to compare'
@@ -762,6 +756,13 @@ def main(dev=None) -> int:
             ('native_host_s', native.get_lib))}
         built = {name: job.result() for name, job in jobs.items()}
     phase('build', wall_s=time.perf_counter() - t0, **built)
+    # registers, spills and shared memory of every kernel instantiation
+    phase('ptxas', **{name: [line.strip() for line in
+                             ck.build_log(name).splitlines()
+                             if 'entry' in line or 'spill' in line
+                             or 'Used' in line]
+                      for name in ('cluster_trace', 'iseg_trace',
+                                   'icluster_trace', 'mt_trace')})
 
     # ----------------------------------------------------------- 3. scene
     t0 = time.perf_counter()

@@ -23,55 +23,89 @@
 // carried over: a thread's own walk gives the same t and hit or miss (tri
 // and inst may differ from the TPU kernel only at exactly equal t).
 //
-// What bounds it on the H100: every ray slab-tests every instance box
-// (I = 201 for forest_standin, cheap) and, for each instance it enters,
-// every cluster box of the prototype (96 per tree): deep prototypes make
-// the cluster walk and the triangle slabs, read per thread from the shared
-// pool in the 50 MB L2 cache, the cost. Threads of a warp in different
-// clusters read uncoalesced. A later version would group instances as the
-// segment kernel groups segments, for scenes with many deep instances.
+// Both walks skip groups. The wrapper passes union boxes over table order
+// (ops/bundle.group_levels), each of kFan = 8 consecutive members: three
+// levels over the instance boxes (8, 64 and 512 instances), and two over
+// each prototype's cluster boxes (8 and 64 clusters, in object space, keyed
+// with the object-space reciprocals). The top level of each is scanned
+// linearly. A union box's key is never larger than a member's (float
+// rounding is monotone), so a group whose key does not beat the best t
+// holds no member the flat scan would visit, and the visiting order is
+// unchanged. Instances stay in table order: the final forest's 1,600 grass
+// clumps are already laid out in grid order, and a Morton order would save
+// few box tests (191-274 per camera ray in table order, 190-245 in Morton
+// order, against 1,905 flat).
+//
+// What bounds it on the H100: with the box tests cut, the Moller-Trumbore
+// tests of the clusters a ray enters, and their slabs, read per thread from
+// the shared pool in the 50 MB L2 cache. Rays of one warp sit in different
+// instances, so the reads are uncoalesced, and a shared slab, as the
+// cluster kernel stages it, would serve few lanes; it is not staged here.
 #include <cuda_runtime.h>
-#include <math_constants.h>
+
+#include "trace_common.cuh"
 
 namespace {
 
+using rt::kTmax;
+
 constexpr int kThreads = 128;
-constexpr float kTmax = 1e12f;    // MIRO_TMAX
-constexpr float kTiny = 1e-20f;   // the Pallas kernel's reciprocal clamp
+// at least 4 blocks an SM: up to 128 registers a thread (the walk's state
+// spilled at the 64 that ptxas picked unbounded)
+constexpr int kMinBlocks = 4;
+constexpr int kFan = 8;   // members per group box, every level
 
-__device__ __forceinline__ float rcp_clamped(float v) {
-  const float x = fabsf(v) < kTiny ? (v < 0.f ? -kTiny : kTiny) : v;
-  return 1.0f / x;
+// A box table and its group levels: level 0 holds the members, level l > 0
+// the unions of kFan consecutive boxes of level l - 1. Level l is a (6,
+// stride[l]) column table, of which the first count[l] columns are walked.
+template <int D>
+struct Levels {
+  const float* bb[D + 1];
+  int stride[D + 1];
+  int count[D + 1];
+};
+
+// A ray (in world or object space) for the slab tests.
+struct SlabRay {
+  float ox, oy, oz, ix, iy, iz, tmin, tmax;
+};
+
+// A thread's walk over columns [begin, end) of level L, in table order:
+// visit(m) for each member whose key beats best_t at its turn; a group
+// whose key does not is skipped whole, and a level of a single group is
+// entered untested (its box adds nothing to the one above). Stops once
+// `done`.
+template <int L, int D, typename Visit>
+__device__ __forceinline__ void walk(const Levels<D>& T, int begin, int end,
+                                     const SlabRay& r, const float& best_t,
+                                     const bool& done, Visit& visit) {
+  for (int g = begin; g < end && !done; ++g) {
+    if ((L == 0 || T.count[L] > 1) &&
+        !(rt::slab_key(T.bb[L], T.stride[L], g, r.ox, r.oy, r.oz, r.ix, r.iy,
+                       r.iz, r.tmin, r.tmax) < best_t))
+      continue;
+    if constexpr (L == 0) {
+      visit(g);
+    } else {
+      walk<L - 1>(T, g * kFan, min(T.count[L - 1], (g + 1) * kFan), r,
+                  best_t, done, visit);
+    }
+  }
 }
 
-// Entry key of a ray against the box in column `j` of six rows of stride
-// `n` (lo x, y, z, hi x, y, z), or +inf when the slab test fails.
-__device__ __forceinline__ float slab_key(const float* __restrict__ bb,
-                                          int n, int j, float ox, float oy,
-                                          float oz, float ix, float iy,
-                                          float iz, float tmin, float tmax) {
-  const float tx0 = (bb[j] - ox) * ix, tx1 = (bb[3 * n + j] - ox) * ix;
-  const float ty0 = (bb[n + j] - oy) * iy, ty1 = (bb[4 * n + j] - oy) * iy;
-  const float tz0 = (bb[2 * n + j] - oz) * iz, tz1 = (bb[5 * n + j] - oz) * iz;
-  const float tnear = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)),
-                            fminf(tz0, tz1));
-  const float tfar = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)),
-                           fmaxf(tz0, tz1));
-  if (!(tnear <= tfar && tfar >= tmin && tnear <= tmax)) return CUDART_INF_F;
-  return fmaxf(tnear, 0.f);
-}
-
-__global__ void __launch_bounds__(kThreads)
-icluster_trace_kernel(const float* __restrict__ ibb,    // (6, I)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+icluster_trace_kernel(const Levels<3> inst,           // instance boxes
                       const float* __restrict__ iminv,  // (I, 12)
                       const int* __restrict__ imeta,    // (I, 2)
                       const float* __restrict__ pbb,    // (P * 6, MP)
+                      const float* __restrict__ pbb1,   // (P * 6, W1)
+                      const float* __restrict__ pbb2,   // (P * 6, W2)
                       const int* __restrict__ pmeta,    // (P, 2)
                       const float* __restrict__ p0,     // (Mtot * 3, C)
                       const float* __restrict__ e1,     // (Mtot * 3, C)
                       const float* __restrict__ e2,     // (Mtot * 3, C)
                       const int* __restrict__ tri,      // (Mtot, C)
-                      int I, int n_inst, int MP, int C,
+                      int MP, int W1, int W2, int C,
                       const float* __restrict__ orig,   // (R, 3)
                       const float* __restrict__ dir,    // (R, 3)
                       const float* __restrict__ tmin_in,
@@ -98,16 +132,14 @@ icluster_trace_kernel(const float* __restrict__ ibb,    // (6, I)
     }
     return;
   }
-  const float ix = rcp_clamped(dx), iy = rcp_clamped(dy),
-              iz = rcp_clamped(dz);
+  const SlabRay world{ox, oy, oz, rt::rcp_clamped(dx), rt::rcp_clamped(dy),
+                      rt::rcp_clamped(dz), tmin, tmax};
   const float best_t0 = tmax < kTmax ? tmax : kTmax;
   float best_t = best_t0, best_a = 0.f, best_b = 0.f;
   int best_tri = -1, best_inst = 0;
   bool done = !(tmax > 0.f);
 
-  for (int i = 0; i < n_inst && !done; ++i) {
-    if (!(slab_key(ibb, I, i, ox, oy, oz, ix, iy, iz, tmin, tmax) < best_t))
-      continue;
+  auto visit_instance = [&](int i) {
     const int proto = imeta[2 * i];
     const int off = pmeta[2 * proto], mlen = pmeta[2 * proto + 1];
     const float* m = iminv + 12 * (size_t)i;
@@ -117,12 +149,15 @@ icluster_trace_kernel(const float* __restrict__ ibb,    // (6, I)
     const float ux = m[0] * dx + m[1] * dy + m[2] * dz;
     const float uy = m[4] * dx + m[5] * dy + m[6] * dz;
     const float uz = m[8] * dx + m[9] * dy + m[10] * dz;
-    const float jx = rcp_clamped(ux), jy = rcp_clamped(uy),
-                jz = rcp_clamped(uz);
-    const float* cbb = pbb + (size_t)6 * proto * MP;
-    for (int c = 0; c < mlen && !done; ++c) {
-      if (!(slab_key(cbb, MP, c, lx, ly, lz, jx, jy, jz, tmin, tmax) <
-            best_t)) continue;
+    const SlabRay local{lx, ly, lz, rt::rcp_clamped(ux), rt::rcp_clamped(uy),
+                        rt::rcp_clamped(uz), tmin, tmax};
+    const size_t rows = (size_t)6 * proto;
+    const Levels<2> clusters{
+        {pbb + rows * MP, pbb1 + rows * W1, pbb2 + rows * W2},
+        {MP, W1, W2},
+        {mlen, (mlen + kFan - 1) / kFan,
+         (mlen + kFan * kFan - 1) / (kFan * kFan)}};
+    auto visit_cluster = [&](int c) {
       const size_t row = (size_t)(off + c);
       const float* P = p0 + row * 3 * C;
       const float* E1 = e1 + row * 3 * C;
@@ -131,23 +166,10 @@ icluster_trace_kernel(const float* __restrict__ ibb,    // (6, I)
       for (int l = 0; l < C; ++l) {
         const int tid = T[l];
         if (tid < 0) break;   // padding lanes trail the real ones
-        const float e1x = E1[l], e1y = E1[C + l], e1z = E1[2 * C + l];
-        const float e2x = E2[l], e2y = E2[C + l], e2z = E2[2 * C + l];
-        const float pvx = uy * e2z - uz * e2y;
-        const float pvy = uz * e2x - ux * e2z;
-        const float pvz = ux * e2y - uy * e2x;
-        const float det = e1x * pvx + e1y * pvy + e1z * pvz;
-        const float inv_det = 1.0f / det;
-        const float tvx = lx - P[l], tvy = ly - P[C + l],
-                    tvz = lz - P[2 * C + l];
-        const float a = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
-        const float qvx = tvy * e1z - tvz * e1y;
-        const float qvy = tvz * e1x - tvx * e1z;
-        const float qvz = tvx * e1y - tvy * e1x;
-        const float b = (ux * qvx + uy * qvy + uz * qvz) * inv_det;
-        const float t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
-        if (a >= 0.f && a <= 1.f && b >= 0.f && a + b <= 1.f &&
-            det != 0.f && t >= tmin && t < best_t) {
+        float t, a, b;
+        if (rt::mt_hit(lx, ly, lz, ux, uy, uz, P[l], P[C + l], P[2 * C + l],
+                       E1[l], E1[C + l], E1[2 * C + l], E2[l], E2[C + l],
+                       E2[2 * C + l], tmin, best_t, t, a, b)) {
           best_tri = tid;
           if (any_hit) { done = true; break; }
           best_t = t;
@@ -156,8 +178,12 @@ icluster_trace_kernel(const float* __restrict__ ibb,    // (6, I)
           best_inst = imeta[2 * i + 1];
         }
       }
-    }
-  }
+    };
+    walk<2>(clusters, 0, clusters.count[2], local, best_t, done,
+            visit_cluster);
+  };
+  walk<3>(inst, 0, inst.count[3], world, best_t, done, visit_instance);
+
   if (r < R) {
     const bool got = best_tri >= 0;
     if (any_hit) {
@@ -175,24 +201,33 @@ icluster_trace_kernel(const float* __restrict__ ibb,    // (6, I)
 
 }  // namespace
 
-// Launches on `stream`; returns cudaGetLastError() after the launch. a_out
+// Launches on `stream`; returns cudaGetLastError() after the launch. ibb0
+// is the (6, I) instance boxes and ibb1-3 their (6, n1-3) group levels, of
+// which the first n_inst, n1, n2, n3 columns are walked; pbb1 and pbb2 are
+// the prototypes' (P * 6, W1) and (P * 6, W2) cluster group levels. a_out
 // and b_out are written when not null (need_ab).
-extern "C" int rt_icluster_trace(const float* ibb, const float* iminv,
-                                 const int* imeta, const float* pbb,
-                                 const int* pmeta, const float* p0,
-                                 const float* e1, const float* e2,
-                                 const int* tri, int I, int n_inst, int MP,
-                                 int C, const float* orig, const float* dir,
-                                 const float* tmin, const float* tmax, int R,
-                                 int any_hit, float* t_out, int* tri_out,
-                                 int* inst_out, float* a_out, float* b_out,
-                                 void* stream) {
+extern "C" int rt_icluster_trace(const float* ibb0, const float* ibb1,
+                                 const float* ibb2, const float* ibb3, int I,
+                                 int n_inst, int n1, int n2, int n3,
+                                 const float* iminv, const int* imeta,
+                                 const float* pbb, const float* pbb1,
+                                 const float* pbb2, const int* pmeta,
+                                 const float* p0, const float* e1,
+                                 const float* e2, const int* tri, int MP,
+                                 int W1, int W2, int C, const float* orig,
+                                 const float* dir, const float* tmin,
+                                 const float* tmax, int R, int any_hit,
+                                 float* t_out, int* tri_out, int* inst_out,
+                                 float* a_out, float* b_out, void* stream) {
   if (R > 0) {
+    const Levels<3> inst{{ibb0, ibb1, ibb2, ibb3},
+                         {I, n1, n2, n3},
+                         {n_inst, n1, n2, n3}};
     const int blocks = (R + kThreads - 1) / kThreads;
     icluster_trace_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        ibb, iminv, imeta, pbb, pmeta, p0, e1, e2, tri, I, n_inst, MP, C,
-        orig, dir, tmin, tmax, R, any_hit, t_out, tri_out, inst_out, a_out,
-        b_out);
+        inst, iminv, imeta, pbb, pbb1, pbb2, pmeta, p0, e1, e2, tri, MP, W1,
+        W2, C, orig, dir, tmin, tmax, R, any_hit, t_out, tri_out, inst_out,
+        a_out, b_out);
   }
   return (int)cudaGetLastError();
 }

@@ -26,45 +26,29 @@
 // 200,000 segments, and a flat scan would slab-test all of them for every
 // ray. The wrapper therefore passes two levels of group boxes, unions of 32
 // consecutive segments (L1) and of 32 consecutive L1 groups (L2); a ray
-// skips a group whose box key does not beat its best t. A union box's key is
+// skips a group whose box key does not beat its best t (a level of a
+// single group is entered untested). The plain version walks the same
+// groups, so its test counts are the kernel's work. A union box's key is
 // never larger than a member's (float rounding is monotone), so the skip
 // drops only segments the flat scan would drop too, and the visiting order
 // is unchanged. Segments are laid out in instance order, which for a grid of
 // instances keeps a group's members close together. The triangle slabs are
 // read per thread from the shared prototype pool, which stays in the 50 MB
 // L2 cache; threads of a warp in different segments read uncoalesced.
+// Staging them in shared memory, as the cluster kernel does, is still to
+// do.
 #include <cuda_runtime.h>
-#include <math_constants.h>
+
+#include "trace_common.cuh"
 
 namespace {
+
+using rt::kTmax;
+using rt::slab_key;
 
 constexpr int kThreads = 128;
 constexpr int kGroup = 32;        // segments per L1 group, L1 groups per L2
 constexpr int kKin = 4;           // prototype clusters per segment
-constexpr float kTmax = 1e12f;    // MIRO_TMAX
-constexpr float kTiny = 1e-20f;   // the Pallas kernel's reciprocal clamp
-
-__device__ __forceinline__ float rcp_clamped(float v) {
-  const float x = fabsf(v) < kTiny ? (v < 0.f ? -kTiny : kTiny) : v;
-  return 1.0f / x;
-}
-
-// Entry key of a ray against the box in column `j` of a (6, n) table, or
-// +inf when the slab test fails.
-__device__ __forceinline__ float slab_key(const float* __restrict__ bb,
-                                          int n, int j, float ox, float oy,
-                                          float oz, float ix, float iy,
-                                          float iz, float tmin, float tmax) {
-  const float tx0 = (bb[j] - ox) * ix, tx1 = (bb[3 * n + j] - ox) * ix;
-  const float ty0 = (bb[n + j] - oy) * iy, ty1 = (bb[4 * n + j] - oy) * iy;
-  const float tz0 = (bb[2 * n + j] - oz) * iz, tz1 = (bb[5 * n + j] - oz) * iz;
-  const float tnear = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)),
-                            fminf(tz0, tz1));
-  const float tfar = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)),
-                           fmaxf(tz0, tz1));
-  if (!(tnear <= tfar && tfar >= tmin && tnear <= tmax)) return CUDART_INF_F;
-  return fmaxf(tnear, 0.f);
-}
 
 __global__ void __launch_bounds__(kThreads)
 iseg_trace_kernel(const float* __restrict__ sbb,    // (6, E) segment boxes
@@ -103,20 +87,20 @@ iseg_trace_kernel(const float* __restrict__ sbb,    // (6, E) segment boxes
     }
     return;
   }
-  const float ix = rcp_clamped(dx), iy = rcp_clamped(dy),
-              iz = rcp_clamped(dz);
+  const float ix = rt::rcp_clamped(dx), iy = rt::rcp_clamped(dy),
+              iz = rt::rcp_clamped(dz);
   const float best_t0 = tmax < kTmax ? tmax : kTmax;
   float best_t = best_t0, best_a = 0.f, best_b = 0.f;
   int best_tri = -1, best_inst = 0;
   bool done = !(tmax > 0.f);
 
   for (int g2 = 0; g2 < G2 && !done; ++g2) {
-    if (!(slab_key(g2bb, G2, g2, ox, oy, oz, ix, iy, iz, tmin, tmax) <
-          best_t)) continue;
+    if (G2 > 1 && !(slab_key(g2bb, G2, g2, ox, oy, oz, ix, iy, iz, tmin,
+                             tmax) < best_t)) continue;
     const int g1_end = min(G1, (g2 + 1) * kGroup);
     for (int g1 = g2 * kGroup; g1 < g1_end && !done; ++g1) {
-      if (!(slab_key(g1bb, G1, g1, ox, oy, oz, ix, iy, iz, tmin, tmax) <
-            best_t)) continue;
+      if (G1 > 1 && !(slab_key(g1bb, G1, g1, ox, oy, oz, ix, iy, iz, tmin,
+                               tmax) < best_t)) continue;
       const int e_end = min(n_seg, (g1 + 1) * kGroup);
       for (int e = g1 * kGroup; e < e_end && !done; ++e) {
         if (!(slab_key(sbb, E, e, ox, oy, oz, ix, iy, iz, tmin, tmax) <
@@ -138,23 +122,11 @@ iseg_trace_kernel(const float* __restrict__ sbb,    // (6, E) segment boxes
           for (int l = 0; l < C; ++l) {
             const int tid = T[l];
             if (tid < 0) break;   // padding lanes trail the real ones
-            const float e1x = E1[l], e1y = E1[C + l], e1z = E1[2 * C + l];
-            const float e2x = E2[l], e2y = E2[C + l], e2z = E2[2 * C + l];
-            const float pvx = uy * e2z - uz * e2y;
-            const float pvy = uz * e2x - ux * e2z;
-            const float pvz = ux * e2y - uy * e2x;
-            const float det = e1x * pvx + e1y * pvy + e1z * pvz;
-            const float inv_det = 1.0f / det;
-            const float tvx = lx - P[l], tvy = ly - P[C + l],
-                        tvz = lz - P[2 * C + l];
-            const float a = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
-            const float qvx = tvy * e1z - tvz * e1y;
-            const float qvy = tvz * e1x - tvx * e1z;
-            const float qvz = tvx * e1y - tvy * e1x;
-            const float b = (ux * qvx + uy * qvy + uz * qvz) * inv_det;
-            const float t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
-            if (a >= 0.f && a <= 1.f && b >= 0.f && a + b <= 1.f &&
-                det != 0.f && t >= tmin && t < best_t) {
+            float t, a, b;
+            if (rt::mt_hit(lx, ly, lz, ux, uy, uz, P[l], P[C + l],
+                           P[2 * C + l], E1[l], E1[C + l], E1[2 * C + l],
+                           E2[l], E2[C + l], E2[2 * C + l], tmin, best_t, t,
+                           a, b)) {
               best_tri = tid;
               if (any_hit) { done = true; break; }
               best_t = t;

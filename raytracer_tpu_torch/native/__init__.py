@@ -25,16 +25,28 @@ _lock = threading.Lock()
 _lib = None
 
 
-def build_shared(cmd_prefix: list[str], src: str, flags: list[str],
-                 name: str) -> str:
-    """Compile `src` into BUILD_DIR/<name>-<hash>.so unless that file exists.
+def library_path(src: str, flags: list[str], name: str,
+                 deps: tuple[str, ...] = ()) -> str:
+    """BUILD_DIR/<name>-<hash>.so: the hash covers the source, the files
+    it includes (`deps`) and the flags, so an edit to any of them
+    rebuilds."""
+    digest = hashlib.sha1()
+    for path in (src, *deps):
+        with open(path, 'rb') as f:
+            digest.update(f.read())
+    digest.update(' '.join(flags).encode())
+    return os.path.join(BUILD_DIR, f'{name}-{digest.hexdigest()[:12]}.so')
 
-    The hash covers the source and the flags, so an edit rebuilds. The
-    output is written under a temporary name and renamed into place, so
-    processes that build at once never load a half-written library."""
-    with open(src, 'rb') as f:
-        digest = hashlib.sha1(f.read() + ' '.join(flags).encode())
-    out = os.path.join(BUILD_DIR, f'{name}-{digest.hexdigest()[:12]}.so')
+
+def build_shared(cmd_prefix: list[str], src: str, flags: list[str],
+                 name: str, deps: tuple[str, ...] = ()) -> str:
+    """Compile `src` into library_path(...) unless that file exists.
+
+    The output is written under a temporary name and renamed into place, so
+    processes that build at once never load a half-written library. What
+    the compiler prints on success (nvcc -Xptxas -v: registers, spills and
+    shared memory per kernel) is kept beside it as <name>-<hash>.log."""
+    out = library_path(src, flags, name, deps)
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -45,6 +57,8 @@ def build_shared(cmd_prefix: list[str], src: str, flags: list[str],
                              capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f'building {src} failed:\n{res.stderr}')
+        with open(out[:-3] + '.log', 'w') as f:
+            f.write(res.stdout + res.stderr)
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):

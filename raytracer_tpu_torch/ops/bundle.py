@@ -8,10 +8,15 @@ inverse-direction interval) and tests one AABB against every hull;
 every tracer then skips. The test is conservative: interval arithmetic
 over-approximates the bundle, and rounding is monotone, so a block is never
 culled from a box that one of its rays passes the slab test of.
+
+`group_levels` builds the union boxes that the trace kernels and their
+plain versions walk in place of a flat scan of a box table.
 """
 from __future__ import annotations
 
 import torch
+
+from ..geometry.clusters import NEVER
 
 BIG = 3e38
 
@@ -40,6 +45,33 @@ def box_union(bb6, real=None):
     lo = torch.where(real, bb6[0:3], BIG).amin(dim=1)
     hi = torch.where(real, bb6[3:6], -BIG).amax(dim=1)
     return lo, hi
+
+
+def group_boxes(bb6, g: int):
+    """(..., 6, L) boxes -> (..., 6, ceil(L / g)) unions of g consecutive
+    real boxes (table order); a group of padding lanes only is a never-hit
+    point box."""
+    bb = torch.nn.functional.pad(bb6, (0, (-bb6.shape[-1]) % g), value=NEVER)
+    real = (bb[..., 0, :] < 1e37)[..., None, :]
+    lo = torch.where(real, bb[..., :3, :], torch.inf).unflatten(-1, (-1, g))
+    hi = torch.where(real, bb[..., 3:, :], -torch.inf).unflatten(-1, (-1, g))
+    some = real.unflatten(-1, (-1, g)).any(-1)
+    return torch.where(some, torch.cat([lo.amin(-1), hi.amax(-1)], -2),
+                       NEVER).contiguous()
+
+
+def group_levels(bb6, g: int, depth: int) -> list:
+    """The `depth` group levels of the trace kernels' walks over a (..., 6,
+    L) box table: level 1 unions g consecutive boxes, level k + 1 g
+    consecutive groups of level k. A union box's entry key is never larger
+    than a member's (float rounding is monotone), so a walk that skips a
+    group whose key does not beat the ray's best t drops only members the
+    flat scan would drop too."""
+    levels = []
+    for _ in range(depth):
+        bb6 = group_boxes(bb6, g)
+        levels.append(bb6)
+    return levels
 
 
 def make_block_culler(rays):

@@ -30,10 +30,16 @@ visits in near-t order and can break ties differently.
 `alpha_aware_trace` is the JAX package's alpha march
 (raytracer_tpu/ops/cluster_trace.py:158-257) around any of the tracers.
 
-Vectorised over rays; the clusters are swept in chunks, and each chunk's
-(ray, cluster) pairs whose box passes are Moller-Trumbore-tested together.
-Testing a whole chunk against the best t of its start tests a superset of
-the sequential visit, which only adds hits that lose to the best.
+Vectorised over rays, with the CUDA kernel's cull: the cluster kernel's
+group walk (`walk`) over three levels of fan-out-8 union boxes in table
+order (bundle.group_levels), the top level scanned linearly. The clusters
+are swept in chunks of one 64-cluster group; a cluster's key is computed
+only where its groups' keys beat the best t at the chunk's start, and each
+chunk's (ray, cluster) pairs whose box passes are Moller-Trumbore-tested
+together. Testing a whole chunk against the best t of its start tests a
+superset of the sequential visit, which only adds hits that lose to the
+best; a union box's key never exceeds a member's, so the cull drops no
+pair that the flat scan keeps.
 """
 from __future__ import annotations
 
@@ -41,22 +47,27 @@ import torch
 
 from ..core.types import Scene
 from ..core.vecmath import MIRO_TMAX
+from . import bundle
 from . import intersect as isect
 from .intersect import Hit
 
 TINY = 1e-20
-CLUSTER_CHUNK = 64
 PAIR_CHUNK = 1 << 14
+# the group walk of the cluster kernel and the hierarchical one: fan-out 8
+# over table order, three levels (8, 64 and 512 clusters or instances)
+GROUP = 8
+DEPTH = 3
 
 # number of calls of the plain version, so a run can show which path it took
 CALLS = 0
 # alpha-march passes traced (each one tracer call) and host syncs taken
 MARCH_PASSES = 0
 MARCH_SYNCS = 0
-# with COUNT_TESTS set, the (ray, box) slab tests and (ray, triangle-lane)
-# Moller-Trumbore tests that the plain tracers (this one, the segment and
-# the hierarchical one) perform, summed into TESTS['box'] and
-# TESTS['tri']: the work counts of a trace's least time on the card
+# with COUNT_TESTS set, the (ray, box) slab tests (group boxes included)
+# and (ray, triangle-lane) Moller-Trumbore tests that the plain tracers
+# (this one, the segment and the hierarchical one) perform in their group
+# walks, summed into TESTS['box'] and TESTS['tri']: the work counts of a
+# trace's least time on the card
 COUNT_TESTS = False
 TESTS = {'box': 0, 'tri': 0}
 
@@ -99,19 +110,90 @@ def _mt(o, d, p0, e1, e2):
     return t, a, b, det
 
 
-def slab_keys(lo, hi, o, inv, tmin, tmax):
+def slab_keys(lo, hi, o, inv, tmin, tmax, valid=None):
     """Entry keys of (R,) rays against boxes lo, hi of shape (1 or R, n, 3)
     -> (R, n); +inf where the slab test fails (the Pallas kernels'
-    slab6)."""
+    slab6), and where `valid` (R, n), if given, is False (no test)."""
     if COUNT_TESTS:
-        TESTS['box'] += o.shape[0] * lo.shape[1]
+        TESTS['box'] += o.shape[0] * lo.shape[1] if valid is None \
+            else int(valid.sum())
     t0 = (lo - o[:, None]) * inv[:, None]
     t1 = (hi - o[:, None]) * inv[:, None]
     n, f = torch.minimum(t0, t1), torch.maximum(t0, t1)
     near = torch.maximum(torch.maximum(n[..., 0], n[..., 1]), n[..., 2])
     far = torch.minimum(torch.minimum(f[..., 0], f[..., 1]), f[..., 2])
     ok = (near <= far) & (far >= tmin[:, None]) & (near <= tmax[:, None])
+    if valid is not None:
+        ok &= valid
     return torch.where(ok, torch.clamp(near, min=0.0), torch.inf)
+
+
+def descend(bb, ctx, g, n, o, inv, tmin, tmax, best_t, fan: int = GROUP,
+            tab=None, group: bool = False):
+    """One level down a group walk. Contexts ctx (P,) (rows of the
+    per-context o, inv (.., 3), tmin, tmax, best_t, n and tab) stand at
+    groups g (P,) of the level above the (6 K, L) box table bb; each is
+    keyed against the `fan` members of its group below n (an int, or a
+    tensor per context) in table 0, or table tab (per context) -> (ctx,
+    member) of the members whose key beats best_t, context-major and in
+    table order. Where bb is a group level (`group`) of a single group
+    (n == 1), that group is entered untested, as the kernels do."""
+    m = g[:, None] * fan + torch.arange(fan, device=g.device)
+    nc = n if isinstance(n, int) else n[ctx, None]
+    valid = m < nc
+    test = valid & (nc > 1) if group else valid
+    m = torch.where(valid, m, 0)
+    rows = torch.arange(6, device=g.device)
+    if tab is not None:
+        rows = 6 * tab[ctx, None] + rows                      # (P, 6)
+    box = bb[rows[..., None], m[:, None, :]].transpose(1, 2)  # (P, fan, 6)
+    key = slab_keys(box[..., :3], box[..., 3:], o[ctx], inv[ctx], tmin[ctx],
+                    tmax[ctx], test)
+    p, j = torch.where(test, key < best_t[ctx, None], valid).nonzero(
+        as_tuple=True)
+    return ctx[p], m[p, j]
+
+
+def walk(bb, levels, o, inv, tmin, tmax, best, fan: int = GROUP,
+         chunk_level: int | None = None):
+    """The kernels' group walk over one (6, L) box table with its group
+    levels [1 .. D] (bundle.group_levels), vectorised over rays: the top
+    level is scanned linearly; per chunk (one group of `chunk_level`, D or
+    D - 1) yields the (ray, member) pairs, ray-major and in table order,
+    of the members whose key beats the best t at the chunk's start,
+    keying a member only where its groups' keys beat it too; a level of a
+    single group is entered untested. `best()` -> the (R,) best t, -inf
+    for a ray that walks no more. The pairs are those of the flat scan, as
+    no group key exceeds a member's."""
+    L = [bb] + list(levels)
+    D = len(levels)
+    cl = D if chunk_level is None else chunk_level
+    R = o.shape[0]
+
+    def keys(lv, j, r):
+        if L[lv].shape[1] == 1:        # a single group: entered untested
+            return torch.zeros(r.shape, device=o.device)
+        box = L[lv][:, j]
+        return slab_keys(box[None, None, :3], box[None, None, 3:], o[r],
+                         inv[r], tmin[r], tmax[r])[:, 0]
+
+    for top in range(L[D].shape[1]):
+        bt = best()
+        r = (bt > 0).nonzero()[:, 0]
+        k_top = torch.full((R,), torch.inf, device=o.device)
+        k_top[r] = keys(D, top, r)
+        chunks = [top] if cl == D else \
+            range(top * fan, min(L[D - 1].shape[1], (top + 1) * fan))
+        for j in chunks:
+            bt = best()
+            r = (k_top < bt).nonzero()[:, 0]
+            if cl < D:
+                r = r[keys(cl, j, r) < bt[r]]
+            g = torch.full_like(r, j)
+            for lv in range(cl - 1, -1, -1):
+                r, g = descend(L[lv], r, g, L[lv].shape[1], o, inv, tmin,
+                               tmax, bt, fan, group=lv > 0)
+            yield r, g
 
 
 def reduce_best(r, t, ok, order, best_t, best_key, R, ab=None):
@@ -147,6 +229,13 @@ def lerp_basis(cl, c, w):
     return out
 
 
+def box_levels(cl, fan: int) -> list:
+    """[the (6, M) cluster boxes, then their DEPTH group levels of `fan`
+    members each]."""
+    bb = torch.cat([cl.bb_min.T, cl.bb_max.T]).contiguous()
+    return [bb] + bundle.group_levels(bb, fan, DEPTH)
+
+
 def trace_ids(cl, o, d, tmin, tmax, any_hit: bool, time=None,
               need_ab: bool = False):
     """(t, tri, a, b) of the visiting rule above, for (R,) float32 tmin
@@ -162,17 +251,16 @@ def trace_ids(cl, o, d, tmin, tmax, any_hit: bool, time=None,
     best_a = torch.zeros(R, device=dev) if need_ab else None
     best_b = torch.zeros(R, device=dev) if need_ab else None
     tri_flat = cl.tri.reshape(-1)
-    for c0 in range(0, M, CLUSTER_CHUNK):
-        c1 = min(c0 + CLUSTER_CHUNK, M)
-        key = slab_keys(cl.bb_min[None, c0:c1], cl.bb_max[None, c0:c1], o,
-                        inv, tmin, tmax)
-        viable = key < best_t[:, None]
-        if any_hit:
-            viable &= (best_idx < 0)[:, None]
-        ri, ci = viable.nonzero(as_tuple=True)     # ray-major, table order
+    bb, *levels = box_levels(cl, GROUP)
+
+    def best():
+        return torch.where(best_idx >= 0, -torch.inf, best_t) if any_hit \
+            else best_t
+    for ri, ci in walk(bb, levels, o, inv, tmin, tmax, best, GROUP,
+                       DEPTH - 1):
         for s in range(0, ri.shape[0], PAIR_CHUNK):
             r = ri[s:s + PAIR_CHUNK]
-            c = ci[s:s + PAIR_CHUNK] + c0
+            c = ci[s:s + PAIR_CHUNK]
             p0, e1, e2 = lerp_basis(cl, c, None if time is None else time[r])
             t, a, b, det = _mt(o[r, :, None], d[r, :, None], p0, e1, e2)
             ok = (a >= 0.0) & (a <= 1.0) & (b >= 0.0) & (a + b <= 1.0) \

@@ -3,9 +3,12 @@
 Replaces raytracer_tpu/ops/pallas/cluster_kernel.py:pallas_cluster_trace
 in all its modes: nearest, `cheap_any`, `need_ab` (alpha scenes, whose
 any-hit rays are traced as nearest ones) and `mb` (a motion-blurred
-table). The CUDA source is compiled with nvcc into a shared library with a
-plain C entry point on first use (into the package's git-ignored build
-directory) and called through ctypes on PyTorch's current stream.
+table). The CUDA source (with the shared header csrc/trace_common.cuh) is
+compiled with nvcc into a shared library with a plain C entry point on
+first use (into the package's git-ignored build directory) and called
+through ctypes on PyTorch's current stream. The wrapper builds the walk's
+group levels (ops/bundle.group_levels) from the table's boxes, and keeps
+them while the box tensors stay the same (`cached_levels`).
 
 For CUDA tensors `cluster_trace` launches the kernel or raises; for CPU
 tensors it runs the plain PyTorch version (ops/cluster_trace.py), which is
@@ -16,8 +19,10 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import glob
 import os
 import shutil
+import weakref
 
 import torch
 
@@ -30,13 +35,19 @@ from ..intersect import Hit
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), 'csrc')
 # -fmad=false: no multiply-add contraction, so the kernel rounds exactly as
-# the plain version does and the two agree bit for bit
+# the plain version does and the two agree bit for bit; -I csrc for the
+# shared header (trace_common.cuh); -Xptxas -v prints each kernel's
+# registers, spills and shared memory into the build's log
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-fmad=false', '-shared', '-Xcompiler', '-fPIC']
+              '-O3', '-fmad=false', '-shared', '-Xcompiler', '-fPIC',
+              '-I', CSRC, '-Xptxas', '-v']
 
 LAUNCHES = 0
 MODES: collections.Counter = collections.Counter()
-_lib = None
+_libs: dict = {}      # (fan-out, cooperative limit) -> the kernel library
+# per kind of table: (the box tensors' ids and versions, weak references to
+# them, their group levels)
+_levels: dict = {}
 
 
 def mode_name(any_hit: bool, cheap: bool, need_ab: bool,
@@ -54,26 +65,63 @@ def nvcc() -> str:
     return path
 
 
-def load(name: str, argtypes: list) -> ctypes.CDLL:
-    """Compile csrc/<name>.cu (once per source hash) into a shared library,
-    load it and declare its C entry point rt_<name>, which returns the
-    launch's CUDA error code."""
+def headers() -> tuple[str, ...]:
+    """Every header a kernel may include (csrc/*.cuh), for the build hash."""
+    return tuple(sorted(glob.glob(os.path.join(CSRC, '*.cuh'))))
+
+
+def load(name: str, argtypes: list, defines: tuple = ()) -> ctypes.CDLL:
+    """Compile csrc/<name>.cu (once per hash of the source, the headers
+    and the flags, with -D `defines`) into a shared library, load it and
+    declare its C entry point rt_<name>, which returns the launch's CUDA
+    error code."""
     lib = ctypes.CDLL(native.build_shared(
-        [nvcc()], os.path.join(CSRC, f'{name}.cu'), NVCC_FLAGS, name))
+        [nvcc()], os.path.join(CSRC, f'{name}.cu'),
+        NVCC_FLAGS + [f'-D{x}' for x in defines], name, headers()))
     fn = getattr(lib, f'rt_{name}')
     fn.restype = ctypes.c_int
     fn.argtypes = argtypes
     return lib
 
 
-def build() -> ctypes.CDLL:
-    """Compile (once per source hash) and load the kernel library."""
-    global _lib
-    if _lib is None:
+def build_log(name: str) -> str:
+    """What nvcc printed building csrc/<name>.cu (-Xptxas -v: registers,
+    spills and shared memory of each kernel); build it first."""
+    lib = native.library_path(os.path.join(CSRC, f'{name}.cu'), NVCC_FLAGS,
+                              name, headers())
+    with open(lib[:-3] + '.log') as f:
+        return f.read()
+
+
+def build(fan: int = plain.GROUP, coop: int | None = None) -> ctypes.CDLL:
+    """Compile (once per source hash) and load the kernel library. A fan
+    other than GROUP builds the walk with that many members per group, a
+    `coop` the cooperative slab test up to that many wanting lanes
+    (variants that scripts/torch_walk_variants.py times)."""
+    if (fan, coop) not in _libs:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        _lib = load('cluster_trace', [vp] * 9 + [ci, ci] + [vp] * 5
-                    + [ci, ci, ci] + [vp] * 5)
-    return _lib
+        defines = (() if fan == plain.GROUP else (f'RT_CLUSTER_FAN={fan}',)) \
+            + (() if coop is None else (f'RT_COOP_MAX={coop}',))
+        _libs[fan, coop] = load(
+            'cluster_trace', [vp] * 4 + [ci] * 3 + [vp] * 7 + [ci, ci]
+            + [vp] * 5 + [ci, ci, ci] + [vp] * 5, defines)
+    return _libs[fan, coop]
+
+
+def cached_levels(kind: str, boxes: tuple, make):
+    """make() -> the group levels of the box tensors `boxes`, built once
+    and kept while each is the same tensor at the same version: a frame's
+    launches share them, and the trainer's table refresh makes new
+    tensors every step. (Built anew on each launch, their thirty-odd small
+    operations cost the host about a millisecond a launch.)"""
+    stamp = tuple((id(x), x._version) for x in boxes)
+    hit = _levels.get(kind)
+    if hit is not None and hit[0] == stamp and all(
+            r() is x for r, x in zip(hit[1], boxes)):
+        return hit[2]
+    levels = make()
+    _levels[kind] = (stamp, tuple(weakref.ref(x) for x in boxes), levels)
+    return levels
 
 
 def check(name, x, dtype, shape, device):
@@ -91,13 +139,14 @@ def ptr(x):
 
 
 def launch(cl, o, d, tmin, tmax, any_hit: bool, time=None, mb: bool = False,
-           need_ab: bool = False, mode: str | None = None):
+           need_ab: bool = False, mode: str | None = None,
+           fan: int = plain.GROUP, coop: int | None = None):
     """Run the kernel on CUDA tensors -> (t, tri, a, b), as
     plain.trace_ids: any_hit is `cheap_any`; mb lerps the table's basis by
     `time`; a, b are None unless need_ab. `mode` names the launch in
-    MODES."""
+    MODES; `fan` and `coop` pick a variant of `build`."""
     global LAUNCHES
-    lib = build()
+    lib = build(fan, coop)
     R = o.shape[0]
     M, _, C = cl.p0.shape
     dev = o.device
@@ -118,14 +167,24 @@ def launch(cl, o, d, tmin, tmax, any_hit: bool, time=None, mb: bool = False,
         check(name, x, dt, shape, dev)
     if R >= 2 ** 31 or M * 3 * C >= 2 ** 31:
         raise ValueError('ray or triangle count exceeds the int32 indexing')
+    q = (cl.p0_t1, cl.e1_t1, cl.e2_t1) if mb else ()
+    slabs = (cl.p0, cl.e1, cl.e2, cl.tri) + q
+    if C % 4 or any(x.data_ptr() % 16 for x in slabs):
+        raise ValueError('the cluster slabs are copied in 16-byte pieces: '
+                         'C must be a multiple of 4 and the tables aligned')
+    # the member boxes and the walk's group levels over them
+    box, *levels = cached_levels(
+        f'cluster{fan}', (cl.bb_min, cl.bb_max), lambda: plain.box_levels(
+            cl, fan))
     t = torch.empty(R, dtype=f32, device=dev)
     tri = torch.empty(R, dtype=torch.int32, device=dev)
     a = torch.empty(R, dtype=f32, device=dev) if need_ab else None
     b = torch.empty(R, dtype=f32, device=dev) if need_ab else None
-    q = (cl.p0_t1, cl.e1_t1, cl.e2_t1, time) if mb else (None,) * 4
+    q = q + (time,) if mb else (None,) * 4
     err = lib.rt_cluster_trace(
-        cl.bb_min.data_ptr(), cl.bb_max.data_ptr(), cl.p0.data_ptr(),
-        cl.e1.data_ptr(), cl.e2.data_ptr(), ptr(q[0]), ptr(q[1]), ptr(q[2]),
+        box.data_ptr(), *(x.data_ptr() for x in levels),
+        *(x.shape[1] for x in levels), cl.p0.data_ptr(), cl.e1.data_ptr(),
+        cl.e2.data_ptr(), ptr(q[0]), ptr(q[1]), ptr(q[2]),
         cl.tri.data_ptr(), M, C, o.data_ptr(), d.data_ptr(), tmin.data_ptr(),
         tmax.data_ptr(), ptr(q[3]), R, int(any_hit), int(mb), t.data_ptr(),
         tri.data_ptr(), ptr(a), ptr(b),

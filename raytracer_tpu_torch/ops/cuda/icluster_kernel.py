@@ -26,7 +26,7 @@ from .. import intersect as isect
 from ..cluster_trace import modes
 from ..intersect import Hit
 from ..iseg_trace import finish
-from .cluster_kernel import check, load, mode_name, ptr
+from .cluster_kernel import cached_levels, check, load, mode_name, ptr
 
 
 LAUNCHES = 0
@@ -40,8 +40,20 @@ def build() -> ctypes.CDLL:
     if _lib is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         _lib = load('icluster_trace',
-                    [vp] * 9 + [ci] * 4 + [vp] * 4 + [ci, ci] + [vp] * 6)
+                    [vp] * 4 + [ci] * 5 + [vp] * 10 + [ci] * 4 + [vp] * 4
+                    + [ci, ci] + [vp] * 6)
     return _lib
+
+
+def walk_levels(icl):
+    """The walk's group levels of the instance boxes and of the
+    prototypes' cluster boxes, kept while those tensors stay the same
+    (cluster_kernel.cached_levels: the 77 launches of a final forest frame
+    share them; refresh_iclusters makes new ones)."""
+    return (cached_levels('instances', (icl.ibb,),
+                          lambda: plain.instance_levels(icl)),
+            cached_levels('prototypes', (icl.pbb,),
+                          lambda: plain.proto_levels(icl.pbb)))
 
 
 def launch(icl, o, d, tmin, tmax, any_hit: bool, need_ab: bool = False,
@@ -72,16 +84,20 @@ def launch(icl, o, d, tmin, tmax, any_hit: bool, need_ab: bool = False,
         check(name, x, dt, shape, dev)
     if R >= 2 ** 31 or Mtot * 3 * C >= 2 ** 31 or I * 12 >= 2 ** 31:
         raise ValueError('ray or table size exceeds the int32 indexing')
+    ilevels, plevels = walk_levels(icl)
     t = torch.empty(R, dtype=f32, device=dev)
     tri = torch.empty(R, dtype=i32, device=dev)
     inst = torch.empty(R, dtype=i32, device=dev)
     a = torch.empty(R, dtype=f32, device=dev) if need_ab else None
     b = torch.empty(R, dtype=f32, device=dev) if need_ab else None
     err = lib.rt_icluster_trace(
-        icl.ibb.data_ptr(), icl.iminv.data_ptr(), icl.imeta.data_ptr(),
-        icl.pbb.data_ptr(), icl.pmeta.data_ptr(), icl.p0.data_ptr(),
-        icl.e1.data_ptr(), icl.e2.data_ptr(), icl.tri.data_ptr(), I,
-        icl.num_instances, MP, C, o.data_ptr(), d.data_ptr(),
+        icl.ibb.data_ptr(), *(x.data_ptr() for x in ilevels), I,
+        icl.num_instances, *(x.shape[1] for x in ilevels),
+        icl.iminv.data_ptr(), icl.imeta.data_ptr(), icl.pbb.data_ptr(),
+        *(x.data_ptr() for x in plevels), icl.pmeta.data_ptr(),
+        icl.p0.data_ptr(), icl.e1.data_ptr(), icl.e2.data_ptr(),
+        icl.tri.data_ptr(), MP, *(x.shape[1] for x in plevels), C,
+        o.data_ptr(), d.data_ptr(),
         tmin.data_ptr(), tmax.data_ptr(), R, int(any_hit), t.data_ptr(),
         tri.data_ptr(), inst.data_ptr(), ptr(a), ptr(b),
         torch.cuda.current_stream(dev).cuda_stream)

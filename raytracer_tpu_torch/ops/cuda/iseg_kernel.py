@@ -20,14 +20,11 @@ import ctypes
 import torch
 
 from ...core.types import Scene
-from ...geometry.clusters import NEVER
 from .. import intersect as isect
 from .. import iseg_trace as plain
 from ..cluster_trace import modes
 from ..intersect import Hit
-from .cluster_kernel import check, load, mode_name, ptr
-
-GROUP = 32      # the kernel's kGroup: members per group box, both levels
+from .cluster_kernel import cached_levels, check, load, mode_name, ptr
 
 LAUNCHES = 0
 MODES: collections.Counter = collections.Counter()
@@ -42,17 +39,6 @@ def build() -> ctypes.CDLL:
         _lib = load('iseg_trace',
                     [vp] * 9 + [ci] * 5 + [vp] * 4 + [ci, ci] + [vp] * 6)
     return _lib
-
-
-def group_boxes(bb6, g: int = GROUP):
-    """(6, L) boxes -> (6, ceil(L / g)) unions of g consecutive real boxes;
-    a group of padding lanes only is a never-hit point box."""
-    bb = torch.nn.functional.pad(bb6, (0, (-bb6.shape[1]) % g), value=NEVER)
-    real = bb[0] < 1e37
-    lo = torch.where(real, bb[:3], torch.inf).reshape(3, -1, g).amin(-1)
-    hi = torch.where(real, bb[3:], -torch.inf).reshape(3, -1, g).amax(-1)
-    some = real.reshape(-1, g).any(-1)
-    return torch.where(some, torch.cat([lo, hi]), NEVER).contiguous()
 
 
 def launch(icl, o, d, tmin, tmax, any_hit: bool, need_ab: bool = False,
@@ -79,8 +65,8 @@ def launch(icl, o, d, tmin, tmax, any_hit: bool, need_ab: bool = False,
         check(name, x, dt, shape, dev)
     if R >= 2 ** 31 or Mtot * 3 * C >= 2 ** 31 or E * 12 >= 2 ** 31:
         raise ValueError('ray or table size exceeds the int32 indexing')
-    g1 = group_boxes(icl.sbb)
-    g2 = group_boxes(g1)
+    g1, g2 = cached_levels('segments', (icl.sbb,),
+                           lambda: plain.segment_levels(icl))
     t = torch.empty(R, dtype=f32, device=dev)
     tri = torch.empty(R, dtype=i32, device=dev)
     inst = torch.empty(R, dtype=i32, device=dev)

@@ -26,9 +26,16 @@ of ops/iseg_trace.py. Rays in 32-ray blocks that
 cannot reach the union of the instance boxes are culled first
 (ops/bundle.py, icluster_kernel.py:353-359); the cull changes no hit.
 
-Vectorised: instances, then (ray, instance) pairs, then (pair, cluster)
-triples are swept in chunks against the best t of the chunk's start (a
-superset of the sequential visit, which only adds hits that lose).
+Vectorised, with the CUDA kernel's cull: the instances are walked over
+three levels of fan-out-8 union boxes in table order (bundle.group_levels;
+cluster_trace.walk), in chunks of one 64-instance group, and each
+entered prototype's clusters over two levels of its own (8 and 64
+clusters, in object space). A box's key is computed only where its
+groups' keys beat the best t. Instances, then (ray, instance) pairs, then
+(pair, cluster) triples are swept in chunks against the best t of the
+chunk's start (a superset of the sequential visit, which only adds hits
+that lose; a group's key never exceeds a member's, so the cull drops
+nothing the flat scan keeps).
 """
 from __future__ import annotations
 
@@ -38,16 +45,35 @@ from ..core.types import Scene
 from ..core.vecmath import MIRO_TMAX
 from . import bundle
 from . import intersect as isect
-from .cluster_trace import _mt, modes, rcp, reduce_best, slab_keys
+from .cluster_trace import (DEPTH, GROUP, _mt, descend, modes, rcp,
+                            reduce_best, walk)
 from .intersect import Hit
 from .iseg_trace import finish, pool_slabs, to_object
 
-INST_CHUNK = 256
 PAIR_CHUNK = 1024
 TRIPLE_CHUNK = 8192
 
+# the prototype walk's group levels (8 and 64 clusters); the instance walk
+# takes the cluster kernel's three (cluster_trace.DEPTH)
+PROTO_DEPTH = 2
+
 # number of calls of the plain version, so a run can show which path it took
 CALLS = 0
+
+
+def instance_levels(icl):
+    """The three group levels of the instance boxes (8, 64 and 512
+    instances), over the num_instances real ones."""
+    return bundle.group_levels(icl.ibb[:, :icl.num_instances], GROUP, DEPTH)
+
+
+def proto_levels(pbb):
+    """The two group levels of every prototype's cluster boxes (8 and 64
+    clusters): (P * 6, MP) -> [(P * 6, ceil(MP / 8)), (P * 6,
+    ceil(MP / 64))]."""
+    P = pbb.shape[0] // 6
+    return [x.reshape(P * 6, -1) for x in bundle.group_levels(
+        pbb.reshape(P, 6, -1), GROUP, PROTO_DEPTH)]
 
 
 def trace_ids(icl, o, d, tmin, tmax, any_hit: bool, need_ab: bool = False):
@@ -57,7 +83,6 @@ def trace_ids(icl, o, d, tmin, tmax, any_hit: bool, need_ab: bool = False):
     R = o.shape[0]
     C = icl.tri.shape[1]
     MP = icl.pbb.shape[1]
-    NI = icl.num_instances
     dev = o.device
     inv = rcp(d)
     tmax = bundle.cull_tmax(o, d, tmin, tmax, icl.ibb)
@@ -66,32 +91,31 @@ def trace_ids(icl, o, d, tmin, tmax, any_hit: bool, need_ab: bool = False):
     best_key = torch.full((R,), -1, dtype=torch.int64, device=dev)
     best_a = torch.zeros(R, device=dev) if need_ab else None
     best_b = torch.zeros(R, device=dev) if need_ab else None
-    ilo, ihi = icl.ibb[:3].T, icl.ibb[3:].T
-    lane_m = torch.arange(MP, device=dev)
-    axes = torch.arange(3, device=dev)
-    for i0 in range(0, NI, INST_CHUNK):
-        i1 = min(i0 + INST_CHUNK, NI)
-        key = slab_keys(ilo[None, i0:i1], ihi[None, i0:i1], o, inv, tmin,
-                        tmax)
-        viable = key < best_t[:, None]
-        if any_hit:
-            viable &= (best_key < 0)[:, None]
-        ri, ii = viable.nonzero(as_tuple=True)     # ray-major, table order
+    plevels = proto_levels(icl.pbb)
+
+    def best():
+        return torch.where(best_key >= 0, -torch.inf, best_t) if any_hit \
+            else best_t
+    for ri, ii in walk(icl.ibb[:, :icl.num_instances], instance_levels(icl),
+                       o, inv, tmin, tmax, best, chunk_level=DEPTH - 1):
         for p in range(0, ri.shape[0], PAIR_CHUNK):
             r = ri[p:p + PAIR_CHUNK]
-            inst = ii[p:p + PAIR_CHUNK] + i0
+            inst = ii[p:p + PAIR_CHUNK]
             oo, dd = to_object(icl.iminv[inst], o[r], d[r])
             proto = icl.imeta[inst, 0].long()
             off = icl.pmeta[proto, 0].long()
             mlen = icl.pmeta[proto, 1].long()
-            rows = 6 * proto[:, None] + axes                       # (P, 3)
-            lo = icl.pbb[rows].transpose(1, 2)                     # (P, MP, 3)
-            hi = icl.pbb[rows + 3].transpose(1, 2)
-            ckey = slab_keys(lo, hi, oo, rcp(dd), tmin[r], tmax[r])
-            cv = (ckey < best_t[r, None]) & (lane_m < mlen[:, None])
-            if any_hit:
-                cv &= (best_key[r] < 0)[:, None]
-            pi, ci = cv.nonzero(as_tuple=True)     # pair-major, table order
+            # the prototype walk of every pair: its top level linearly, then
+            # down the levels to the clusters whose key beats the best t
+            pr = (oo, rcp(dd), tmin[r], tmax[r], best()[r])
+            n = [mlen, -(-mlen // GROUP), -(-mlen // GROUP ** 2)]
+            pi = torch.arange(r.shape[0], device=dev)
+            ci = torch.zeros_like(pi)
+            pi, ci = descend(plevels[1], pi, ci, n[2], *pr,
+                             fan=plevels[1].shape[1], tab=proto, group=True)
+            pi, ci = descend(plevels[0], pi, ci, n[1], *pr, tab=proto,
+                             group=True)
+            pi, ci = descend(icl.pbb, pi, ci, n[0], *pr, tab=proto)
             for q in range(0, pi.shape[0], TRIPLE_CHUNK):
                 pj = pi[q:q + TRIPLE_CHUNK]
                 cj = ci[q:q + TRIPLE_CHUNK]

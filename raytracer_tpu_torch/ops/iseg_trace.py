@@ -32,10 +32,14 @@ Rays in 32-ray blocks that cannot reach the table's box are culled first
 (ops/bundle.py, as the JAX wrapper does per slice); the cull is
 conservative, so it changes no hit.
 
-Vectorised over rays; the segments are swept in chunks, and each chunk's
-(ray, segment) pairs whose box passes are tested together against the best
-t of the chunk's start, which tests a superset of the sequential visit and
-only adds hits that lose to the best.
+Vectorised over rays, with the CUDA kernel's cull: the segments are
+walked over two levels of 32-wide union boxes in table order
+(bundle.group_levels; cluster_trace.walk), in chunks of one 1,024-segment
+group, a segment's key computed only where its groups' keys beat the best
+t. Each chunk's (ray, segment) pairs whose box passes are tested together
+against the best t of the chunk's start, which tests a superset of the
+sequential visit and only adds hits that lose to the best; a group's key
+never exceeds a member's, so the cull drops nothing the flat scan keeps.
 """
 from __future__ import annotations
 
@@ -47,11 +51,15 @@ from ..core.vecmath import MIRO_TMAX
 from ..geometry.clusters import KIN
 from . import bundle
 from . import intersect as isect
-from .cluster_trace import _mt, modes, rcp, reduce_best, slab_keys
+from .cluster_trace import (_mt, modes, rcp, reduce_best,  # noqa: F401
+                            slab_keys, walk)
 from .intersect import Hit
 
-SEG_CHUNK = 1024
 PAIR_CHUNK = 4096
+# the segment kernel's group walk: two levels of 32-wide union boxes over
+# table order (32 and 1,024 segments)
+SEG_GROUP = 32
+SEG_DEPTH = 2
 
 # number of calls of the plain version, so a run can show which path it took
 CALLS = 0
@@ -80,6 +88,13 @@ def pool_slabs(icl, rows):
             icl.tri[rows].reshape(P, k * C))
 
 
+def segment_levels(icl):
+    """The two group levels of the segment boxes (32 and 1,024 segments),
+    over the num_entries real ones."""
+    return bundle.group_levels(icl.sbb[:, :icl.num_entries], SEG_GROUP,
+                               SEG_DEPTH)
+
+
 def trace_ids(icl, o, d, tmin, tmax, any_hit: bool, need_ab: bool = False):
     """(t, tri, inst, a, b) of the visiting rule above, for (R,) float32
     tmin, tmax; any_hit is `cheap_any`, and a, b are None unless
@@ -96,19 +111,17 @@ def trace_ids(icl, o, d, tmin, tmax, any_hit: bool, need_ab: bool = False):
     best_key = torch.full((R,), -1, dtype=torch.int64, device=dev)
     best_a = torch.zeros(R, device=dev) if need_ab else None
     best_b = torch.zeros(R, device=dev) if need_ab else None
-    lo_all, hi_all = icl.sbb[:3].T, icl.sbb[3:].T
     kin = torch.arange(KIN, device=dev)
-    for s0 in range(0, E, SEG_CHUNK):
-        s1 = min(s0 + SEG_CHUNK, E)
-        key = slab_keys(lo_all[None, s0:s1], hi_all[None, s0:s1], o, inv,
-                        tmin, tmax)
-        viable = key < best_t[:, None]
-        if any_hit:
-            viable &= (best_key < 0)[:, None]
-        ri, ei = viable.nonzero(as_tuple=True)     # ray-major, table order
+
+    def best():
+        return torch.where(best_key >= 0, -torch.inf, best_t) if any_hit \
+            else best_t
+    # chunks of one top-level group (1,024 segments)
+    for ri, ei in walk(icl.sbb[:, :E], segment_levels(icl), o, inv, tmin,
+                       tmax, best, fan=SEG_GROUP):
         for p in range(0, ri.shape[0], PAIR_CHUNK):
             r = ri[p:p + PAIR_CHUNK]
-            e = ei[p:p + PAIR_CHUNK] + s0
+            e = ei[p:p + PAIR_CHUNK]
             oo, dd = to_object(icl.strf[e], o[r], d[r])
             rows = icl.smeta[e, 1].long()[:, None] + kin
             p0, e1, e2, tid = pool_slabs(icl, rows)

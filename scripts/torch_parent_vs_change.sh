@@ -1,0 +1,40 @@
+#!/bin/sh
+# Time a parent checkout of the port and this one on the same GPU, in
+# turns (parent, change, change, parent), so that the two are compared
+# within one machine and one power limit:
+#   * chip_smoke.py: each kernel's time against its plain version at
+#     32,768 rays, the 1080p frames' walls and the training step's;
+#   * scripts/torch_frame_profile.py at one 2**21-ray tile: device time by
+#     kernel for the training step (--train) on sponza_standin, and for the
+#     sponza_standin, final_forest_standin and forest_standin frames.
+#
+#   scripts/torch_parent_vs_change.sh PARENT_DIR [OUT_DIR]
+#
+# PARENT_DIR holds the parent commit's files (for example
+# `git archive HEAD | tar -x -C _parent` before committing, in a directory
+# .gitignore lists). Each command's output goes to
+# OUT_DIR/<turn>_<parent|change>_<what>.txt (default chiprun_out/ab); one
+# line per command, with its exit code, goes to the standard output.
+set -u
+parent=$(cd "$1" && pwd)
+here=$(cd "$(dirname "$0")/.." && pwd)
+out=${2:-$here/chiprun_out/ab}
+mkdir -p "$out"
+turn=0
+for tree in "$parent" "$here" "$here" "$parent"; do
+  turn=$((turn + 1))
+  if [ "$tree" = "$parent" ]; then tag=parent; else tag=change; fi
+  cd "$tree" || exit 1
+  log="$out/${turn}_${tag}_smoke.txt"
+  python3 chip_smoke.py > "$log" 2>&1
+  echo "$turn $tag chip_smoke rc=$?"
+  log="$out/${turn}_${tag}_train.txt"
+  python3 scripts/torch_frame_profile.py --train --tiles 21 > "$log" 2>&1
+  echo "$turn $tag profile train rc=$?"
+  for scene in sponza_standin final_forest_standin forest_standin; do
+    log="$out/${turn}_${tag}_${scene}.txt"
+    python3 scripts/torch_frame_profile.py --scene "$scene" --tiles 21 \
+      > "$log" 2>&1
+    echo "$turn $tag profile $scene rc=$?"
+  done
+done

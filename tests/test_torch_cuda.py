@@ -20,6 +20,7 @@ import torch
 
 import raytracer_tpu_torch as rt
 from raytracer_tpu_torch.core import rng
+from raytracer_tpu_torch.ops import bundle
 from raytracer_tpu_torch.ops import cluster_trace as ct
 from raytracer_tpu_torch.ops import icluster_trace as ict
 from raytracer_tpu_torch.ops import iseg_trace as ist
@@ -32,7 +33,8 @@ from raytracer_tpu_torch.parallel import sharding as ts
 from raytracer_tpu_torch.render import camera as cam_mod
 from raytracer_tpu_torch.scenes import registry
 
-from .torch_port_util import cpu, triangle_soup
+from .torch_port_util import (box_rays, cluster_table, cpu, grazing_rays,
+                              instanced_table, table_rays, triangle_soup)
 
 pytestmark = pytest.mark.cuda
 R = 4096
@@ -474,3 +476,83 @@ def test_loss_and_grads_on_card_match_cpu(dev, intersector):
                                  card, cam_d, st, target.to(dev), key)
     assert bool(torch.isfinite(loss)) and not torch.equal(
         params['vertices'], v0)
+
+
+# ------------------------------------------------ the group walk's edges
+def _walk_rays(table, bb, box, dev, seed):
+    """R rays for a synthetic table: a quarter around its box, half aimed
+    at its triangles, a quarter lying in level-1 group boxes' face planes;
+    per lane of each 32-ray warp, every 3rd dead, every 3rd of the rest
+    with a short any-hit reach (it stops early or misses), the others far;
+    random shutter times -> CUDA tensors (o, d, time, tmin, tmax)."""
+    o, d = np.concatenate([box_rays(*box, R // 4, seed),
+                           table_rays(table, R // 2, seed + 1),
+                           grazing_rays(bundle.group_levels(
+                               bb.cpu(), ct.GROUP, 1)[0], R // 4, seed + 2)],
+                          1)
+    lane = np.arange(R)
+    tmax = np.where(lane % 3 == 0, -1.0, np.where(lane % 3 == 1, 2.5, 1e12))
+    time = np.random.default_rng(seed + 3).uniform(size=R)
+    f = lambda x: torch.tensor(np.asarray(x), dtype=torch.float32,
+                               device=dev).contiguous()
+    return f(o), f(d), f(time), f(np.full(R, 1e-3)), f(tmax)
+
+
+WALK_MODES = {'nearest': (False, False), 'cheap_any': (True, False),
+              'need_ab': (False, True)}
+
+
+@pytest.mark.parametrize('mb', [False, True])
+@pytest.mark.parametrize('mode', sorted(WALK_MODES))
+@pytest.mark.parametrize('M', [7, 9, 63, 65, 513, 4100])
+def test_cluster_walk_matches_plain(dev, M, mode, mb):
+    """The cluster kernel's warp walk against the plain walk, bit for bit
+    (t, tri, a, b), in every mode and in the `mb` instantiation (its 76 KB
+    of buffers), on synthetic tables whose row counts are not multiples
+    of 8, 64 or 512 (4,100: the linear top level over 9 groups), with
+    padding rows inside and rows of 1 to 128 lanes; dead, live and
+    early-done any-hit lanes share every warp."""
+    any_hit, need_ab = WALK_MODES[mode]
+    host = cluster_table(M, M, mb=mb)
+    card = host.to(dev)
+    bb = torch.cat([card.bb_min.T, card.bb_max.T])
+    real = card.tri[:, 0] >= 0
+    box = (card.bb_min[real].amin(0).cpu(), card.bb_max[real].amax(0).cpu())
+    o, d, time, tmin, tmax = _walk_rays(host, bb, box, dev, M)
+    time = time if mb else None
+    want = ct.trace_ids(card, o, d, tmin, tmax, any_hit, time, need_ab)
+    n0 = ck.LAUNCHES
+    got = ck.launch(card, o, d, tmin, tmax, any_hit, time, mb, need_ab)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES == n0 + 1
+    assert int((want[1] >= 0).sum()) > R // 20
+    for g, w, f in zip(got, want, ('t', 'tri', 'a', 'b')):
+        if w is not None:
+            np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy(),
+                                          err_msg=f)
+
+
+@pytest.mark.parametrize('mode', sorted(WALK_MODES))
+@pytest.mark.parametrize('n_inst', [7, 65, 600])
+def test_icluster_walk_matches_plain(dev, n_inst, mode):
+    """The hierarchical kernel's instance and prototype walks against the
+    plain walk, bit for bit (t, tri, inst, a, b), in every mode, with
+    instance counts that are not multiples of 8, 64 or 512 and prototypes
+    of 1, 8, 9 and 128 clusters; dead, live and early-done any-hit lanes
+    share every warp."""
+    any_hit, need_ab = WALK_MODES[mode]
+    host = instanced_table(n_inst, (1, 8, 9, 128), n_inst)
+    card = host.to(dev)
+    real = card.ibb[0] < 1e37
+    box = (card.ibb[:3, real].amin(1).cpu(), card.ibb[3:, real].amax(1).cpu())
+    o, d, _, tmin, tmax = _walk_rays(host, card.ibb, box, dev, n_inst)
+    want = ict.trace_ids(card, o, d, tmin, tmax, any_hit, need_ab)
+    n0 = ick.LAUNCHES
+    got = ick.launch(card, o, d, tmin, tmax, any_hit, need_ab)
+    torch.cuda.synchronize()
+    assert ick.LAUNCHES == n0 + 1
+    assert int((want[1] >= 0).sum()) > R // 10
+    for g, w, f in zip(got, want, ('t', 'tri', 'inst', 'a', 'b')):
+        if w is not None:
+            np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy(),
+                                          err_msg=f)

@@ -42,7 +42,6 @@ from raytracer_tpu_torch.ops import bundle
 from raytracer_tpu_torch.ops import icluster_trace as ict
 from raytracer_tpu_torch.ops import intersect as tisect
 from raytracer_tpu_torch.ops import iseg_trace as ist
-from raytracer_tpu_torch.ops.cuda import iseg_kernel as isk
 from raytracer_tpu_torch.render import camera as tcam
 from raytracer_tpu_torch.render import integrator as tint
 from raytracer_tpu_torch.scenes import registry
@@ -221,30 +220,6 @@ def test_bundle_cull_matches_jax(scenes):
         flags.append(en)
     flags = torch.stack(flags)
     assert flags[0].sum() == 7 and not flags[2].any()
-
-
-def test_group_boxes_are_conservative(scenes):
-    """The CUDA segment kernel skips a group of 32 segments whose union box
-    key does not beat the best t: the union's key must never exceed a
-    member's."""
-    _, _, sp, cam, _ = scenes
-    sbb = sp.iclusters.sbb
-    g1 = isk.group_boxes(sbb)
-    g2 = isk.group_boxes(g1)
-    assert g1.shape == (6, -(-sbb.shape[1] // 32))
-    assert g2.shape == (6, -(-g1.shape[1] // 32))
-    o, d = (torch.from_numpy(x) for x in _rays(sp, cam, 'random'))
-    inv = ist.rcp(d)
-    tmin, tmax = torch.full((R,), 1e-3), torch.full((R,), 1e12)
-
-    def keys(bb):
-        return ist.slab_keys(bb[:3].T[None], bb[3:].T[None], o, inv, tmin,
-                             tmax)
-    for member, group in ((sbb, g1), (g1, g2)):
-        km = keys(member)
-        km = torch.nn.functional.pad(km, (0, (-km.shape[1]) % 32),
-                                     value=torch.inf)
-        assert (keys(group) <= km.reshape(R, -1, 32).amin(-1)).all()
 
 
 def test_hit_attributes_and_refine_hit_on_instance_hits(scenes):

@@ -116,3 +116,200 @@ def triangle_soup(T, R, seed, n_dup=64):
     f = lambda x: np.ascontiguousarray(x, np.float32)
     return (f(o), f(dirs), f(p0), f(p1), f(p2), valid, f(tmin), f(tmax),
             dup & (valid[k] > 0))
+
+
+def _tri_fan(rs, ctr, n, spread, size):
+    """n small random triangles around ctr -> float32 corners a, b, c."""
+    a = (ctr + rs.uniform(-spread, spread, (n, 3))).astype(np.float32)
+    b = (a + rs.normal(size=(n, 3)) * size).astype(np.float32)
+    c = (a + rs.normal(size=(n, 3)) * size).astype(np.float32)
+    return a, b, c
+
+
+def cluster_table(M, seed, mb=False, C=128, max_lanes=12):
+    """A synthetic cluster table of exactly M rows, for the walk's edge
+    cases: row m holds 1-max_lanes small random triangles (every 50th row
+    all C lanes), real lanes first, around the m-th point of a 16 x 16 x k
+    grid walked in row order, so consecutive rows lie close together as the
+    SAH build's depth-first leaves do; every 97th row is padding (no
+    triangle, the never-hit box). With mb, each row's t = 1 pose is shifted
+    by up to 0.3, and its box bounds both poses -> Clusters on the CPU."""
+    import torch
+    from raytracer_tpu_torch.geometry.clusters import NEVER, Clusters
+
+    rs = np.random.default_rng(seed)
+    basis = np.zeros((6, M, 3, C), np.float32)    # p0, e1, e2, then t = 1
+    tri = np.full((M, C), -1, np.int32)
+    lo = np.full((M, 3), NEVER, np.float32)
+    hi = np.full((M, 3), NEVER, np.float32)
+    nid = 0
+    for m in range(M):
+        if m % 97 == 5:
+            continue
+        n = C if m % 50 == 7 else int(rs.integers(1, max_lanes + 1))
+        ctr = np.array([m % 16, (m // 16) % 16, m // 256]) * 1.5
+        a, b, c = _tri_fan(rs, ctr, n, 0.6, 0.3)
+        poses = [(a, b, c)]
+        if mb:
+            shift = rs.uniform(-0.3, 0.3, 3).astype(np.float32)
+            poses.append((a + shift, b + shift, c + shift))
+        for k, (pa, pb, pc) in enumerate(poses):
+            basis[3 * k, m, :, :n] = pa.T
+            basis[3 * k + 1, m, :, :n] = (pb - pa).T
+            basis[3 * k + 2, m, :, :n] = (pc - pa).T
+        pts = np.concatenate([x for pose in poses for x in pose])
+        lo[m], hi[m] = pts.min(0), pts.max(0)
+        tri[m, :n] = nid + np.arange(n)
+        nid += n
+    t = torch.from_numpy
+    p0, e1, e2 = t(basis[0]), t(basis[1]), t(basis[2])
+    q = (t(basis[3]), t(basis[4]), t(basis[5])) if mb else (p0, e1, e2)
+    return Clusters(bb_min=t(lo), bb_max=t(hi), p0=p0, e1=e1, e2=e2,
+                    p0_t1=q[0], e1_t1=q[1], e2_t1=q[2], tri=t(tri),
+                    cluster_size=C)
+
+
+def instanced_table(n_inst, proto_clusters, seed, C=128, max_lanes=8):
+    """A synthetic two-level table for the hierarchical walk: prototype p
+    has proto_clusters[p] clusters of 1-max_lanes small triangles (every
+    37th cluster all C lanes) on a 4 x 4 x k object-space grid; n_inst
+    instances, each of a random prototype turned about y, scaled by
+    0.8-1.2 and placed on a 12-wide world grid, 3 apart; three padding
+    lanes after them -> InstancedClusters on the CPU (the segment table
+    left empty)."""
+    import torch
+    from raytracer_tpu_torch.geometry.clusters import (NEVER,
+                                                       InstancedClusters)
+
+    rs = np.random.default_rng(seed)
+    P, MP, Mtot = len(proto_clusters), max(proto_clusters), \
+        sum(proto_clusters)
+    basis = np.zeros((3, Mtot * 3, C), np.float32)
+    tri = np.full((Mtot, C), -1, np.int32)
+    pbb = np.full((P * 6, MP), NEVER, np.float32)
+    pmeta = np.zeros((P, 2), np.int32)
+    pool_proto = np.zeros(Mtot, np.int32)
+    pool_local = np.zeros(Mtot, np.int32)
+    plo, phi = np.zeros((P, 3)), np.zeros((P, 3))
+    row = nid = 0
+    for p, k in enumerate(proto_clusters):
+        pmeta[p] = row, k
+        for c in range(k):
+            n = C if c % 37 == 3 else int(rs.integers(1, max_lanes + 1))
+            ctr = np.array([c % 4, (c // 4) % 4, c // 16]) * 0.5
+            a, b, cc = _tri_fan(rs, ctr, n, 0.3, 0.15)
+            for i, x in enumerate((a, b - a, cc - a)):
+                basis[i, 3 * row:3 * row + 3, :n] = x.T
+            tri[row, :n] = nid + np.arange(n)
+            pts = np.concatenate([a, b, cc])
+            pbb[6 * p:6 * p + 3, c] = pts.min(0)
+            pbb[6 * p + 3:6 * p + 6, c] = pts.max(0)
+            pool_proto[row], pool_local[row] = p, c
+            row += 1
+            nid += n
+        real = slice(6 * p, 6 * p + 6)
+        plo[p], phi[p] = pbb[real][:3, :k].min(1), pbb[real][3:, :k].max(1)
+    I = n_inst + 3
+    ibb = np.full((6, I), NEVER, np.float32)
+    iminv = np.tile(np.eye(3, 4, dtype=np.float32).reshape(12), (I, 1))
+    imeta = np.zeros((I, 2), np.int32)
+    bits = (np.arange(8)[:, None] >> np.arange(3)) & 1
+    for i in range(n_inst):
+        p = int(rs.integers(P))
+        ang, s = rs.uniform(0, 2 * np.pi), rs.uniform(0.8, 1.2)
+        rot = np.array([[np.cos(ang), 0, np.sin(ang)], [0, 1, 0],
+                        [-np.sin(ang), 0, np.cos(ang)]])
+        tr = np.array([(i % 12) * 3.0, 0.0, (i // 12) * 3.0])
+        corners = (plo[p] * (1 - bits) + phi[p] * bits) @ (s * rot).T + tr
+        ibb[:3, i], ibb[3:, i] = corners.min(0), corners.max(0)
+        inv = rot.T / s
+        iminv[i] = np.concatenate([inv, -(inv @ tr)[:, None]], 1).reshape(12)
+        imeta[i] = p, i
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x))
+    return InstancedClusters(
+        ibb=t(ibb), iminv=t(iminv), imeta=t(imeta), pbb=t(pbb),
+        pmeta=t(pmeta), tri=t(tri), sbb=t(np.full((6, 1), NEVER, np.float32)),
+        smeta=t(np.zeros((1, 3), np.int32)),
+        strf=t(np.zeros((1, 12), np.float32)), pool_proto=t(pool_proto),
+        pool_local=t(pool_local), p0=t(basis[0]), e1=t(basis[1]),
+        e2=t(basis[2]), cluster_size=C, num_instances=n_inst, num_entries=0,
+        max_proto_clusters=MP)
+
+
+def box_rays(lo, hi, R, seed):
+    """Rays for a box [lo, hi]: the first half from around it aimed at
+    random points inside, the second from random points inside in random
+    directions -> numpy float32 (o, d)."""
+    rs = np.random.default_rng(seed)
+    lo, hi = np.asarray(lo, np.float64), np.asarray(hi, np.float64)
+    ctr, ext = (lo + hi) / 2, (hi - lo).max()
+    h = R // 2
+    o = np.concatenate([ctr + rs.normal(size=(h, 3)) * ext,
+                        lo + rs.uniform(size=(R - h, 3)) * (hi - lo)])
+    d = np.concatenate([lo + rs.uniform(size=(h, 3)) * (hi - lo) - o[:h],
+                        rs.normal(size=(R - h, 3))])
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return o.astype(np.float32), d.astype(np.float32)
+
+
+def grazing_rays(bb6, R, seed, parallel=True, nudge=0.0):
+    """Rays that graze the faces of boxes of a (6, n) table (real boxes
+    only), each through a point on an edge of a random box (two
+    coordinates on face planes, or `nudge` times the box's extent off
+    them, inward or outward at random), from 3 units away. parallel: the
+    ray lies in those planes (zero direction components there: the
+    clamped reciprocals); else it comes from a random direction, touching
+    the box near the edge or crossing it -> numpy float32 (o, d)."""
+    rs = np.random.default_rng(seed)
+    bb = np.asarray(bb6, np.float32)
+    real = np.nonzero(bb[0] < 1e37)[0]
+    j = real[rs.integers(len(real), size=R)]
+    lo, hi = bb[:3, j].T, bb[3:, j].T
+    pt = lo + rs.uniform(size=(R, 3)).astype(np.float32) * (hi - lo)
+    d = rs.normal(size=(R, 3)).astype(np.float32)
+    rows = np.arange(R)
+    ax0 = rs.integers(3, size=R)
+    for ax in (ax0, (ax0 + 1) % 3):
+        side = rs.uniform(size=R) < 0.5
+        off = nudge * (hi[rows, ax] - lo[rows, ax]) * rs.choice([-1, 1], R)
+        pt[rows, ax] = np.where(side, lo[rows, ax], hi[rows, ax]) + off
+        if parallel:
+            d[rows, ax] = 0.0
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o = pt - d * np.float32(3.0)
+    return o.astype(np.float32), d.astype(np.float32)
+
+
+def table_rays(table, R, seed):
+    """Rays from 1-4 units away aimed at random points of random triangles
+    of a cluster table (Clusters, its t = 0 pose) or a two-level one
+    (InstancedClusters: a random instance's triangle, in world space)
+    -> numpy float32 (o, d)."""
+    rs = np.random.default_rng(seed)
+    u, v = rs.uniform(size=(2, R, 1))
+    u, v = np.where(u + v > 1, 1 - u, u), np.where(u + v > 1, 1 - v, v)
+    tri = table.tri.numpy()
+    if hasattr(table, 'bb_min'):                  # a single-level table
+        m, lane = np.nonzero(tri >= 0)
+        k = rs.integers(len(m), size=R)
+        p0, e1, e2 = (x.numpy()[m[k], :, lane[k]]
+                      for x in (table.p0, table.e1, table.e2))
+        tgt = p0 + u * e1 + v * e2
+    else:
+        n = table.num_instances
+        inst = rs.integers(n, size=R)
+        proto = table.imeta.numpy()[inst, 0]
+        off, mlen = table.pmeta.numpy()[proto].T
+        row = off + rs.integers(1 << 30, size=R) % mlen
+        lane = rs.integers(1 << 30, size=R) % (tri[row] >= 0).sum(1)
+        p0, e1, e2 = (np.stack([x.numpy()[3 * row + c, lane]
+                                for c in range(3)], -1)
+                      for x in (table.p0, table.e1, table.e2))
+        obj = p0 + u * e1 + v * e2
+        minv = table.iminv.numpy()[inst].reshape(R, 3, 4).astype(np.float64)
+        tgt = np.einsum('rij,rj->ri', np.linalg.inv(minv[:, :, :3]),
+                        obj - minv[:, :, 3])
+    d = rs.normal(size=(R, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o = tgt - d * rs.uniform(1, 4, (R, 1))
+    return o.astype(np.float32), d.astype(np.float32)
