@@ -17,7 +17,9 @@ through `parallel/sharding.loss_and_grads_scanned`, Adam steps through
      card, at 32,768 coherent (camera) and incoherent (random) rays,
      nearest and any-hit, bit for bit, with CUDA-event times (median of 5
      after a warm-up) and the box and triangle tests per ray of the plain
-     version's group walk, which is the kernel's;
+     version's group walk, which is the kernel's; then at the main path's
+     wavefront size, the 1080p frame's camera rays (nearest) and one
+     sorted bounce from their hits (any-hit), bit for bit;
   5. the full 1080p, 10-bounce path-traced render with intersector 'auto':
      the kernel must carry every trace (launch count > 0, plain-version
      calls 0); then the median wall time of 3 renders;
@@ -94,6 +96,7 @@ from raytracer_tpu_torch.ops.cuda import iseg_kernel as isk
 from raytracer_tpu_torch.ops.cuda import mt_kernel as mtk
 from raytracer_tpu_torch.parallel import sharding as ts
 from raytracer_tpu_torch.render import camera as cam_mod
+from raytracer_tpu_torch.render import integrator
 from raytracer_tpu_torch.scenes import registry
 
 WIDTH, HEIGHT, BOUNCES = 1920, 1080, 10
@@ -242,6 +245,47 @@ def compare_kernel(scene, cam, dev):
             assert err == 0.0, f'{kind} any_hit={any_hit}: t disagrees'
             assert hits > N_RAYS // 20, 'too few hits to compare'
     return max_err, ms_k, ms_p, work.bound()
+
+
+def compare_full_wavefront(scene, cam, dev) -> float:
+    """Phase 4b: the cluster kernel against its plain version at the main
+    path's wavefront size: the 1080p frame's 2,073,600 camera rays
+    (nearest), then one bounce from their hits, random directions, sorted
+    as the integrator sorts a wavefront (dead rays last, then octant, then
+    the origin's Morton code), stopping at 0.5-12 units (any-hit): t and
+    tri bit for bit -> max |dt|. One timed call each after a warm-up; the
+    kernels line keeps the 32k-ray cases."""
+    o, d, _ = cam_mod.center_rays(cam, WIDTH, HEIGHT)
+    o, d = o.to(dev), d.to(dev)
+    R = o.shape[0]
+    far = torch.full((R,), 1e12, device=dev)
+    rs = np.random.default_rng(KEY + 7)
+    f = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    first = ct.cluster_trace(scene, o, d, 0.0, 1e-3, far, False)
+    alive = first.tri >= 0
+    d2 = rs.normal(size=(R, 3))
+    d2 /= np.linalg.norm(d2, axis=-1, keepdims=True)
+    bounce = integrator._sort_wavefront({
+        'o': torch.where(alive[:, None], o + first.t[:, None] * d, o),
+        'd': f(d2), 'alive': alive,
+        'tmax': torch.where(alive, f(rs.uniform(0.5, 12.0, R)), -1.0)})
+    max_err = 0.0
+    for mode, (oo, dd, tmax, any_hit) in (
+            ('nearest', (o, d, far, False)),
+            ('any', (bounce['o'], bounce['d'], bounce['tmax'], True))):
+        args = (oo, dd, 0.0, 1e-3, tmax, any_hit)
+        t_k, hk = cuda_ms(lambda: ck.cluster_trace(scene, *args), reps=1)
+        t_p, hp = cuda_ms(lambda: ct.cluster_trace(scene, *args), reps=1)
+        hits = int((hp.tri >= 0).sum())
+        bad = int((hk.tri != hp.tri).sum())
+        err = float((hk.t - hp.t).abs().max())
+        max_err = max(max_err, err)
+        phase('kernel_vs_plain_1080p', mode=mode, n=R, hits=hits,
+              tri_mismatch=bad, max_abs_dt=err, kernel_ms=t_k, plain_ms=t_p)
+        assert bad == 0, f'1080p {mode}: {bad} rays disagree'
+        assert err == 0.0, f'1080p {mode}: t disagrees'
+        assert hits > R // 20, 'too few hits to compare'
+    return max_err
 
 
 def instanced_rays(scene, cam, dev):
@@ -777,6 +821,7 @@ def main(dev=None) -> int:
 
     # ------------------------------------------- 4. kernel against plain
     max_err, ms_k, ms_p, bnd = compare_kernel(scene, cam, dev)
+    max_err = max(max_err, compare_full_wavefront(scene, cam, dev))
     records = [{
         'name': 'cluster_trace', 'route': 'cuda',
         'source': 'raytracer_tpu_torch/csrc/cluster_trace.cu',

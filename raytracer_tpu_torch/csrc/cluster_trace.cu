@@ -74,17 +74,11 @@ constexpr int kWarps = kThreads / 32;
 // the buffers allow 5 blocks an SM (static table): registers up to 102 a
 // thread (unbounded, ptxas picked 80 and spilled)
 constexpr int kMinBlocks = 5;
-#ifndef RT_CLUSTER_FAN      // scripts/torch_walk_variants.py builds others
-#define RT_CLUSTER_FAN 8
-#endif
-constexpr int kFan = RT_CLUSTER_FAN;   // members per group box, every level
+constexpr int kFan = 8;     // members per group box, every level
 constexpr int kDepth = 3;   // group levels: 8, 64 and 512 clusters
-#ifndef RT_COOP_MAX         // scripts/torch_walk_variants.py builds others
-#define RT_COOP_MAX 16
-#endif
 // a staged cluster wanted by at most this many lanes is tested by the whole
 // warp, one wanting ray at a time; by more, each lane tests its own ray
-constexpr int kCoopMax = RT_COOP_MAX;
+constexpr int kCoopMax = 16;
 
 struct Table {
   const float* box[kDepth + 1];   // (6, n[l]): the clusters, then the groups

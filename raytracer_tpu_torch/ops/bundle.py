@@ -10,15 +10,22 @@ over-approximates the bundle, and rounding is monotone, so a block is never
 culled from a box that one of its rays passes the slab test of.
 
 `group_levels` builds the union boxes that the trace kernels and their
-plain versions walk in place of a flat scan of a box table.
+plain versions walk in place of a flat scan of a box table;
+`cached_levels` keeps them for the kernels' wrappers while the boxes stay
+the same.
 """
 from __future__ import annotations
+
+import weakref
 
 import torch
 
 from ..geometry.clusters import NEVER
 
 BIG = 3e38
+# per kind of box table: (the box tensors' ids and versions, weak references
+# to them, their group levels)
+_levels: dict = {}
 
 
 def ray_blocks(o, d, tmin, tmax, rb: int):
@@ -71,6 +78,23 @@ def group_levels(bb6, g: int, depth: int) -> list:
     for _ in range(depth):
         bb6 = group_boxes(bb6, g)
         levels.append(bb6)
+    return levels
+
+
+def cached_levels(kind: str, boxes: tuple, make):
+    """make() -> the group levels of the box tensors `boxes`, built once
+    and kept while each is the same tensor at the same version: a frame's
+    launches share them, and the trainer's table refresh makes new
+    tensors every step. (Built anew on each launch, their thirty-odd small
+    operations cost the host about a millisecond a launch.) One slot per
+    `kind`: two tables of one kind in turn rebuild each other's levels."""
+    stamp = tuple((id(x), x._version) for x in boxes)
+    hit = _levels.get(kind)
+    if hit is not None and hit[0] == stamp and all(
+            r() is x for r, x in zip(hit[1], boxes)):
+        return hit[2]
+    levels = make()
+    _levels[kind] = (stamp, tuple(weakref.ref(x) for x in boxes), levels)
     return levels
 
 

@@ -229,11 +229,11 @@ def lerp_basis(cl, c, w):
     return out
 
 
-def box_levels(cl, fan: int) -> list:
-    """[the (6, M) cluster boxes, then their DEPTH group levels of `fan`
+def box_levels(cl) -> list:
+    """[the (6, M) cluster boxes, then their DEPTH group levels of GROUP
     members each]."""
     bb = torch.cat([cl.bb_min.T, cl.bb_max.T]).contiguous()
-    return [bb] + bundle.group_levels(bb, fan, DEPTH)
+    return [bb] + bundle.group_levels(bb, GROUP, DEPTH)
 
 
 def trace_ids(cl, o, d, tmin, tmax, any_hit: bool, time=None,
@@ -251,7 +251,7 @@ def trace_ids(cl, o, d, tmin, tmax, any_hit: bool, time=None,
     best_a = torch.zeros(R, device=dev) if need_ab else None
     best_b = torch.zeros(R, device=dev) if need_ab else None
     tri_flat = cl.tri.reshape(-1)
-    bb, *levels = box_levels(cl, GROUP)
+    bb, *levels = box_levels(cl)
 
     def best():
         return torch.where(best_idx >= 0, -torch.inf, best_t) if any_hit \

@@ -8,7 +8,7 @@ compiled with nvcc into a shared library with a plain C entry point on
 first use (into the package's git-ignored build directory) and called
 through ctypes on PyTorch's current stream. The wrapper builds the walk's
 group levels (ops/bundle.group_levels) from the table's boxes, and keeps
-them while the box tensors stay the same (`cached_levels`).
+them while the box tensors stay the same (bundle.cached_levels).
 
 For CUDA tensors `cluster_trace` launches the kernel or raises; for CPU
 tensors it runs the plain PyTorch version (ops/cluster_trace.py), which is
@@ -22,12 +22,12 @@ import ctypes
 import glob
 import os
 import shutil
-import weakref
 
 import torch
 
 from ... import native
 from ...core.types import Scene
+from .. import bundle
 from .. import cluster_trace as plain
 from .. import intersect as isect
 from ..intersect import Hit
@@ -44,10 +44,7 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 
 LAUNCHES = 0
 MODES: collections.Counter = collections.Counter()
-_libs: dict = {}      # (fan-out, cooperative limit) -> the kernel library
-# per kind of table: (the box tensors' ids and versions, weak references to
-# them, their group levels)
-_levels: dict = {}
+_lib = None
 
 
 def mode_name(any_hit: bool, cheap: bool, need_ab: bool,
@@ -70,14 +67,13 @@ def headers() -> tuple[str, ...]:
     return tuple(sorted(glob.glob(os.path.join(CSRC, '*.cuh'))))
 
 
-def load(name: str, argtypes: list, defines: tuple = ()) -> ctypes.CDLL:
+def load(name: str, argtypes: list) -> ctypes.CDLL:
     """Compile csrc/<name>.cu (once per hash of the source, the headers
-    and the flags, with -D `defines`) into a shared library, load it and
-    declare its C entry point rt_<name>, which returns the launch's CUDA
-    error code."""
+    and the flags) into a shared library, load it and declare its C entry
+    point rt_<name>, which returns the launch's CUDA error code."""
     lib = ctypes.CDLL(native.build_shared(
-        [nvcc()], os.path.join(CSRC, f'{name}.cu'),
-        NVCC_FLAGS + [f'-D{x}' for x in defines], name, headers()))
+        [nvcc()], os.path.join(CSRC, f'{name}.cu'), NVCC_FLAGS, name,
+        headers()))
     fn = getattr(lib, f'rt_{name}')
     fn.restype = ctypes.c_int
     fn.argtypes = argtypes
@@ -93,35 +89,14 @@ def build_log(name: str) -> str:
         return f.read()
 
 
-def build(fan: int = plain.GROUP, coop: int | None = None) -> ctypes.CDLL:
-    """Compile (once per source hash) and load the kernel library. A fan
-    other than GROUP builds the walk with that many members per group, a
-    `coop` the cooperative slab test up to that many wanting lanes
-    (variants that scripts/torch_walk_variants.py times)."""
-    if (fan, coop) not in _libs:
+def build() -> ctypes.CDLL:
+    """Compile (once per source hash) and load the kernel library."""
+    global _lib
+    if _lib is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        defines = (() if fan == plain.GROUP else (f'RT_CLUSTER_FAN={fan}',)) \
-            + (() if coop is None else (f'RT_COOP_MAX={coop}',))
-        _libs[fan, coop] = load(
-            'cluster_trace', [vp] * 4 + [ci] * 3 + [vp] * 7 + [ci, ci]
-            + [vp] * 5 + [ci, ci, ci] + [vp] * 5, defines)
-    return _libs[fan, coop]
-
-
-def cached_levels(kind: str, boxes: tuple, make):
-    """make() -> the group levels of the box tensors `boxes`, built once
-    and kept while each is the same tensor at the same version: a frame's
-    launches share them, and the trainer's table refresh makes new
-    tensors every step. (Built anew on each launch, their thirty-odd small
-    operations cost the host about a millisecond a launch.)"""
-    stamp = tuple((id(x), x._version) for x in boxes)
-    hit = _levels.get(kind)
-    if hit is not None and hit[0] == stamp and all(
-            r() is x for r, x in zip(hit[1], boxes)):
-        return hit[2]
-    levels = make()
-    _levels[kind] = (stamp, tuple(weakref.ref(x) for x in boxes), levels)
-    return levels
+        _lib = load('cluster_trace', [vp] * 4 + [ci] * 3 + [vp] * 7
+                    + [ci, ci] + [vp] * 5 + [ci, ci, ci] + [vp] * 5)
+    return _lib
 
 
 def check(name, x, dtype, shape, device):
@@ -139,14 +114,13 @@ def ptr(x):
 
 
 def launch(cl, o, d, tmin, tmax, any_hit: bool, time=None, mb: bool = False,
-           need_ab: bool = False, mode: str | None = None,
-           fan: int = plain.GROUP, coop: int | None = None):
+           need_ab: bool = False, mode: str | None = None):
     """Run the kernel on CUDA tensors -> (t, tri, a, b), as
     plain.trace_ids: any_hit is `cheap_any`; mb lerps the table's basis by
     `time`; a, b are None unless need_ab. `mode` names the launch in
-    MODES; `fan` and `coop` pick a variant of `build`."""
+    MODES."""
     global LAUNCHES
-    lib = build(fan, coop)
+    lib = build()
     R = o.shape[0]
     M, _, C = cl.p0.shape
     dev = o.device
@@ -173,9 +147,8 @@ def launch(cl, o, d, tmin, tmax, any_hit: bool, time=None, mb: bool = False,
         raise ValueError('the cluster slabs are copied in 16-byte pieces: '
                          'C must be a multiple of 4 and the tables aligned')
     # the member boxes and the walk's group levels over them
-    box, *levels = cached_levels(
-        f'cluster{fan}', (cl.bb_min, cl.bb_max), lambda: plain.box_levels(
-            cl, fan))
+    box, *levels = bundle.cached_levels(
+        'cluster', (cl.bb_min, cl.bb_max), lambda: plain.box_levels(cl))
     t = torch.empty(R, dtype=f32, device=dev)
     tri = torch.empty(R, dtype=torch.int32, device=dev)
     a = torch.empty(R, dtype=f32, device=dev) if need_ab else None

@@ -23,10 +23,11 @@ import torch
 from ...core.types import Scene
 from .. import icluster_trace as plain
 from .. import intersect as isect
+from ..bundle import cached_levels
 from ..cluster_trace import modes
 from ..intersect import Hit
 from ..iseg_trace import finish
-from .cluster_kernel import cached_levels, check, load, mode_name, ptr
+from .cluster_kernel import check, load, mode_name, ptr
 
 
 LAUNCHES = 0
@@ -48,7 +49,7 @@ def build() -> ctypes.CDLL:
 def walk_levels(icl):
     """The walk's group levels of the instance boxes and of the
     prototypes' cluster boxes, kept while those tensors stay the same
-    (cluster_kernel.cached_levels: the 77 launches of a final forest frame
+    (bundle.cached_levels: the 77 launches of a final forest frame
     share them; refresh_iclusters makes new ones)."""
     return (cached_levels('instances', (icl.ibb,),
                           lambda: plain.instance_levels(icl)),

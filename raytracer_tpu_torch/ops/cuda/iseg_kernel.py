@@ -22,9 +22,10 @@ import torch
 from ...core.types import Scene
 from .. import intersect as isect
 from .. import iseg_trace as plain
+from ..bundle import cached_levels
 from ..cluster_trace import modes
 from ..intersect import Hit
-from .cluster_kernel import cached_levels, check, load, mode_name, ptr
+from .cluster_kernel import check, load, mode_name, ptr
 
 LAUNCHES = 0
 MODES: collections.Counter = collections.Counter()

@@ -365,12 +365,13 @@ def test_group_levels_follow_the_tables():
     for x, y in zip(again, ict.proto_levels(icl.pbb)):
         assert torch.equal(x, y)
     cl = cluster_table(65, 4)
-    levels = ck.cached_levels('test', (cl.bb_min, cl.bb_max),
-                              lambda: ct.box_levels(cl, ct.GROUP))
-    assert ck.cached_levels('test', (cl.bb_min, cl.bb_max), None) is levels
+    levels = bundle.cached_levels('test', (cl.bb_min, cl.bb_max),
+                                  lambda: ct.box_levels(cl))
+    assert bundle.cached_levels('test', (cl.bb_min, cl.bb_max),
+                                None) is levels
     moved = dataclasses.replace(cl, bb_min=cl.bb_min - 1.0)
-    fresh = ck.cached_levels('test', (moved.bb_min, moved.bb_max),
-                             lambda: ct.box_levels(moved, ct.GROUP))
+    fresh = bundle.cached_levels('test', (moved.bb_min, moved.bb_max),
+                                 lambda: ct.box_levels(moved))
     assert fresh is not levels
-    for x, y in zip(fresh, ct.box_levels(moved, ct.GROUP)):
+    for x, y in zip(fresh, ct.box_levels(moved)):
         assert torch.equal(x, y)
