@@ -29,8 +29,10 @@ through `parallel/sharding.loss_and_grads_scanned`, Adam steps through
      instances, shallow prototype: the segment kernel) and `forest_standin`
      (200 trees, deep prototypes: the hierarchical instance kernel): the
      kernel against its plain version as in phase 4 (t, tri and inst bit
-     for bit), then the 1080p render at the scene's own settings as in
-     phase 5;
+     for bit), the segment kernel also at the frame's wavefront size, on
+     the middle 270 rows of the grid's 1080p camera rays (518,400, nearest)
+     and one sorted bounce from their hits (any-hit); then the 1080p render
+     at the scene's own settings as in phase 5;
   8. `instanced_teapots_standin` rendered at 64x48 on the CPU and on the
      card, held as in phase 6;
   9. the asset-free `final_forest_standin` at its defaults (204 alpha-cut
@@ -49,7 +51,9 @@ through `parallel/sharding.loss_and_grads_scanned`, Adam steps through
      12-sphere atrium (8,836 triangles) at 32,768 coherent and incoherent
      rays, nearest and any-hit at the bounds of phase 9 (every 4th lane
      starts past its hit, every 16th is dead), and on a random soup with
-     forced ties (duplicate triangles at other ids): bit for bit;
+     forced ties (duplicate triangles at other ids, in other triangle
+     ranges of the kernel's split grid): bit for bit; then at the 'pallas'
+     step's wavefront size, the atrium's 2,073,600 camera rays (nearest);
  13. the trainer at full width, bench.py's step on the port
      (`raytracer_tpu_torch.bench`: `sponza_standin`, 10 bounces, all six
      leaves, zero target, median of 5 after a warm-up): the cluster kernel
@@ -247,21 +251,19 @@ def compare_kernel(scene, cam, dev):
     return max_err, ms_k, ms_p, work.bound()
 
 
-def compare_full_wavefront(scene, cam, dev) -> float:
-    """Phase 4b: the cluster kernel against its plain version at the main
-    path's wavefront size: the 1080p frame's 2,073,600 camera rays
-    (nearest), then one bounce from their hits, random directions, sorted
-    as the integrator sorts a wavefront (dead rays last, then octant, then
-    the origin's Morton code), stopping at 0.5-12 units (any-hit): t and
-    tri bit for bit -> max |dt|. One timed call each after a warm-up; the
-    kernels line keeps the 32k-ray cases."""
-    o, d, _ = cam_mod.center_rays(cam, WIDTH, HEIGHT)
-    o, d = o.to(dev), d.to(dev)
+def compare_wavefront(tag, trace_k, trace_p, o, d, dev) -> float:
+    """A kernel against its plain version at a wavefront size of the main
+    path: camera rays o, d (nearest), then one bounce from their hits,
+    random directions, sorted as the integrator sorts a wavefront (dead
+    rays last, then octant, then the origin's Morton code), stopping at
+    0.5-12 units (any-hit): t, tri and inst bit for bit -> max |dt|.
+    trace(o, d, tmin, tmax, any_hit) -> Hit. One timed call each after a
+    warm-up; the kernels line keeps the 32k-ray cases."""
     R = o.shape[0]
     far = torch.full((R,), 1e12, device=dev)
     rs = np.random.default_rng(KEY + 7)
     f = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
-    first = ct.cluster_trace(scene, o, d, 0.0, 1e-3, far, False)
+    first = trace_p(o, d, 1e-3, far, False)
     alive = first.tri >= 0
     d2 = rs.normal(size=(R, 3))
     d2 /= np.linalg.norm(d2, axis=-1, keepdims=True)
@@ -273,19 +275,45 @@ def compare_full_wavefront(scene, cam, dev) -> float:
     for mode, (oo, dd, tmax, any_hit) in (
             ('nearest', (o, d, far, False)),
             ('any', (bounce['o'], bounce['d'], bounce['tmax'], True))):
-        args = (oo, dd, 0.0, 1e-3, tmax, any_hit)
-        t_k, hk = cuda_ms(lambda: ck.cluster_trace(scene, *args), reps=1)
-        t_p, hp = cuda_ms(lambda: ct.cluster_trace(scene, *args), reps=1)
+        args = (oo, dd, 1e-3, tmax, any_hit)
+        t_k, hk = cuda_ms(lambda: trace_k(*args), reps=1)
+        t_p, hp = cuda_ms(lambda: trace_p(*args), reps=1)
         hits = int((hp.tri >= 0).sum())
-        bad = int((hk.tri != hp.tri).sum())
+        bad = int(((hk.tri != hp.tri) | (hk.inst != hp.inst)).sum())
         err = float((hk.t - hp.t).abs().max())
         max_err = max(max_err, err)
-        phase('kernel_vs_plain_1080p', mode=mode, n=R, hits=hits,
-              tri_mismatch=bad, max_abs_dt=err, kernel_ms=t_k, plain_ms=t_p)
-        assert bad == 0, f'1080p {mode}: {bad} rays disagree'
-        assert err == 0.0, f'1080p {mode}: t disagrees'
+        phase(tag, mode=mode, n=R, hits=hits, tri_inst_mismatch=bad,
+              max_abs_dt=err, kernel_ms=t_k, plain_ms=t_p)
+        assert bad == 0, f'{tag} {mode}: {bad} rays disagree'
+        assert err == 0.0, f'{tag} {mode}: t disagrees'
         assert hits > R // 20, 'too few hits to compare'
     return max_err
+
+
+def compare_full_wavefront(scene, cam, dev) -> float:
+    """Phase 4b: the cluster kernel against its plain version at the main
+    path's wavefront size, the 1080p frame's 2,073,600 camera rays and one
+    sorted bounce from their hits (compare_wavefront)."""
+    o, d, _ = cam_mod.center_rays(cam, WIDTH, HEIGHT)
+    return compare_wavefront(
+        'kernel_vs_plain_1080p',
+        lambda *a: ck.cluster_trace(scene, a[0], a[1], 0.0, *a[2:]),
+        lambda *a: ct.cluster_trace(scene, a[0], a[1], 0.0, *a[2:]),
+        o.to(dev), d.to(dev), dev)
+
+
+def compare_segment_band(scene, cam, dev) -> float:
+    """Phase 7b: the segment kernel against its plain version on the
+    middle 270 rows of the grid's 1080p frame (518,400 camera rays, a
+    contiguous band: the plain walk stays within seconds) and one sorted
+    bounce from their hits (compare_wavefront)."""
+    o, d, _ = cam_mod.center_rays(cam, WIDTH, HEIGHT)
+    band = slice(WIDTH * (HEIGHT - 270) // 2, WIDTH * (HEIGHT + 270) // 2)
+    return compare_wavefront(
+        'iseg_kernel_vs_plain_1080p_band',
+        lambda *a: isk.iseg_trace(scene, a[0], a[1], 0.0, *a[2:]),
+        lambda *a: ist.iseg_trace(scene, a[0], a[1], 0.0, *a[2:]),
+        o[band].to(dev), d[band].to(dev), dev)
 
 
 def instanced_rays(scene, cam, dev):
@@ -626,6 +654,7 @@ def compare_mt(scene, cam, dev):
                   torch.where(lane % 16 == 3, -1.0, 1e12)))
     max_err, ms_k, ms_p = 0.0, 0.0, 0.0
     work = Work()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for kind, mode, o, d, tr, tmin, tmax in cases:
         args = (o, d, *tr, tmin, tmax)
         t_k, hk = cuda_ms(lambda: mtk.mt_trace(*args))
@@ -633,6 +662,8 @@ def compare_mt(scene, cam, dev):
         ms_k += t_k
         ms_p += t_p
         T = tr[0].shape[0]
+        # the triangle ranges of the kernel's grid (mt_kernel.split)
+        ranges = -(-T // mtk.split(N_RAYS, T, sms))
         live = int((tmin < tmax).sum())
         # every live (ray, triangle) pair; o, d, tmin, tmax and the corners
         # and flags in, t, tri, a, b out
@@ -645,12 +676,47 @@ def compare_mt(scene, cam, dev):
               triangles=T, live=live, hits=hits,
               tri_mismatch=int((hk[1] != hp[1]).sum()),
               **{f'max_abs_d{n}': e for n, e in errs.items() if n != 'tri'},
-              kernel_ms=t_k, plain_ms=t_p)
+              kernel_ms=t_k, plain_ms=t_p, triangle_ranges=ranges)
         assert max(errs.values()) == 0.0, f'{kind} {mode}: kernel != plain'
         assert hits > N_RAYS // 20, 'too few hits to compare'
         if kind == 'soup_ties':
-            assert bool((hk[1] < T - 64).all()), 'a tie went to the copy'
+            # the duplicates lie in other ranges of a split grid
+            assert ranges > 1 and bool((hk[1] < T - 64).all()), \
+                'a tie went to the copy'
+    max_err = max(max_err, compare_mt_frame(cam, tris, dev, sms))
     return max_err, ms_k, ms_p, work.bound()
+
+
+def compare_mt_frame(cam, tris, dev, sms) -> float:
+    """Phase 12b: the MT kernel against its plain version at the 'pallas'
+    step's wavefront size, the atrium's 2,073,600 camera rays (nearest,
+    one unsplit grid; the plain version in slices of 2**18 rays): t, tri,
+    a and b bit for bit -> max |error|. One timed call after a warm-up."""
+    o, d, _ = cam_mod.center_rays(cam, WIDTH, HEIGHT)
+    o, d = o.to(dev), d.to(dev)
+    R = o.shape[0]
+    tmin = torch.full((R,), 1e-3, device=dev)
+    tmax = torch.full((R,), 1e12, device=dev)
+    t_k, hk = cuda_ms(lambda: mtk.mt_trace(o, d, *tris, tmin, tmax), reps=1)
+
+    def plain():
+        parts = [tmt.mt_trace(o[s:s + (1 << 18)], d[s:s + (1 << 18)], *tris,
+                              tmin[s:s + (1 << 18)], tmax[s:s + (1 << 18)])
+                 for s in range(0, R, 1 << 18)]
+        return [torch.cat(x) for x in zip(*parts)]
+    t_p, hp = cuda_ms(plain, reps=1)
+    T = tris[0].shape[0]
+    ranges = -(-T // mtk.split(R, T, sms))
+    errs = {n: float((x.double() - y.double()).abs().max())
+            for n, x, y in zip(('t', 'tri', 'a', 'b'), hk, hp)}
+    hits = int((hp[1] >= 0).sum())
+    phase('mt_kernel_vs_plain_1080p', mode='nearest', n=R, triangles=T,
+          hits=hits, tri_mismatch=int((hk[1] != hp[1]).sum()),
+          **{f'max_abs_d{n}': e for n, e in errs.items() if n != 'tri'},
+          kernel_ms=t_k, plain_ms=t_p, triangle_ranges=ranges)
+    assert max(errs.values()) == 0.0, '1080p MT: kernel != plain'
+    assert hits > R // 20, 'too few hits to compare'
+    return max(errs['t'], errs['a'], errs['b'])
 
 
 def check_grads(grads, tag, nonzero=('vertices', 'kd', 'rect_power')):
@@ -850,6 +916,8 @@ def main(dev=None) -> int:
         assert icl.num_instances == n_inst
         err, t_k, t_p, bnd = compare_instanced(
             scene, cam, getattr(kernel, name), getattr(plain, name), dev)
+        if kernel is isk:
+            err = max(err, compare_segment_band(scene, cam, dev))
         launches, _ = render_cell(scene, cam, st, key, kernel,
                                   f'render_1080p_{name}', **fields)
         records.append({'name': name, 'route': 'cuda',

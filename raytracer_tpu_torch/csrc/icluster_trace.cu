@@ -53,7 +53,7 @@ constexpr int kThreads = 128;
 // at least 4 blocks an SM: up to 128 registers a thread (the walk's state
 // spilled at the 64 that ptxas picked unbounded)
 constexpr int kMinBlocks = 4;
-constexpr int kFan = 8;   // members per group box, every level
+using rt::kFan;   // members per group box, every level
 
 // A box table and its group levels: level 0 holds the members, level l > 0
 // the unions of kFan consecutive boxes of level l - 1. Level l is a (6,

@@ -84,11 +84,14 @@ def rcp(v):
     return 1.0 / torch.where(v.abs() < TINY, tiny, v)
 
 
-def _mt(o, d, p0, e1, e2):
+def _mt(o, d, p0, e1, e2, real=None):
     """The kernel's Moller-Trumbore on the stored basis; o, d (P, 3, 1),
-    p0/e1/e2 (P, 3, C) -> t, a, b, det of shape (P, C)."""
+    p0/e1/e2 (P, 3, C) -> t, a, b, det of shape (P, C). `real` (P, C)
+    marks the real lanes, which the test counters count (the kernels test
+    no padding lane); all lanes count when it is None."""
     if COUNT_TESTS:
-        TESTS['tri'] += p0.shape[0] * p0.shape[2]
+        TESTS['tri'] += p0.shape[0] * p0.shape[2] if real is None \
+            else int(real.sum())
     ox, oy, oz = o[:, 0], o[:, 1], o[:, 2]
     dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
     e1x, e1y, e1z = e1[:, 0], e1[:, 1], e1[:, 2]
@@ -262,9 +265,11 @@ def trace_ids(cl, o, d, tmin, tmax, any_hit: bool, time=None,
             r = ri[s:s + PAIR_CHUNK]
             c = ci[s:s + PAIR_CHUNK]
             p0, e1, e2 = lerp_basis(cl, c, None if time is None else time[r])
-            t, a, b, det = _mt(o[r, :, None], d[r, :, None], p0, e1, e2)
+            real = cl.tri[c] >= 0
+            t, a, b, det = _mt(o[r, :, None], d[r, :, None], p0, e1, e2,
+                               real)
             ok = (a >= 0.0) & (a <= 1.0) & (b >= 0.0) & (a + b <= 1.0) \
-                & (det != 0.0) & (cl.tri[c] >= 0) \
+                & (det != 0.0) & real \
                 & (t >= tmin[r, None]) & (t < best_t[r, None])
             if any_hit:
                 best_idx[r[ok.any(dim=1)]] = 0

@@ -5,7 +5,10 @@ instanced scenes with shallow prototypes, in all its modes: nearest,
 `cheap_any` and `need_ab` (alpha scenes, whose any-hit rays are traced as
 nearest ones). Built and bound as ops/cuda/cluster_kernel.py builds its kernel
 (nvcc -fmad=false into a plain C library, ctypes, PyTorch's current
-stream).
+stream). Beside the table the kernel takes the walk's group levels, the
+real lanes of each pool row and the route of the pool's rows into shared
+memory (`walk_tables`), kept while the table's tensors stay the same
+(bundle.cached_levels).
 
 For CUDA tensors `iseg_trace` launches the kernel or raises; for CPU tensors
 it runs the plain PyTorch version (ops/iseg_trace.py), which is the
@@ -29,6 +32,10 @@ from .cluster_kernel import check, load, mode_name, ptr
 
 LAUNCHES = 0
 MODES: collections.Counter = collections.Counter()
+# the resident route: a pool whose real rows' slabs (10 C floats each) fit
+# in this many bytes is copied whole into each block's shared memory (3
+# blocks an SM at the most); a larger one is staged row by row per warp
+RESIDENT_BYTES = 72 * 1024
 _lib = None
 
 
@@ -37,9 +44,40 @@ def build() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        _lib = load('iseg_trace',
-                    [vp] * 9 + [ci] * 5 + [vp] * 4 + [ci, ci] + [vp] * 6)
+        _lib = load('iseg_trace', [vp] * 5 + [ci] * 5 + [vp] * 8 + [ci] * 3
+                    + [vp] * 4 + [ci, ci] + [vp] * 6)
     return _lib
+
+
+def row_lanes(tri):
+    """(Mtot, C) pool tri ids -> (Mtot,) int32 real lanes of each row (the
+    kernel tests a row up to its count: real lanes come first)."""
+    return (tri >= 0).sum(1).to(torch.int32)
+
+
+def pool_slots(lanes, C: int):
+    """The kernel's route for a pool with `lanes` real lanes a row ->
+    (slot, n_slots): slot (Mtot,) int32 numbers the rows with real lanes
+    0, 1, ... in row order, -1 for the others, when their slabs fit in
+    RESIDENT_BYTES (the resident route, n_slots of them); else n_slots = 0
+    (each warp stages the rows it visits)."""
+    real = lanes > 0
+    n_slots = int(real.sum())
+    if n_slots * 10 * C * 4 > RESIDENT_BYTES:
+        return torch.full_like(lanes, -1), 0
+    slot = torch.cumsum(real.to(torch.int32), 0, dtype=torch.int32) - 1
+    return torch.where(real, slot, -1).to(torch.int32), n_slots
+
+
+def walk_tables(icl):
+    """What the kernel walks besides the table: the (6, n) boxes of the
+    real segments and their SEG_DEPTH group levels, the real lanes of each
+    pool row and the route (pool_slots)."""
+    E = icl.num_entries
+    lanes = row_lanes(icl.tri)
+    slot, n_slots = pool_slots(lanes, icl.tri.shape[1])
+    return ([icl.sbb[:, :E].contiguous()] + plain.segment_levels(icl), lanes,
+            slot, n_slots)
 
 
 def launch(icl, o, d, tmin, tmax, any_hit: bool, need_ab: bool = False,
@@ -66,20 +104,24 @@ def launch(icl, o, d, tmin, tmax, any_hit: bool, need_ab: bool = False,
         check(name, x, dt, shape, dev)
     if R >= 2 ** 31 or Mtot * 3 * C >= 2 ** 31 or E * 12 >= 2 ** 31:
         raise ValueError('ray or table size exceeds the int32 indexing')
-    g1, g2 = cached_levels('segments', (icl.sbb,),
-                           lambda: plain.segment_levels(icl))
+    pool = (icl.p0, icl.e1, icl.e2, icl.tri)
+    if C % 4 or any(x.data_ptr() % 16 for x in pool):
+        raise ValueError('the pool rows are copied in 16-byte pieces: C must '
+                         'be a multiple of 4 and the pool aligned')
+    boxes, lanes, slot, n_slots = cached_levels(
+        'segments', (icl.sbb, icl.tri), lambda: walk_tables(icl))
     t = torch.empty(R, dtype=f32, device=dev)
     tri = torch.empty(R, dtype=i32, device=dev)
     inst = torch.empty(R, dtype=i32, device=dev)
     a = torch.empty(R, dtype=f32, device=dev) if need_ab else None
     b = torch.empty(R, dtype=f32, device=dev) if need_ab else None
     err = lib.rt_iseg_trace(
-        icl.sbb.data_ptr(), icl.smeta.data_ptr(), icl.strf.data_ptr(),
-        g1.data_ptr(), g2.data_ptr(), icl.p0.data_ptr(), icl.e1.data_ptr(),
-        icl.e2.data_ptr(), icl.tri.data_ptr(), E, icl.num_entries,
-        g1.shape[1], g2.shape[1], C, o.data_ptr(), d.data_ptr(),
-        tmin.data_ptr(), tmax.data_ptr(), R, int(any_hit), t.data_ptr(),
-        tri.data_ptr(), inst.data_ptr(), ptr(a), ptr(b),
+        *(x.data_ptr() for x in boxes), *(x.shape[1] for x in boxes),
+        icl.smeta.data_ptr(), icl.strf.data_ptr(), icl.p0.data_ptr(),
+        icl.e1.data_ptr(), icl.e2.data_ptr(), icl.tri.data_ptr(),
+        lanes.data_ptr(), slot.data_ptr(), Mtot, n_slots, C, o.data_ptr(),
+        d.data_ptr(), tmin.data_ptr(), tmax.data_ptr(), R, int(any_hit),
+        t.data_ptr(), tri.data_ptr(), inst.data_ptr(), ptr(a), ptr(b),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f'iseg_trace kernel launch failed: CUDA error '

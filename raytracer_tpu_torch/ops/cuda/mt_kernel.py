@@ -5,7 +5,10 @@
 for CUDA tensors it launches the kernel (compiled with nvcc on first use
 into the package's git-ignored build directory, called through ctypes on
 PyTorch's current stream) or raises; for CPU tensors it runs the plain
-PyTorch version (ops/mt_trace.py), which is the kernel's reference.
+PyTorch version (ops/mt_trace.py), which is the kernel's reference. The
+wrapper decides from R and T whether the kernel splits the triangle range
+across blocks (`split`), and allocates the kernel's scratch: the
+triangles' float4 rows and, for a split grid, the per-ray merge keys.
 `brute_trace` replaces raytracer_tpu/ops/pallas/__init__.py
 :pallas_brute_trace. `LAUNCHES` counts kernel launches and `MODES` counts
 them by mode (the kernel has one: 'nearest').
@@ -21,11 +24,16 @@ from ...core.types import Scene
 from .. import intersect as isect
 from .. import mt_trace as plain
 from ..intersect import Hit
-from .cluster_kernel import check, load
+from .cluster_kernel import check, load, ptr
 
 LAUNCHES = 0
 MODES: collections.Counter = collections.Counter()
+BLOCK_RAYS = 512   # rays a block (csrc/mt_trace.cu kBlockRays)
+TILE = 256         # triangles a staged tile (csrc/mt_trace.cu kTile)
+# a grid fills the card at this many blocks an SM
+FILL = 4
 _lib = None
+_sms: dict = {}
 
 
 def build() -> ctypes.CDLL:
@@ -34,8 +42,19 @@ def build() -> ctypes.CDLL:
     if _lib is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         _lib = load('mt_trace', [vp] * 4 + [ci] + [vp] * 4 + [ci]
-                    + [vp] * 5)
+                    + [vp] * 6 + [ci, vp])
     return _lib
+
+
+def split(R: int, T: int, sms: int) -> int:
+    """Triangles per block of the grid's y dimension, a multiple of TILE:
+    all of them (one range) when the R rays' blocks alone fill FILL blocks
+    an SM of `sms`; else ranges of whole tiles, short enough that there
+    are at least as many ranges as the fill needs, or one a tile."""
+    ray_blocks = max(1, -(-R // BLOCK_RAYS))
+    tiles = max(1, -(-T // TILE))
+    parts = max(1, -(-FILL * sms // ray_blocks))
+    return max(1, tiles // parts) * TILE
 
 
 def launch(o, d, p0, p1, p2, valid, tmin, tmax):
@@ -54,14 +73,22 @@ def launch(o, d, p0, p1, p2, valid, tmin, tmax):
         check(name, x, dt, shape, dev)
     if 3 * R >= 2 ** 31 or 3 * T >= 2 ** 31:
         raise ValueError('ray or triangle count exceeds the int32 indexing')
+    if dev not in _sms:
+        _sms[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    per_split = split(R, T, _sms[dev])
     t = torch.empty(R, dtype=f32, device=dev)
     tri = torch.empty(R, dtype=torch.int32, device=dev)
     a = torch.empty(R, dtype=f32, device=dev)
     b = torch.empty(R, dtype=f32, device=dev)
+    # the float4 triangle rows, and the split grid's merge keys
+    tri4 = torch.empty((T, 3, 4), dtype=f32, device=dev)
+    keys = torch.empty(R, dtype=torch.int64, device=dev) \
+        if per_split < T else None
     err = lib.rt_mt_trace(
         p0.data_ptr(), p1.data_ptr(), p2.data_ptr(), valid.data_ptr(), T,
         o.data_ptr(), d.data_ptr(), tmin.data_ptr(), tmax.data_ptr(), R,
         t.data_ptr(), tri.data_ptr(), a.data_ptr(), b.data_ptr(),
+        tri4.data_ptr(), ptr(keys), per_split,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f'mt_trace kernel launch failed: CUDA error {err}')

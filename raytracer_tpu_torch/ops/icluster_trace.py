@@ -122,7 +122,7 @@ def trace_ids(icl, o, d, tmin, tmax, any_hit: bool, need_ab: bool = False):
                 rj = r[pj]
                 p0, e1, e2, tid = pool_slabs(icl, (off[pj] + cj)[:, None])
                 t, a, b, det = _mt(oo[pj, :, None], dd[pj, :, None], p0, e1,
-                                   e2)
+                                   e2, tid >= 0)
                 ok = (a >= 0.0) & (a <= 1.0) & (b >= 0.0) & (a + b <= 1.0) \
                     & (det != 0.0) & (tid >= 0) \
                     & (t >= tmin[rj, None]) & (t < best_t[rj, None])

@@ -33,8 +33,8 @@ Rays in 32-ray blocks that cannot reach the table's box are culled first
 conservative, so it changes no hit.
 
 Vectorised over rays, with the CUDA kernel's cull: the segments are
-walked over two levels of 32-wide union boxes in table order
-(bundle.group_levels; cluster_trace.walk), in chunks of one 1,024-segment
+walked over four levels of fan-out-8 union boxes in table order
+(bundle.group_levels; cluster_trace.walk), in chunks of one 512-segment
 group, a segment's key computed only where its groups' keys beat the best
 t. Each chunk's (ray, segment) pairs whose box passes are tested together
 against the best t of the chunk's start, which tests a superset of the
@@ -56,10 +56,12 @@ from .cluster_trace import (_mt, modes, rcp, reduce_best,  # noqa: F401
 from .intersect import Hit
 
 PAIR_CHUNK = 4096
-# the segment kernel's group walk: two levels of 32-wide union boxes over
-# table order (32 and 1,024 segments)
-SEG_GROUP = 32
-SEG_DEPTH = 2
+# the segment kernel's group walk (csrc/iseg_trace.cu kFan, kDepth): four
+# levels of fan-out-8 union boxes over table order (8, 64, 512 and 4,096
+# segments; a 100,000-instance grid's 200,000 segments give a top level of
+# 49 groups)
+SEG_GROUP = 8
+SEG_DEPTH = 4
 
 # number of calls of the plain version, so a run can show which path it took
 CALLS = 0
@@ -89,8 +91,8 @@ def pool_slabs(icl, rows):
 
 
 def segment_levels(icl):
-    """The two group levels of the segment boxes (32 and 1,024 segments),
-    over the num_entries real ones."""
+    """The SEG_DEPTH group levels of the segment boxes (8, 64, 512 and
+    4,096 segments), over the num_entries real ones."""
     return bundle.group_levels(icl.sbb[:, :icl.num_entries], SEG_GROUP,
                                SEG_DEPTH)
 
@@ -116,18 +118,20 @@ def trace_ids(icl, o, d, tmin, tmax, any_hit: bool, need_ab: bool = False):
     def best():
         return torch.where(best_key >= 0, -torch.inf, best_t) if any_hit \
             else best_t
-    # chunks of one top-level group (1,024 segments)
+    # chunks of one group of the level below the top (512 segments)
     for ri, ei in walk(icl.sbb[:, :E], segment_levels(icl), o, inv, tmin,
-                       tmax, best, fan=SEG_GROUP):
+                       tmax, best, SEG_GROUP, SEG_DEPTH - 1):
         for p in range(0, ri.shape[0], PAIR_CHUNK):
             r = ri[p:p + PAIR_CHUNK]
             e = ei[p:p + PAIR_CHUNK]
             oo, dd = to_object(icl.strf[e], o[r], d[r])
             rows = icl.smeta[e, 1].long()[:, None] + kin
             p0, e1, e2, tid = pool_slabs(icl, rows)
-            t, a, b, det = _mt(oo[:, :, None], dd[:, :, None], p0, e1, e2)
+            real = tid >= 0
+            t, a, b, det = _mt(oo[:, :, None], dd[:, :, None], p0, e1, e2,
+                               real)
             ok = (a >= 0.0) & (a <= 1.0) & (b >= 0.0) & (a + b <= 1.0) \
-                & (det != 0.0) & (tid >= 0) \
+                & (det != 0.0) & real \
                 & (t >= tmin[r, None]) & (t < best_t[r, None])
             if any_hit:
                 best_key[r[ok.any(dim=1)]] = 0

@@ -2,30 +2,36 @@
 
     python3 scripts/torch_frame_profile.py [--scene NAME] [--tiles 17,19,21]
                                            [--trace PATH] [--train]
+                                           [--pallas]
 
 Renders --scene (default `sponza_standin`: 1 spp, 10 bounces; or
 `instanced_grid_standin`, `forest_standin` or `final_forest_standin` at
-their own settings) at 1920x1080 with raytracer_tpu_torch on CUDA. For each ray tile size 2**k in
---tiles it prints the median wall time of 3 renders after a warm-up. Then
-it profiles one render at the default tile with torch.profiler and prints
-the device time by kernel name, the trace kernels' share, the device
-busy share (device kernel time over wall time) and, for alpha scenes, the
-alpha march's passes and host syncs. --trace writes the Chrome
-trace.
+their own settings, `final_forest_standin_no_trees` for the last without
+trees) at 1920x1080 with raytracer_tpu_torch on CUDA. For each ray tile
+size 2**k in --tiles it prints the median wall time of 3 renders after a
+warm-up. Then it profiles one render at the default tile with
+torch.profiler and prints the device time by kernel name, the trace
+kernels' time and share, the device busy share (device kernel time over
+wall time) and, for alpha scenes, the alpha march's passes and host
+syncs. --trace writes the Chrome trace.
 
 --train does the same for one training step (parallel/sharding
 .loss_and_grads_scanned: forward + backward to all six parameter leaves
 against a zero target): per tile the median wall of 3 steps and the peak
 memory (or "oom"); then one profiled step at the largest tile that fits,
-split into forward and backward device time with the top kernels of each;
-then the backward device time of each leaf alone (a profiled step whose
-only leaf that requires grad is that one). Needs a CUDA device.
+split into forward and backward device time with the top kernels of each
+and the trace kernels' time; then the backward device time of each leaf
+alone (a profiled step whose only leaf that requires grad is that one).
+--pallas takes the 'pallas' cell instead: `sponza_standin` cut to 12
+spheres (8,836 triangles), intersector 'pallas' (the MT kernel). Needs a
+CUDA device.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -44,6 +50,10 @@ from raytracer_tpu_torch.render import camera as cam_mod  # noqa: E402
 from raytracer_tpu_torch.scenes import registry  # noqa: E402
 
 DEFAULT_TILE = 1 << 21      # chip_smoke.py's tile: the whole 1080p frame
+# the port's CUDA trace kernels, by the names of their __global__ functions
+# (mt_trace_kernel: the MT sweep before it was split in three)
+TRACE_KERNEL = re.compile(r'(cluster_trace|iseg_trace|icluster_trace|'
+                          r'mt_trace|mt_prep|mt_sweep|mt_resolve)_kernel')
 
 
 def wall(fn, reps=3):
@@ -143,8 +153,11 @@ def main_train(args, scene, cam, st) -> int:
     total_us = sum(e.device_time_total for e in dev_ev)
     # the profiler slows the host: the busy share is also given against
     # the unprofiled median step at this tile
+    trace_us = sum(e.device_time_total for e in dev_ev
+                   if TRACE_KERNEL.search(e.name))
     rec = {'train_profile_tile': tile, 'profiled_wall_s': wall_s,
            'device_kernel_s': total_us / 1e6,
+           'trace_kernel_s': trace_us / 1e6,
            'device_busy_share': total_us / 1e6 / wall_s,
            'device_share_of_unprofiled_step':
                total_us / 1e6 / fits[max(fits)],
@@ -181,17 +194,24 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument('--scene', default='sponza_standin',
                     choices=('sponza_standin', 'instanced_grid_standin',
-                             'forest_standin', 'final_forest_standin'))
+                             'forest_standin', 'final_forest_standin',
+                             'final_forest_standin_no_trees'))
     ap.add_argument('--tiles', default='17,19,21')
     ap.add_argument('--trace', default=None)
     ap.add_argument('--train', action='store_true')
+    ap.add_argument('--pallas', action='store_true')
     args = ap.parse_args()
     assert torch.cuda.is_available(), 'needs a CUDA device'
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True).stdout.strip())
-    scene, cam, st = registry.make(args.scene, width=1920, height=1080,
-                                   ray_tile=DEFAULT_TILE)
+    name, kw = args.scene, {}
+    if name == 'final_forest_standin_no_trees':
+        name, kw = 'final_forest_standin', dict(n_trees=0)
+    if args.pallas:
+        name, kw = 'sponza_standin', dict(n_spheres=12, intersector='pallas')
+    scene, cam, st = registry.make(name, width=1920, height=1080,
+                                   ray_tile=DEFAULT_TILE, **kw)
     if args.train:
         return main_train(args, scene, cam, st)
     key = rng.PRNGKey(2024)
@@ -222,8 +242,9 @@ def main() -> int:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
     total_us = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
-    trace_us = sum(v for n, v in by_name.items() if '_trace_kernel' in n)
-    print(json.dumps({'scene': args.scene, 'profiled_wall_s': wall_s,
+    trace_us = sum(v for n, v in by_name.items() if TRACE_KERNEL.search(n))
+    print(json.dumps({'scene': args.scene, 'pallas': args.pallas,
+                      'profiled_wall_s': wall_s,
                       'device_kernel_s': total_us / 1e6,
                       'device_busy_share': total_us / 1e6 / wall_s,
                       'trace_kernel_s': trace_us / 1e6,

@@ -5,8 +5,12 @@
 #   * chip_smoke.py: each kernel's time against its plain version at
 #     32,768 rays, the 1080p frames' walls and the training step's;
 #   * scripts/torch_frame_profile.py at one 2**21-ray tile: device time by
-#     kernel for the training step (--train) on sponza_standin, and for the
-#     sponza_standin, final_forest_standin and forest_standin frames.
+#     kernel for the training step (--train) on sponza_standin and for the
+#     'pallas' step (--train --pallas: the MT kernel), and for the
+#     sponza_standin, final_forest_standin (with and without trees),
+#     forest_standin and instanced_grid_standin frames. Both turns run this
+#     checkout's profile script (copied into PARENT_DIR), so that they take
+#     the same measurements.
 #
 #   scripts/torch_parent_vs_change.sh PARENT_DIR [OUT_DIR]
 #
@@ -20,6 +24,7 @@ parent=$(cd "$1" && pwd)
 here=$(cd "$(dirname "$0")/.." && pwd)
 out=${2:-$here/chiprun_out/ab}
 mkdir -p "$out"
+cp "$here/scripts/torch_frame_profile.py" "$parent/scripts/"
 turn=0
 for tree in "$parent" "$here" "$here" "$parent"; do
   turn=$((turn + 1))
@@ -31,7 +36,12 @@ for tree in "$parent" "$here" "$here" "$parent"; do
   log="$out/${turn}_${tag}_train.txt"
   python3 scripts/torch_frame_profile.py --train --tiles 21 > "$log" 2>&1
   echo "$turn $tag profile train rc=$?"
-  for scene in sponza_standin final_forest_standin forest_standin; do
+  log="$out/${turn}_${tag}_train_pallas.txt"
+  python3 scripts/torch_frame_profile.py --train --pallas --tiles 21 \
+    > "$log" 2>&1
+  echo "$turn $tag profile train pallas rc=$?"
+  for scene in sponza_standin final_forest_standin \
+      final_forest_standin_no_trees forest_standin instanced_grid_standin; do
     log="$out/${turn}_${tag}_${scene}.txt"
     python3 scripts/torch_frame_profile.py --scene "$scene" --tiles 21 \
       > "$log" 2>&1

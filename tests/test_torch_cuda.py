@@ -34,7 +34,8 @@ from raytracer_tpu_torch.render import camera as cam_mod
 from raytracer_tpu_torch.scenes import registry
 
 from .torch_port_util import (box_rays, cluster_table, cpu, grazing_rays,
-                              instanced_table, table_rays, triangle_soup)
+                              instanced_table, segment_table, table_rays,
+                              triangle_soup)
 
 pytestmark = pytest.mark.cuda
 R = 4096
@@ -556,3 +557,98 @@ def test_icluster_walk_matches_plain(dev, n_inst, mode):
         if w is not None:
             np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy(),
                                           err_msg=f)
+
+
+# the segment kernel's tables: (instances, prototype rows); the pool's real
+# rows fit in shared memory (the resident route) or not (staged per warp)
+SEGMENT_TABLES = {'resident_65': (65, (1, 2, 3)),
+                  'resident_2600': (2600, (1, 5, 8)),
+                  'staged_65': (65, (1, 2, 3, 4, 5, 6, 7, 8)),
+                  'staged_600': (600, (8, 8, 8, 8, 5))}
+
+
+def _segment_rays(host, card, dev, seed):
+    """_walk_rays of a segment table (grazing its level-1 group boxes),
+    with two warp patterns in front: 16 warps of one ray repeated on all
+    32 lanes (every lane wants every row: each tests its own ray), and 16
+    warps with lane 0 alone live (a single wanting lane: the cooperative
+    test)."""
+    E = host.num_entries
+    box = (host.sbb[:3, :E].amin(1), host.sbb[3:, :E].amax(1))
+    o, d, _, tmin, tmax = _walk_rays(host, card.sbb[:, :E], box, dev, seed)
+    lane = torch.arange(1024, device=dev)
+    # rays aimed at the table's triangles, each repeated over a warp
+    o[:512], d[:512] = o[1024:1536:32].repeat_interleave(32, 0), \
+        d[1024:1536:32].repeat_interleave(32, 0)
+    tmax[:512] = 1e12
+    tmax[512:1024] = torch.where(lane[512:] % 32 == 0, 1e12, -1.0)
+    return o, d, tmin, tmax
+
+
+@pytest.mark.parametrize('mode', sorted(WALK_MODES))
+@pytest.mark.parametrize('table', sorted(SEGMENT_TABLES))
+def test_iseg_walk_matches_plain(dev, table, mode):
+    """The segment kernel's warp walk, on both routes of the pool into
+    shared memory, against the plain walk, bit for bit (t, tri, inst, a,
+    b), in every mode: segment tables that are not multiples of 8, 64 or
+    4,096 (2,600 instances: over 4,096 segments, a linear top level of 2
+    groups), prototypes of 1-8 rows with padding rows, rows of 1 to 128
+    real lanes; a warp of one ray on every lane, a warp with one live lane,
+    and warps where dead, live and early-done any-hit lanes mix."""
+    any_hit, need_ab = WALK_MODES[mode]
+    n_inst, protos = SEGMENT_TABLES[table]
+    host = segment_table(n_inst, protos, n_inst)
+    card = host.to(dev)
+    _, n_slots = isk.pool_slots(isk.row_lanes(host.tri), host.tri.shape[1])
+    assert (n_slots > 0) == table.startswith('resident')
+    o, d, tmin, tmax = _segment_rays(host, card, dev, n_inst)
+    want = ist.trace_ids(card, o, d, tmin, tmax, any_hit, need_ab)
+    n0 = isk.LAUNCHES
+    got = isk.launch(card, o, d, tmin, tmax, any_hit, need_ab)
+    torch.cuda.synchronize()
+    assert isk.LAUNCHES == n0 + 1
+    assert int((want[1] >= 0).sum()) > R // 20
+    assert int((want[1][:512] >= 0).sum()) > 32
+    for g, w, f in zip(got, want, ('t', 'tri', 'inst', 'a', 'b')):
+        if w is not None:
+            np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy(),
+                                          err_msg=f)
+
+
+# the MT kernel's cases: (triangles, rays, split grid?)
+MT_CASES = {'T1': (1, R, True), 'T100_one_tile': (100, R, True),
+            'T1000': (1000, R + 37, True), 'T4133_split': (4133, R, True),
+            'T4133_unsplit': (4133, R + 37, False)}
+
+
+@pytest.mark.parametrize('case', sorted(MT_CASES))
+def test_mt_kernel_grids(dev, case, monkeypatch):
+    """The MT kernel bit for bit with its plain version (t, tri, a, b) on
+    soups of 1, 100 (less than a tile), 1,000 and 4,133 triangles (not
+    multiples of the tile), R and R + 37 rays (not a multiple of the
+    block's 512), on a split grid, whose exact ties (the soup's last 64
+    triangles repeat its first 64) lie in different ranges, and on an
+    unsplit one; the first 1,024 rays dead (two blocks that leave at
+    once), and negative t allowed on every 5th ray."""
+    T, n, split = MT_CASES[case]
+    if not split:
+        monkeypatch.setattr(mtk, 'FILL', 0)
+    o, d, p0, p1, p2, valid, tmin, tmax, _ = triangle_soup(
+        max(T, 64 + 1), n, seed=T)
+    p0, p1, p2, valid = p0[:T], p1[:T], p2[:T], valid[:T]
+    if T < mtk.TILE:
+        valid[:] = 1      # the soup's padding lanes start at id 0
+    tmin[::5] = -np.inf
+    tmin[:1024], tmax[:1024] = 1e-3, -1.0
+    args = [torch.from_numpy(np.ascontiguousarray(x))
+            for x in (o, d, p0, p1, p2, valid, tmin, tmax)]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    per = mtk.split(n, T, sms)
+    assert (per < T) == (split and T > mtk.TILE)
+    want = tmt.mt_trace(*args)
+    got = mtk.mt_trace(*[x.to(dev) for x in args])
+    torch.cuda.synchronize()
+    assert int((want[1] >= 0).sum()) > 0
+    for g, w, f in zip(got, want, ('t', 'tri', 'a', 'b')):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy(), err_msg=f)
+    assert (got[1].cpu()[:1024] == -1).all()

@@ -26,11 +26,12 @@ from raytracer_tpu_torch.ops import intersect as isect
 from raytracer_tpu_torch.ops import iseg_trace as ist
 from raytracer_tpu_torch.ops.cuda import cluster_kernel as ck
 from raytracer_tpu_torch.ops.cuda import icluster_kernel as ick
+from raytracer_tpu_torch.ops.cuda import iseg_kernel as isk
 from raytracer_tpu_torch.render import camera as cam_mod
 from raytracer_tpu_torch.scenes import registry
 
 from .torch_port_util import (box_rays, cluster_table, cpu, grazing_rays,
-                              instanced_table, table_rays)
+                              instanced_table, segment_table, table_rays)
 
 R = 256
 # the reduced final forest of the CPU/GPU parity check (chip_smoke.py)
@@ -150,7 +151,8 @@ def _assert_close(got, want, fields):
                                    atol=1e-5, err_msg=k)
 
 
-@pytest.mark.parametrize('tracer', ['cluster', 'segment', 'hierarchical'])
+@pytest.mark.parametrize('tracer', ['cluster', 'segment', 'hierarchical',
+                                    'segment_table'])
 def test_grouped_tracers_match_brute_force(tracer):
     """Camera rays, and rays that pass 1e-4 of a box's extent inside or
     outside an edge of a level-1 group box: the grouped plain tracers
@@ -158,7 +160,23 @@ def test_grouped_tracers_match_brute_force(tracer):
     (isect.brute_force_trace; for the instanced tables every (instance,
     triangle) in object space). Rays exactly on a group box's edge pass
     exactly by a cluster box's and its triangles' too, where the slab test
-    and the sweep round apart; test_walk_matches_flat_scan takes those."""
+    and the sweep round apart; test_walk_matches_flat_scan takes those.
+    `segment_table` is a synthetic segment table of 300 instances of
+    prototypes of 1-8 pool rows (rays aimed at its triangles in place of
+    camera rays)."""
+    if tracer == 'segment_table':
+        icl = segment_table(300, tuple(range(1, 9)), 4)
+        o1, d1 = (torch.from_numpy(x) for x in table_rays(icl, R // 2, 5))
+        o2, d2 = (torch.from_numpy(x) for x in grazing_rays(
+            ist.segment_levels(icl)[0], R // 2, 7, parallel=False,
+            nudge=1e-4))
+        o, d = torch.cat([o1, o2]), torch.cat([d1, d2])
+        tmin, tmax = torch.full((R,), 1e-3), torch.full((R,), 1e12)
+        tmax[::7] = -1.0
+        got = ist.trace_ids(icl, o, d, tmin, tmax, False, True)
+        _assert_close(got, _instanced_brute(icl, o, d, tmin, tmax),
+                      ('t', 'tri', 'inst', 'a', 'b'))
+        return
     if tracer == 'cluster':
         scene, cam, _ = cpu(registry.sponza_standin, 32, 24, max_bounces=1,
                             n_spheres=12)
@@ -231,25 +249,39 @@ def _counted(fn, monkeypatch=None):
 
 
 def _walk_cases():
-    """(name, table, trace(table, o, d, tmin, tmax, any_hit, time, need_ab)
-    -> outputs, rays, mb) of the synthetic tables."""
+    """name -> () -> (table, its world box, its walked (6, n) boxes,
+    trace(o, d, tmin, tmax, any_hit, time, need_ab) -> outputs) of the
+    synthetic tables."""
     def cluster(M, mb):
         cl = cluster_table(M, M, mb=mb)
         real = cl.tri[:, 0] >= 0
         box = (cl.bb_min[real].amin(0), cl.bb_max[real].amax(0))
-        return cl, box, lambda *a: ct.trace_ids(cl, *a)
+        return cl, box, torch.cat([cl.bb_min.T, cl.bb_max.T]), \
+            lambda *a: ct.trace_ids(cl, *a)
 
     def instanced(n, protos):
         icl = instanced_table(n, protos, n)
         real = icl.ibb[0] < 1e37
         box = (icl.ibb[:3, real].amin(1), icl.ibb[3:, real].amax(1))
-        return icl, box, lambda o, d, tmin, tmax, any_hit, time, need_ab: \
+        return icl, box, icl.ibb, \
+            lambda o, d, tmin, tmax, any_hit, time, need_ab: \
             ict.trace_ids(icl, o, d, tmin, tmax, any_hit, need_ab)
+
+    def segments(n, protos):
+        icl = segment_table(n, protos, n)
+        bb = icl.sbb[:, :icl.num_entries]
+        box = (bb[:3].amin(1), bb[3:].amax(1))
+        return icl, box, bb, \
+            lambda o, d, tmin, tmax, any_hit, time, need_ab: \
+            ist.trace_ids(icl, o, d, tmin, tmax, any_hit, need_ab)
     return {'clusters_4100_mb': lambda: cluster(4100, True),
             'clusters_65': lambda: cluster(65, False),
             'instances_65_protos_1_8_9_128':
                 lambda: instanced(65, (1, 8, 9, 128)),
-            'instances_600_protos_9_65': lambda: instanced(600, (9, 65))}
+            'instances_600_protos_9_65': lambda: instanced(600, (9, 65)),
+            'segments_65_protos_1_to_8':
+                lambda: segments(65, tuple(range(1, 9))),
+            'segments_2600_protos_1_5_8': lambda: segments(2600, (1, 5, 8))}
 
 
 @pytest.mark.parametrize('case', sorted(_walk_cases()))
@@ -257,15 +289,14 @@ def test_walk_matches_flat_scan(case, monkeypatch):
     """The plain tracers with their group levels and with all-pass levels
     (the flat scan) return the same bits in every mode, on synthetic
     tables whose sizes are not multiples of 8, 64 or 512 (one above 4,096
-    clusters: the linear top level) and prototypes of 1, 8, 9, 65 and 128
-    clusters, a quarter of the rays lying in a level-1 group box's face
-    planes; dead lanes and any-hit lanes that stop early share a 32-ray
-    block."""
-    table, box, trace = _walk_cases()[case]()
+    clusters and one above 4,096 segments: the linear top level),
+    prototypes of 1, 8, 9, 65 and 128 clusters and segment prototypes of
+    1-8 pool rows with padding rows, a quarter of the rays lying in a
+    level-1 group box's face planes; dead lanes and any-hit lanes that stop
+    early share a 32-ray block."""
+    table, box, bb, trace = _walk_cases()[case]()
     o, d = np.concatenate([box_rays(*box, R // 4, 11),
                            table_rays(table, R // 2, 12)], 1)
-    bb = torch.cat([table.bb_min.T, table.bb_max.T]) \
-        if hasattr(table, 'bb_min') else table.ibb
     o2, d2 = grazing_rays(bundle.group_levels(bb, ct.GROUP, 1)[0], R // 4, 13)
     o, d = (torch.from_numpy(np.concatenate(x)) for x in ((o, o2), (d, d2)))
     time = torch.from_numpy(np.random.default_rng(12).uniform(
@@ -375,3 +406,52 @@ def test_group_levels_follow_the_tables():
     assert fresh is not levels
     for x, y in zip(fresh, ct.box_levels(moved)):
         assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize('case', ['segments_65', 'segments_600_big_pool',
+                                  'grid', 'final_forest_no_trees'])
+def test_segment_kernel_tables(case):
+    """What the segment kernel takes besides the table
+    (iseg_kernel.walk_tables), against a direct computation: the boxes of
+    the real segments and their group levels; each pool row's real lanes,
+    which come first in the row (the kernel tests a row up to its count);
+    the route: rows with real lanes numbered in row order when their slabs
+    fit in RESIDENT_BYTES, else none. The 100,000-instance grid's
+    prototype (8 rows, 40 KB) and the final forest's without trees (14 of
+    20 rows, 70 KB) take the resident route."""
+    if case.startswith('segments'):
+        n, protos = (65, (1, 2, 3)) if case == 'segments_65' else \
+            (600, (8, 8, 8, 8, 5))
+        icl = segment_table(n, protos, 3)
+    elif case == 'grid':
+        icl = cpu(registry.instanced_grid_standin, 32, 24, n=300)[0] \
+            .iclusters
+    else:
+        icl = cpu(registry.final_forest_standin, 32, 24, n_trees=0,
+                  n_flowers=20, grass_grid=8, max_bounces=1)[0].iclusters
+    boxes, lanes, slot, n_slots = isk.walk_tables(icl)
+    E = icl.num_entries
+    assert torch.equal(boxes[0], icl.sbb[:, :E])
+    assert len(boxes) == 1 + ist.SEG_DEPTH
+    for lv, b in enumerate(boxes[1:], 1):
+        assert b.shape == (6, -(-E // ist.SEG_GROUP ** lv))
+    tri = icl.tri.numpy()
+    for row in range(tri.shape[0]):
+        n_real = int((tri[row] >= 0).sum())
+        assert int(lanes[row]) == n_real
+        assert (tri[row, :n_real] >= 0).all()
+    real = [row for row in range(tri.shape[0]) if (tri[row] >= 0).any()]
+    C = tri.shape[1]
+    fits = len(real) * 10 * C * 4 <= isk.RESIDENT_BYTES
+    assert n_slots == (len(real) if fits else 0)
+    want = np.full(tri.shape[0], -1)
+    if fits:
+        want[real] = np.arange(len(real))
+    np.testing.assert_array_equal(slot.numpy(), want)
+    resident = {'segments_65': True, 'segments_600_big_pool': False,
+                'grid': True, 'final_forest_no_trees': True}[case]
+    assert (n_slots > 0) == resident
+    if case == 'grid':
+        assert n_slots == 8
+    if case == 'final_forest_no_trees':
+        assert (n_slots, tri.shape[0]) == (14, 20)

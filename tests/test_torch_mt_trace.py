@@ -168,3 +168,63 @@ def test_render_pallas_matches_jax(triangle_sphere):
     got = rt.render(sp, cam, st, rng.PRNGKey(5))
     assert tmt.CALLS > calls
     _assert_images_close(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize('sms', [1, 132])
+def test_mt_split_decision(sms):
+    """The MT kernel's grid (mt_kernel.split), against a direct count over
+    ray and triangle counts from 1 to 2**21 rays and 1 to 9,000
+    triangles: whole tiles a range; one range when the ray blocks alone
+    fill FILL blocks an SM; else at least as many ranges as the fill needs,
+    or one a tile."""
+    fill = mtk.FILL * sms
+    for R in (1, 511, 512, 4133, 32768, 270336, 2 ** 21):
+        for T in (1, 255, 256, 257, 4133, 8836, 9000):
+            per = mtk.split(R, T, sms)
+            blocks = -(-R // mtk.BLOCK_RAYS)
+            tiles = -(-T // mtk.TILE)
+            ranges = -(-T // per)
+            assert per % mtk.TILE == 0 and per > 0
+            if blocks >= fill:
+                assert ranges == 1, (R, T)
+            else:
+                assert ranges >= min(tiles, -(-fill // blocks)), (R, T)
+
+
+def test_mt_hit_key_orders_hits():
+    """The split grid's merge key (mt_trace.hit_key) orders hits as the
+    sequential sweep does, against a direct sort: by t, -0 equal to +0,
+    negative t below positive, then by triangle id; equal keys only for
+    equal (t, id)."""
+    rs = np.random.default_rng(3)
+    t = np.concatenate([rs.normal(size=200) * 10.0 ** rs.integers(-30, 30, 200),
+                        [0.0, -0.0, 1e-45, -1e-45, 3e38, -3e38, 1.0, 1.0],
+                        rs.choice([-2.0, 0.5, 7.0], 40)]).astype(np.float32)
+    tri = rs.integers(0, 2 ** 31 - 1, t.shape[0]).astype(np.int32)
+    tri[-40:] = rs.integers(0, 4, 40)              # ties in t and in id
+    key = tmt.hit_key(torch.from_numpy(t), torch.from_numpy(tri)).numpy()
+    tz = np.where(t == 0, np.float32(0), t)
+    order = np.lexsort((tri, tz))
+    assert (np.diff(key[order]) >= 0).all()
+    same = (tz[:, None] == tz[None]) & (tri[:, None] == tri[None])
+    np.testing.assert_array_equal(key[:, None] == key[None], same)
+
+
+@pytest.mark.parametrize('per_split', [256, 768])
+def test_mt_split_trace_matches_sweep(per_split):
+    """The sweep as the kernel's split grid merges it (mt_trace
+    .split_trace) against the plain sweep, bit for bit (t, tri, a, b): a
+    soup of 4,133 triangles whose last 64 repeat its first 64 (exact ties
+    in different ranges: the lower id wins), negative t allowed on every
+    5th ray, dead rays."""
+    args = list(triangle_soup(4133, 512, seed=8)[:-1])
+    args[6] = np.where(np.arange(512) % 5 == 0, -np.inf,
+                       args[6]).astype(np.float32)
+    args = [torch.from_numpy(x) for x in args]
+    want = tmt.mt_trace(*args)
+    got = tmt.split_trace(*args, per_split)
+    for g, w, f in zip(got, want, ('t', 'tri', 'a', 'b')):
+        np.testing.assert_array_equal(g.numpy(), w.numpy(), err_msg=f)
+    tri, t = want[1].numpy(), want[0].numpy()
+    assert (tri < 4133 - 64).all() and ((tri >= 0) & (tri < 64)).sum() > 20
+    assert ((tri >= 0) & (t < 0)).any()

@@ -313,3 +313,65 @@ def table_rays(table, R, seed):
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     o = tgt - d * rs.uniform(1, 4, (R, 1))
     return o.astype(np.float32), d.astype(np.float32)
+
+
+def segment_table(n_inst, proto_rows, seed, C=128, max_lanes=8):
+    """A synthetic table for the segment walk: instanced_table's
+    prototypes and instances, each prototype's pool rows padded with empty
+    rows to a multiple of KIN, and the segment table in instance order:
+    one segment per run of KIN rows, its world box the 8 corners of the
+    union of the run's real cluster boxes through the instance's transform,
+    its world -> object rows the instance's -> InstancedClusters on the
+    CPU (pmeta counts each prototype's real rows)."""
+    import torch
+    from raytracer_tpu_torch.geometry.clusters import KIN, NEVER
+
+    icl = instanced_table(n_inst, proto_rows, seed, C, max_lanes)
+    tri, p0, e1, e2 = (x.numpy() for x in (icl.tri, icl.p0, icl.e1, icl.e2))
+    pbb, pmeta = icl.pbb.numpy(), icl.pmeta.numpy().copy()
+    pools = ([], [], [], [])                    # tri, p0, e1, e2 per row
+    runs = []                                   # per prototype: (base, lo, hi)
+    row = 0
+    for p, k in enumerate(proto_rows):
+        off = int(pmeta[p, 0])
+        padded = -(-k // KIN) * KIN
+        pmeta[p, 0] = row
+        for r in range(padded):
+            real = r < k
+            pools[0].append(tri[off + r] if real else np.full(C, -1, np.int32))
+            for pool, x in zip(pools[1:], (p0, e1, e2)):
+                pool.append(x[3 * (off + r):3 * (off + r) + 3] if real
+                            else np.zeros((3, C), np.float32))
+        box = pbb[6 * p:6 * p + 6]
+        runs.append([(row + s, box[:3, s:min(s + KIN, k)].min(1),
+                      box[3:, s:min(s + KIN, k)].max(1))
+                     for s in range(0, k, KIN)])
+        row += padded
+    bits = (np.arange(8)[:, None] >> np.arange(3)) & 1
+    sbb, smeta, strf = [], [], []
+    iminv = icl.iminv.numpy()
+    for i in range(n_inst):
+        minv = iminv[i].reshape(3, 4).astype(np.float64)
+        m = np.linalg.inv(minv[:, :3])
+        for base, lo, hi in runs[int(icl.imeta[i, 0])]:
+            w = (lo * (1 - bits) + hi * bits) @ m.T - m @ minv[:, 3]
+            sbb.append(np.concatenate([w.min(0), w.max(0)]))
+            smeta.append((i, base, i))
+            strf.append(iminv[i])
+    E = len(sbb) + 3                            # three padding lanes
+    sbb = np.concatenate([np.asarray(sbb, np.float32).T,
+                          np.full((6, 3), NEVER, np.float32)], 1)
+    smeta = np.concatenate([np.asarray(smeta, np.int32),
+                            np.zeros((3, 3), np.int32)])
+    strf = np.concatenate([np.asarray(strf, np.float32),
+                           np.tile(np.eye(3, 4, dtype=np.float32).reshape(12),
+                                   (3, 1))])
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x))
+    stack = lambda xs: t(np.concatenate(xs) if xs[0].ndim == 2
+                         else np.stack(xs))
+    return dataclasses.replace(
+        icl, tri=stack(pools[0]), p0=stack(pools[1]), e1=stack(pools[2]),
+        e2=stack(pools[3]), pmeta=t(pmeta), sbb=t(sbb), smeta=t(smeta),
+        strf=t(strf), num_entries=E - 3,
+        pool_proto=torch.zeros(row, dtype=torch.int32),
+        pool_local=torch.zeros(row, dtype=torch.int32))
