@@ -33,9 +33,13 @@ from .cluster_kernel import check, load, mode_name, ptr
 LAUNCHES = 0
 MODES: collections.Counter = collections.Counter()
 # the resident route: a pool whose real rows' slabs (10 C floats each) fit
-# in this many bytes is copied whole into each block's shared memory (3
-# blocks an SM at the most); a larger one is staged row by row per warp
-RESIDENT_BYTES = 72 * 1024
+# in this many bytes is copied whole into each block's shared memory; a
+# larger one is staged row by row per warp. On an H100
+# (scripts/torch_iseg_routes.py) the resident route won on the
+# 100,000-instance grid's 40 KB pool (its 1080p frame's kernel time 18.5
+# against 19.5 ms) and lost on the tree-less final forest's 70 KB pool
+# (39.1 against 32.6 ms): the cut lies between the two
+RESIDENT_BYTES = 48 * 1024
 _lib = None
 
 

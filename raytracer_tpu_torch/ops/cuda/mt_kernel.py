@@ -10,8 +10,9 @@ wrapper decides from R and T whether the kernel splits the triangle range
 across blocks (`split`), and allocates the kernel's scratch: the
 triangles' float4 rows and, for a split grid, the per-ray merge keys.
 `brute_trace` replaces raytracer_tpu/ops/pallas/__init__.py
-:pallas_brute_trace. `LAUNCHES` counts kernel launches and `MODES` counts
-them by mode (the kernel has one: 'nearest').
+:pallas_brute_trace. `LAUNCHES` counts the device kernels launched, two
+or three a call (`device_launches`), and `MODES` counts them by mode (the
+kernel has one: 'nearest').
 """
 from __future__ import annotations
 
@@ -57,6 +58,14 @@ def split(R: int, T: int, sms: int) -> int:
     return max(1, tiles // parts) * TILE
 
 
+def device_launches(R: int, T: int, per_split: int) -> int:
+    """The device kernels a call of R rays and T triangles launches: none
+    without rays; else the prep of the float4 rows and merge keys (when
+    there are triangles), the sweep and, on a split grid (per_split < T),
+    the resolve."""
+    return 0 if R == 0 else int(T > 0) + 1 + int(per_split < T)
+
+
 def launch(o, d, p0, p1, p2, valid, tmin, tmax):
     """Run the kernel on CUDA tensors: o, d (R, 3), p0, p1, p2 (T, 3)
     float32, valid (T,) int32, tmin, tmax (R,) float32 -> (t, tri, a, b)."""
@@ -92,8 +101,9 @@ def launch(o, d, p0, p1, p2, valid, tmin, tmax):
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f'mt_trace kernel launch failed: CUDA error {err}')
-    LAUNCHES += 1
-    MODES['nearest'] += 1
+    n = device_launches(R, T, per_split)
+    LAUNCHES += n
+    MODES['nearest'] += n
     return t, tri, a, b
 
 

@@ -17,10 +17,6 @@ inv_det = 1 / det, a = dot(tvec, pvec) * inv_det, each dot summed x, y,
 z), so the kernel, built with -fmad=false, matches this version bit for
 bit. Triangles are processed TRI_TILE at a time, so memory stays at a few
 (R, TRI_TILE) buffers.
-
-`split_trace` is the same sweep as the kernel's split grid computes it:
-triangle ranges swept apart, merged by the smallest (t, id) key
-(`hit_key`), the winner's t, a and b recomputed: the same bits.
 """
 from __future__ import annotations
 
@@ -116,38 +112,3 @@ def mt_trace(o, d, p0, p1, p2, valid, tmin, tmax, tile: int = TRI_TILE):
     miss = best_tri < 0
     return (torch.where(miss, MIRO_TMAX, best_t), best_tri, best_a, best_b)
 
-
-def hit_key(t, tri):
-    """The merge key of a split sweep (csrc/mt_trace.cu hit_key) of hits
-    (t, tri) -> int64 in the kernel's unsigned order: t's order-preserving
-    bits, -0 counted as +0, then the triangle id."""
-    u = torch.where(t == 0, 0.0, t).view(torch.int32).long() & 0xFFFFFFFF
-    k = torch.where(u >= 1 << 31, u ^ 0xFFFFFFFF, u | 1 << 31)
-    return (k - (1 << 31)) * (1 << 32) + tri.long()
-
-
-@torch.no_grad()
-def split_trace(o, d, p0, p1, p2, valid, tmin, tmax, per_split: int):
-    """mt_trace as the kernel's split grid computes it: each range of
-    per_split triangles swept alone, each ray's winner the smallest
-    hit_key over the ranges, its t, a and b recomputed by _mt_block ->
-    (t, tri, a, b), the bits of mt_trace."""
-    R, T = o.shape[0], p0.shape[0]
-    none = torch.iinfo(torch.int64).max
-    best = torch.full((R,), none, dtype=torch.int64, device=o.device)
-    for s in range(0, T, per_split):
-        sl = slice(s, s + per_split)
-        t, tri, _, _ = mt_trace(o, d, p0[sl], p1[sl], p2[sl], valid[sl],
-                                tmin, tmax)
-        best = torch.minimum(best, torch.where(tri >= 0, hit_key(t, tri + s),
-                                               none))
-    got = best < none
-    j = torch.where(got, best & 0xFFFFFFFF, 0)
-    comps = [tuple(p[j, k, None].float() for k in range(3))
-             for p in (p0, p1, p2)]
-    col = lambda x: tuple(x[:, k:k + 1].float() for k in range(3))
-    t, a, b, _ = _mt_block(col(o), col(d), *comps, per_ray(tmin, o)[:, None],
-                           per_ray(BIG, o)[:, None])
-    return (torch.where(got, t[:, 0], MIRO_TMAX),
-            torch.where(got, j, -1).to(torch.int32),
-            torch.where(got, a[:, 0], 0.0), torch.where(got, b[:, 0], 0.0))

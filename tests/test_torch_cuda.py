@@ -390,6 +390,12 @@ def test_forest_render_on_card_matches_cpu(forest_small, dev):
     assert dd.mean() < 1e-3 * np.abs(want).mean()
 
 
+def _mt_launches(dev, n_rays, T):
+    """The device kernels of one MT kernel call on this card."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return mtk.device_launches(n_rays, T, mtk.split(n_rays, T, sms))
+
+
 @pytest.mark.parametrize('T', [1000, 4133])
 def test_mt_kernel_matches_plain(dev, T):
     """The MT kernel bit for bit with its plain version on a soup with
@@ -400,7 +406,7 @@ def test_mt_kernel_matches_plain(dev, T):
     n0 = mtk.LAUNCHES
     got = mtk.mt_trace(*[torch.from_numpy(x).to(dev) for x in args])
     torch.cuda.synchronize()
-    assert mtk.LAUNCHES == n0 + 1
+    assert mtk.LAUNCHES == n0 + _mt_launches(dev, R, T)
     assert int((want[1] >= 0).sum()) > R // 4
     for g, w, f in zip(got, want, ('t', 'tri', 'a', 'b')):
         np.testing.assert_array_equal(g.cpu().numpy(), w.numpy(), err_msg=f)
@@ -423,7 +429,8 @@ def test_brute_trace_kernel_matches_plain(dev, kind, any_hit):
     hk = mtk.brute_trace(card, o.to(dev), d.to(dev), 0.0, 1e-3,
                          tmax.to(dev), any_hit)
     torch.cuda.synchronize()
-    assert mtk.LAUNCHES == n0 + 1
+    T = host.geom.face_v.shape[0]
+    assert mtk.LAUNCHES == n0 + _mt_launches(dev, R, T)
     assert int((hp.tri >= 0).sum()) > R // 20
     _assert_hits_equal(hk, hp)
 
@@ -562,9 +569,10 @@ def test_icluster_walk_matches_plain(dev, n_inst, mode):
 # the segment kernel's tables: (instances, prototype rows); the pool's real
 # rows fit in shared memory (the resident route) or not (staged per warp)
 SEGMENT_TABLES = {'resident_65': (65, (1, 2, 3)),
-                  'resident_2600': (2600, (1, 5, 8)),
+                  'resident_3400': (3400, (1, 2, 5)),
                   'staged_65': (65, (1, 2, 3, 4, 5, 6, 7, 8)),
-                  'staged_600': (600, (8, 8, 8, 8, 5))}
+                  'staged_600': (600, (8, 8, 8, 8, 5)),
+                  'staged_2600': (2600, (1, 5, 8))}
 
 
 def _segment_rays(host, card, dev, seed):
@@ -591,8 +599,8 @@ def test_iseg_walk_matches_plain(dev, table, mode):
     """The segment kernel's warp walk, on both routes of the pool into
     shared memory, against the plain walk, bit for bit (t, tri, inst, a,
     b), in every mode: segment tables that are not multiples of 8, 64 or
-    4,096 (2,600 instances: over 4,096 segments, a linear top level of 2
-    groups), prototypes of 1-8 rows with padding rows, rows of 1 to 128
+    4,096 (2,600 and 3,400 instances: over 4,096 segments, a linear top
+    level of 2 groups, on either route), prototypes of 1-8 rows with padding rows, rows of 1 to 128
     real lanes; a warp of one ray on every lane, a warp with one live lane,
     and warps where dead, live and early-done any-hit lanes mix."""
     any_hit, need_ab = WALK_MODES[mode]

@@ -38,8 +38,8 @@ from raytracer_tpu_torch.render import integrator as tint
 from raytracer_tpu_torch.scenes import registry
 
 from .test_torch_render import _assert_images_close
-from .torch_port_util import (cpu, jax_camera, jax_settings, to_port,
-                              triangle_soup)
+from .torch_port_util import (cpu, jax_camera, jax_settings, mt_hit_key,
+                              mt_split_trace, to_port, triangle_soup)
 
 
 def _grazing(d, p0, p1, p2, tri):
@@ -192,17 +192,18 @@ def test_mt_split_decision(sms):
 
 
 def test_mt_hit_key_orders_hits():
-    """The split grid's merge key (mt_trace.hit_key) orders hits as the
-    sequential sweep does, against a direct sort: by t, -0 equal to +0,
-    negative t below positive, then by triangle id; equal keys only for
-    equal (t, id)."""
+    """The split grid's merge key (torch_port_util.mt_hit_key, the model
+    of csrc/mt_trace.cu hit_key) orders hits as the sequential sweep does,
+    against a direct sort: by t, -0 equal to +0, negative t below
+    positive, then by triangle id; equal keys only for equal (t, id)."""
     rs = np.random.default_rng(3)
-    t = np.concatenate([rs.normal(size=200) * 10.0 ** rs.integers(-30, 30, 200),
+    scale = 10.0 ** rs.integers(-30, 30, 200)
+    t = np.concatenate([rs.normal(size=200) * scale,
                         [0.0, -0.0, 1e-45, -1e-45, 3e38, -3e38, 1.0, 1.0],
                         rs.choice([-2.0, 0.5, 7.0], 40)]).astype(np.float32)
     tri = rs.integers(0, 2 ** 31 - 1, t.shape[0]).astype(np.int32)
     tri[-40:] = rs.integers(0, 4, 40)              # ties in t and in id
-    key = tmt.hit_key(torch.from_numpy(t), torch.from_numpy(tri)).numpy()
+    key = mt_hit_key(torch.from_numpy(t), torch.from_numpy(tri)).numpy()
     tz = np.where(t == 0, np.float32(0), t)
     order = np.lexsort((tri, tz))
     assert (np.diff(key[order]) >= 0).all()
@@ -212,17 +213,17 @@ def test_mt_hit_key_orders_hits():
 
 @pytest.mark.parametrize('per_split', [256, 768])
 def test_mt_split_trace_matches_sweep(per_split):
-    """The sweep as the kernel's split grid merges it (mt_trace
-    .split_trace) against the plain sweep, bit for bit (t, tri, a, b): a
-    soup of 4,133 triangles whose last 64 repeat its first 64 (exact ties
-    in different ranges: the lower id wins), negative t allowed on every
-    5th ray, dead rays."""
+    """The sweep as the kernel's split grid merges it (modelled by
+    torch_port_util.mt_split_trace) against the plain sweep, bit for bit
+    (t, tri, a, b): a soup of 4,133 triangles whose last 64 repeat its
+    first 64 (exact ties in different ranges: the lower id wins), negative
+    t allowed on every 5th ray, dead rays."""
     args = list(triangle_soup(4133, 512, seed=8)[:-1])
     args[6] = np.where(np.arange(512) % 5 == 0, -np.inf,
                        args[6]).astype(np.float32)
     args = [torch.from_numpy(x) for x in args]
     want = tmt.mt_trace(*args)
-    got = tmt.split_trace(*args, per_split)
+    got = mt_split_trace(*args, per_split)
     for g, w, f in zip(got, want, ('t', 'tri', 'a', 'b')):
         np.testing.assert_array_equal(g.numpy(), w.numpy(), err_msg=f)
     tri, t = want[1].numpy(), want[0].numpy()

@@ -375,3 +375,45 @@ def segment_table(n_inst, proto_rows, seed, C=128, max_lanes=8):
         strf=t(strf), num_entries=E - 3,
         pool_proto=torch.zeros(row, dtype=torch.int32),
         pool_local=torch.zeros(row, dtype=torch.int32))
+
+
+def mt_hit_key(t, tri):
+    """The merge key of the MT kernel's split grid (csrc/mt_trace.cu
+    hit_key), modelled on the CPU, of hits (t, tri) -> int64 in the
+    kernel's unsigned order: t's order-preserving bits, -0 counted as +0,
+    then the triangle id."""
+    import torch
+
+    u = torch.where(t == 0, 0.0, t).view(torch.int32).long() & 0xFFFFFFFF
+    k = torch.where(u >= 1 << 31, u ^ 0xFFFFFFFF, u | 1 << 31)
+    return (k - (1 << 31)) * (1 << 32) + tri.long()
+
+
+def mt_split_trace(o, d, p0, p1, p2, valid, tmin, tmax, per_split):
+    """ops/mt_trace.mt_trace as the MT kernel's split grid computes it,
+    modelled on the CPU: each range of per_split triangles swept alone,
+    each ray's winner the smallest mt_hit_key over the ranges, its t, a
+    and b recomputed by _mt_block -> (t, tri, a, b)."""
+    import torch
+    from raytracer_tpu_torch.ops import mt_trace as tmt
+
+    R, T = o.shape[0], p0.shape[0]
+    none = torch.iinfo(torch.int64).max
+    best = torch.full((R,), none, dtype=torch.int64)
+    for s in range(0, T, per_split):
+        sl = slice(s, s + per_split)
+        t, tri, _, _ = tmt.mt_trace(o, d, p0[sl], p1[sl], p2[sl], valid[sl],
+                                    tmin, tmax)
+        best = torch.minimum(best, torch.where(
+            tri >= 0, mt_hit_key(t, tri + s), none))
+    got = best < none
+    j = torch.where(got, best & 0xFFFFFFFF, 0)
+    comps = [tuple(p[j, k, None].float() for k in range(3))
+             for p in (p0, p1, p2)]
+    col = lambda x: tuple(x[:, k:k + 1].float() for k in range(3))
+    t, a, b, _ = tmt._mt_block(col(o), col(d), *comps,
+                               tmt.per_ray(tmin, o)[:, None],
+                               tmt.per_ray(tmt.BIG, o)[:, None])
+    return (torch.where(got, t[:, 0], tmt.MIRO_TMAX),
+            torch.where(got, j, -1).to(torch.int32),
+            torch.where(got, a[:, 0], 0.0), torch.where(got, b[:, 0], 0.0))
