@@ -65,10 +65,42 @@ through `parallel/sharding.loss_and_grads_scanned`, Adam steps through
      1080p, 10 bounces, with intersector 'pallas': the MT kernel carries
      every trace;
  15. CPU/GPU parity of the loss and grads at 64x48, 3 bounces, for the
-     12-sphere atrium under 'auto' and 'pallas'.
+     12-sphere atrium under 'auto' and 'pallas';
+ 16. the edge trainer at full width (diff/edges.loss_and_grads_with_edges
+     on `sponza_standin`, 10 bounces, zero target, 4,096 edge samples and
+     8,192 GI-edge samples): the cluster kernel carries every trace; the
+     median wall of 3 steps, the peak memory, the wall and norm of each
+     part (the interior pass, the extra forward render of the adjoint, the
+     primary and GI edge terms; the edge terms nonzero); then one
+     train_step_with_edges with a finite loss;
+ 17. shadow edges (shadow_edge_vertex_grad) on `triangle_sphere` at
+     1080x1080: the sphere's hard shadow gives a nonzero term;
+ 18. instanced edges (edge_sampling_vertex_grad) on
+     `instanced_teapots_standin` at 1080p through the two-level kernel
+     trace_fn picks, with the (instance, edge) pair count;
+ 19. the edge terms' CPU/GPU parity: the same key and adjoint at 64x48,
+     3 bounces, the wavefront sort off, on the 12-sphere atrium (primary
+     and GI) and on `triangle_sphere` (primary and shadow): the same
+     edges sampled; each
+     term within phase 15's rule over the samples whose side radiances
+     took the same path and which both devices accepted, with the count
+     of the others (at most 5% of the samples, and at least 90% of the
+     nonzero samples kept);
+ 20. adaptive rendering (render_adaptive, levels 1-3, convergence from
+     level 2 at a gamma-space change of 0.05) of `sponza_standin` at
+     1080p, 10 bounces: the wall (median of 3), the histogram of sample
+     counts and the share of pixels active at each level; then its CPU/GPU
+     parity at 64x48, 3 bounces, on the 12-sphere atrium: >= 99% of pixels
+     with equal counts, and the image within phase 6's rule with the
+     wavefront sort off (with it on, one path that turns on an ulp-level
+     difference hands the rest of its chunk other random numbers; that
+     image's figures are printed, not held);
+ 21. the procedural stone texture baked at 256x256 on the card and on the
+     CPU, within 1e-5.
 
-Each path (phases 5, 7, 9, 10, 13, 14) is driven with every launch and
-plain-version count set to 0 just before and read just after. Any failure
+Each path (phases 5, 7, 9, 10, 13, 14, 16-18, 20) is driven with every
+launch and plain-version count set to 0 just before and read just after.
+Any failure
 raises. The last two lines are the kernels' JSON record (one entry per
 kernel and mode group, with the least time its work could take on the
 card) and {"ok": true, "device": {...}}. Needs a CUDA device; there is no
@@ -90,6 +122,7 @@ import torch
 import raytracer_tpu_torch as rt
 from raytracer_tpu_torch import bench, native
 from raytracer_tpu_torch.core import rng
+from raytracer_tpu_torch.diff import edges as ed
 from raytracer_tpu_torch.ops import cluster_trace as ct
 from raytracer_tpu_torch.ops import icluster_trace as ict
 from raytracer_tpu_torch.ops import iseg_trace as ist
@@ -102,6 +135,7 @@ from raytracer_tpu_torch.parallel import sharding as ts
 from raytracer_tpu_torch.render import camera as cam_mod
 from raytracer_tpu_torch.render import integrator
 from raytracer_tpu_torch.scenes import registry
+from raytracer_tpu_torch.shading import procedural
 
 WIDTH, HEIGHT, BOUNCES = 1920, 1080, 10
 # rays per wavefront tile: one tile holds the whole 1080p frame, so every
@@ -132,6 +166,11 @@ MT_SPHERES = 12
 MT_REPLACES = 'raytracer_tpu/ops/pallas/mt_kernel.py:122'
 # the trainer's CPU/GPU parity check (phase 15)
 TRAIN_PARITY = dict(width=64, height=48, max_bounces=3, n_spheres=12)
+# the edge trainer's samples (the JAX package's defaults; the GI term
+# takes at least 8,192)
+EDGE_SAMPLES = 4096
+# render_adaptive's cells: levels 1-3, convergence from level 2
+ADAPTIVE = dict(min_subdivs=2, max_subdivs=3, noise_threshold=0.05)
 
 
 # the least time of a kernel's work on the card: H100 SXM peaks,
@@ -832,6 +871,259 @@ def train_parity(intersector, key, dev) -> None:
     assert max(worst.values()) <= 0.0, f'{intersector}: grads differ'
 
 
+def synced(fn):
+    """fn() -> (its result, its wall in s, ended by a device sync)."""
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def norm(x) -> float:
+    return float(torch.linalg.norm(x.double()))
+
+
+def edges_cell(dev, key) -> None:
+    """Phase 16: the edge trainer at full width on `sponza_standin`."""
+    scene, cam, st = registry.sponza_standin(
+        WIDTH, HEIGHT, max_bounces=BOUNCES, ray_tile=bench.TRAIN_TILE,
+        device=dev)
+    target = torch.zeros((HEIGHT, WIDTH, 3), device=dev)
+    params = ts.get_params(scene)
+    kw = dict(tile=bench.TRAIN_TILE, edge_samples=EDGE_SAMPLES,
+              gi_edges=True)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    (loss, grads), first_s = synced(lambda: ed.loss_and_grads_with_edges(
+        params, scene, cam, st, target, key, **kw))
+    launches = check_only(ck, 'train_edges_1080p')
+    modes = dict(ck.MODES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    assert np.isfinite(float(loss)), 'non-finite loss'
+    check_grads(grads, 'train_edges_1080p')
+    walls = [synced(lambda: ed.loss_and_grads_with_edges(
+        params, scene, cam, st, target, key, **kw))[1] for _ in range(3)]
+    # the parts, one at a time, each ended by a sync
+    (_, g_int), t_int = synced(lambda: ts.loss_and_grads_scanned(
+        params, scene, cam, st, target, key, tile=bench.TRAIN_TILE))
+    (s, dL, keys), t_adj = synced(lambda: ed.edge_adjoint(
+        params, scene, cam, st, target, key))
+    g_pri, t_pri = synced(lambda: ed.edge_sampling_vertex_grad(
+        s, cam, st, dL, keys['primary'], n_samples=EDGE_SAMPLES))
+    g_gi, t_gi = synced(lambda: ed.gi_edge_vertex_grad(
+        s, cam, st, dL, keys['gi'], n_samples=max(EDGE_SAMPLES, 8192)))
+    for tag, g in (('primary', g_pri), ('gi', g_gi)):
+        assert bool(torch.isfinite(g).all()), f'{tag} edge term not finite'
+        assert norm(g) > 0, f'the {tag} edge term is zero'
+    p2 = ts.get_params(scene)
+    opt = ts.make_optimizer(p2, lr=1e-4)
+    v0 = p2['vertices'].clone()
+    p2, loss2 = ed.train_step_with_edges(p2, opt, scene, cam, st, target,
+                                         key, tile=bench.TRAIN_TILE,
+                                         edge_samples=EDGE_SAMPLES)
+    assert np.isfinite(float(loss2)), 'train_step_with_edges: loss'
+    assert not torch.equal(p2['vertices'], v0), 'the vertices did not move'
+    phase('train_edges_1080p', launches=launches, launches_by_mode=modes,
+          first_s=first_s, wall_s=walls, median_s=statistics.median(walls),
+          peak_mem_gb=peak, loss=float(loss),
+          part_wall_s=dict(interior=t_int, adjoint_render=t_adj,
+                           primary_edges=t_pri, gi_edges=t_gi),
+          vertex_grad_norm=dict(interior=norm(g_int['vertices']),
+                                primary_edges=norm(g_pri),
+                                gi_edges=norm(g_gi),
+                                combined=norm(grads['vertices'])),
+          edges=int(scene.edges.vid.shape[0]), samples=EDGE_SAMPLES,
+          gi_samples=max(EDGE_SAMPLES, 8192),
+          train_step_with_edges_loss=float(loss2))
+
+
+def adjoint_of(scene, cam, st, key):
+    """dL/dimg of the MSE loss against a black target, from one render."""
+    img = rt.render(scene, cam, st, key)
+    return 2.0 * img / (st.width * st.height * 3)
+
+
+def shadow_edges_cell(dev, key) -> None:
+    """Phase 17: the shadow boundary term on `triangle_sphere`, 1080^2."""
+    scene, cam, st = registry.triangle_sphere(size=HEIGHT, ray_tile=RAY_TILE,
+                                              device=dev)
+    dL = adjoint_of(scene, cam, st, key)
+    reset_counts()
+    g, wall = synced(lambda: ed.shadow_edge_vertex_grad(
+        scene, cam, st, dL, key, n_samples=EDGE_SAMPLES))
+    launches = check_only(ck, 'shadow_edges_1080p')
+    assert bool(torch.isfinite(g).all()) and norm(g) > 0, \
+        'shadow edges: the term is zero or not finite'
+    phase('shadow_edges_1080p', launches=launches,
+          launches_by_mode=dict(ck.MODES), wall_s=wall, grad_norm=norm(g),
+          vertices_moved=int((g.abs().sum(-1) > 0).sum()),
+          edges=int(scene.edges.vid.shape[0]), samples=EDGE_SAMPLES)
+
+
+def instanced_edges_cell(dev, key) -> None:
+    """Phase 18: instanced primary edges on `instanced_teapots_standin`."""
+    scene, cam, st = registry.instanced_teapots_standin(
+        WIDTH, HEIGHT, ray_tile=RAY_TILE, device=dev)
+    assert scene.edges is not None and scene.edges.pair_inst is not None
+    dL = adjoint_of(scene, cam, st, key)
+    reset_counts()
+    g, wall = synced(lambda: ed.edge_sampling_vertex_grad(
+        scene, cam, st, dL, key, n_samples=EDGE_SAMPLES))
+    used = [m for m in KERNELS if m.LAUNCHES]
+    assert len(used) == 1 and used[0] in (isk, ick), used
+    launches = check_only(used[0], 'instanced_edges')
+    assert bool(torch.isfinite(g).all()) and norm(g) > 0, \
+        'instanced edges: the term is zero or not finite'
+    phase('instanced_edges', kernel=used[0].__name__.rsplit('.', 1)[-1],
+          launches=launches, launches_by_mode=dict(used[0].MODES),
+          wall_s=wall, pairs=int(scene.edges.pair_inst.shape[0]),
+          instances=scene.iclusters.num_instances, grad_norm=norm(g),
+          samples=EDGE_SAMPLES)
+
+
+def within_rule(got, want) -> float:
+    """The largest excess of |got - want| over phase 15's tolerance, rtol
+    1e-3 and atol 1e-4 x max|want| (<= 0 passes)."""
+    atol = 1e-4 * float(want.abs().max())
+    return float(((got - want).abs() - (atol + 1e-3 * want.abs())).max())
+
+
+def sample_parity(got, want, verts) -> dict:
+    """Two devices' samples of one edge term (ed.EdgeSamples, the same
+    key and adjoint): the same edges and positions must be sampled. Left
+    out and counted: the samples whose side radiance took another path
+    (ulp-level sin/cos and rsqrt differences between the CPU and CUDA
+    libraries turn a path, and the wavefront sort then hands the other rays
+    of its wavefront other random numbers; a radiance more than 1e-6 +
+    1e-4 |f| apart) and those accepted on one device only (a knife-edge
+    silhouette or visibility test). The rest, summed onto the vertices ->
+    their excess over the rule."""
+    got = ed.EdgeSamples(*(getattr(got, f.name).cpu()
+                           for f in dataclasses.fields(got)))
+    assert torch.equal(got.es, want.es) and torch.equal(got.ss, want.ss)
+    off = lambda x, y: ((x - y).abs() > 1e-6 + 1e-4 * y.abs()).any(-1)
+    turned = off(got.f_plus, want.f_plus) | off(got.f_minus, want.f_minus)
+    flipped = (got.scal == 0) != (want.scal == 0)
+    out = turned | flipped
+    keep = lambda x: dataclasses.replace(x, scal=torch.where(out, 0.0,
+                                                             x.scal))
+    live = want.scal != 0
+    return dict(samples=int(want.es.numel()), nonzero=int(live.sum()),
+                paths_turned=int(turned.sum()),
+                nonzero_paths_turned=int((turned & live).sum()),
+                accepted_on_one=int(flipped.sum()),
+                nonzero_kept=int((live & ~out).sum()),
+                excess_all=within_rule(got.grad(verts), want.grad(verts)),
+                excess=within_rule(keep(got).grad(verts),
+                                   keep(want).grad(verts)))
+
+
+def edges_parity(key, dev) -> None:
+    """Phase 19: each edge term's samples on the CPU (plain versions) and
+    on the card (kernels), from the same key and the same adjoint (the
+    CPU's render; phase 6 holds the renders), with the wavefront sort off:
+    with it on, one side-radiance path that turns on an ulp-level
+    difference hands the other rays of its wavefront other random
+    numbers (2,242 of 8,192 GI samples' radiances moved so on the card)."""
+    samplers = dict(
+        primary=(ed.primary_edge_samples, EDGE_SAMPLES),
+        shadow=(lambda *a: ed.EdgeSamples.cat(ed.shadow_edge_samples(*a)),
+                EDGE_SAMPLES),
+        gi=(ed.gi_edge_samples, max(EDGE_SAMPLES, 8192)))
+    cases = (('sponza_12', registry.sponza_standin, TRAIN_PARITY,
+              ('primary', 'gi')),
+             ('triangle_sphere', registry.triangle_sphere, dict(size=64),
+              ('primary', 'shadow')))
+    for name, make, kw, terms in cases:
+        # the wavefront sort off, as in phase 20's image check
+        host, cam, st = make(**kw, sort_rays=False, device='cpu')
+        target = torch.zeros((st.height, st.width, 3))
+        s, dL, keys = ed.edge_adjoint(ts.get_params(host), host, cam, st,
+                                      target, key)
+        card, cam_d, dL_d = s.to(dev), cam.to(dev), dL.to(dev)
+        for term in terms:
+            fn, n = samplers[term]
+            want = fn(s, cam, st, dL, keys[term], n)
+            n0 = ck.LAUNCHES
+            got = fn(card, cam_d, st, dL_d, keys[term], n)
+            assert ck.LAUNCHES > n0
+            res = sample_parity(got, want, s.geom.vertices)
+            phase('edges_cpu_gpu_parity', scene=name, term=term, **res)
+            assert res['nonzero'] > 0, f'{name}: the {term} term is zero'
+            assert res['paths_turned'] + res['accepted_on_one'] \
+                <= 0.05 * res['samples'], f'{name} {term}: too many turned'
+            assert res['nonzero_kept'] >= 0.9 * res['nonzero'], \
+                f'{name} {term}: too few samples agree'
+            assert res['excess'] <= 0.0, f'{name}: the {term} term differs'
+
+
+def adaptive_cell(dev, key) -> None:
+    """Phase 20: render_adaptive of `sponza_standin` at 1080p, then its
+    CPU/GPU parity at 64x48."""
+    scene, cam, st = registry.sponza_standin(
+        WIDTH, HEIGHT, max_bounces=BOUNCES, ray_tile=RAY_TILE, **ADAPTIVE,
+        device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    (img, cnt), first_s = synced(lambda: rt.render_adaptive(
+        scene, cam, st, key, with_counts=True))
+    launches = check_only(ck, 'adaptive_1080p')
+    modes = dict(ck.MODES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check_image(img, (HEIGHT, WIDTH, 3))
+    walls = [first_s] + [synced(lambda: rt.render_adaptive(
+        scene, cam, st, key))[1] for _ in range(2)]
+    values, counts = np.unique(cnt.cpu().numpy(), return_counts=True)
+    n = cnt.numel()
+    # a pixel's count after level l is 1 + 4 + ... + l^2: the share still
+    # active at level l is the share that took level l's samples
+    active = {f'level_{lv}': float((cnt >= sum(k * k for k in range(
+        1, lv + 1))).sum()) / n for lv in range(1, st.max_subdivs + 1)}
+    assert set(values.tolist()) <= {1, 5, 14} and values.min() >= 5
+    phase('adaptive_1080p', launches=launches, launches_by_mode=modes,
+          first_s=first_s, wall_s=walls, median_s=statistics.median(walls),
+          peak_mem_gb=peak, samples_per_pixel=float(cnt.double().mean()),
+          count_histogram={int(v): int(c) for v, c in zip(values, counts)},
+          active_share=active, mean_radiance=float(img.mean()), **ADAPTIVE)
+    host, cam_h, st_h = registry.sponza_standin(**TRAIN_PARITY, **ADAPTIVE,
+                                                device='cpu')
+    res = {}
+    for sort in (True, False):
+        st_s = dataclasses.replace(st_h, sort_rays=sort)
+        img_c, cnt_c = rt.render_adaptive(host, cam_h, st_s, key,
+                                          with_counts=True)
+        n0 = ck.LAUNCHES
+        img_g, cnt_g = rt.render_adaptive(host.to(dev), cam_h.to(dev), st_s,
+                                          key, with_counts=True)
+        assert ck.LAUNCHES > n0
+        check_image(img_g, (st_h.height, st_h.width, 3))
+        img_c, img_g = img_c.numpy(), img_g.cpu().numpy()
+        diff = np.abs(img_g - img_c)
+        tag = 'sort' if sort else 'unsorted'
+        res[tag] = dict(
+            pixels_within=float((diff <= 1e-4 + 1e-3 * np.abs(img_c))
+                                .all(-1).mean()),
+            mean_rel_diff=float(diff.mean() / np.abs(img_c).mean()),
+            counts_equal=float((cnt_g.cpu() == cnt_c).double().mean()))
+    phase('adaptive_cpu_gpu_parity', **res)
+    assert res['sort']['counts_equal'] >= 0.99, 'adaptive: counts disagree'
+    assert res['unsorted']['pixels_within'] >= 0.99 \
+        and res['unsorted']['mean_rel_diff'] < 1e-3, \
+        'adaptive: CPU and GPU disagree'
+
+
+def stone_cell(dev) -> None:
+    """Phase 21: the stone texture baked on the card and on the CPU."""
+    gpu, wall = synced(lambda: procedural.bake_stone_texture(size=256,
+                                                             device=dev))
+    host = procedural.bake_stone_texture(size=256, device='cpu')
+    err = float((gpu.cpu() - host).abs().max())
+    phase('stone_bake', size=256, wall_s=wall, max_abs_err=err,
+          std=float(host.std()))
+    assert tuple(gpu.shape) == (256, 256, 3) and err <= 1e-5, \
+        'stone texture: the card and the CPU disagree'
+
+
 def check_image(img, shape) -> None:
     assert tuple(img.shape) == shape, img.shape
     assert bool(torch.isfinite(img).all()), 'non-finite pixels'
@@ -879,10 +1171,15 @@ def main(dev=None) -> int:
     scene, cam, st = registry.sponza_standin(
         WIDTH, HEIGHT, max_bounces=BOUNCES, ray_tile=RAY_TILE, device=dev)
     torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    # the host edge table (a lexsort), part of the build, timed alone
+    t0 = time.perf_counter()
+    edges = ed.build_edge_table(scene.geom.face_v.cpu().numpy())
     phase('scene', triangles=scene.num_tris,
           clusters=scene.clusters.num_clusters,
           table_mb=scene.clusters.nbytes / 1e6, ray_tile=st.ray_tile,
-          build_s=time.perf_counter() - t0)
+          build_s=build_s, edges=int(edges.vid.shape[0]),
+          edge_table_s=time.perf_counter() - t0)
     assert scene.num_tris == 174_724
 
     # ------------------------------------------- 4. kernel against plain
@@ -965,6 +1262,18 @@ def main(dev=None) -> int:
     # ------------------------------ 15. the trainer's CPU/GPU parity
     for intersector in ('auto', 'pallas'):
         train_parity(intersector, key, dev)
+
+    # ------------------------ 16-19. edge-sampled visibility gradients
+    edges_cell(dev, key)
+    shadow_edges_cell(dev, key)
+    instanced_edges_cell(dev, key)
+    edges_parity(key, dev)
+
+    # --------------------------------------- 20. adaptive supersampling
+    adaptive_cell(dev, key)
+
+    # ---------------------------------------- 21. the procedural stone
+    stone_cell(dev)
 
     print(json.dumps({'kernels': [
         {k: r[k] for k in ('name', 'route', 'source', 'replaces', 'launches',

@@ -3,13 +3,14 @@
 A JAX `Scene` is a pytree; flattened, its leaves are keyed by dotted paths
 such as 'geom.vertices' or 'clusters.p0', and its static fields (the
 pytree_node=False flags) are named the same way. `scene_from_arrays` builds
-this package's Scene from such a dict, and `scene_to_arrays` is its
-inverse over the fields this package keeps; `params_from_arrays` and
-`params_to_arrays` do the same for the trainer's six parameter leaves
-(parallel/sharding.get_params). Scenes, cameras and parameters land on
-`device`, the card unless the caller names another. This module sees numpy
-arrays only, never a jax object. Leaves this package does not read (the BVH, the
-instance table's BVH roots, the edge table, `materials.kt`) are ignored.
+this package's Scene from such a dict (the edge table of diff/edges.py
+included), and `scene_to_arrays` is its inverse over the fields this
+package keeps; `params_from_arrays` and `params_to_arrays` do the same for
+the trainer's six parameter leaves (parallel/sharding.get_params). Scenes,
+cameras and parameters land on `device`, the card unless the caller names
+another. This module sees numpy arrays only, never a jax object. Leaves
+this package does not read (the BVH, the instance table's BVH roots,
+`materials.kt`) are ignored.
 """
 from __future__ import annotations
 
@@ -43,7 +44,7 @@ _GROUPS = {'geom': T.Geometry, 'materials': T.Materials,
 # tables a scene may or may not carry
 _OPTIONAL = {'dome': T.DomeLight, 'clusters': Clusters,
              'instances': T.Instances, 'iclusters': InstancedClusters,
-             'mb_clusters': Clusters}
+             'mb_clusters': Clusters, 'edges': T.EdgeTable}
 _CAMERA_FIELDS = ('eye', 'view_dir', 'up', 'fov', 'focus_plane',
                   'aperture', 'shutter')
 
@@ -95,7 +96,7 @@ def scene_to_arrays(scene: T.Scene) -> tuple[dict, dict]:
             v = getattr(obj, f.name)
             if isinstance(v, torch.Tensor):
                 arrays[f'{prefix}.{f.name}'] = v.detach().cpu().numpy()
-            else:
+            elif v is not None:       # None: an edge table without pairs
                 static[f'{prefix}.{f.name}'] = v
     arrays['env_exposure'] = scene.env_exposure.cpu().numpy()
     arrays['bg_color'] = scene.bg_color.cpu().numpy()

@@ -1,11 +1,14 @@
 """Counter-based random numbers: threefry2x32, the generator behind jax.random.
 
 Bit-for-bit with jax.random (jax_threefry_partitionable=True, the default)
-for PRNGKey, fold_in, split and float32 uniform, so one key drives both
-renderers to the same samples. A key is a pair of uint32 words held as
-Python ints; key derivation runs on the host, and only `uniform` touches
-tensors. Tensor arithmetic is int64 masked to 32 bits, because torch's
-uint32 support is incomplete (on CUDA especially).
+for PRNGKey, fold_in, split, float32 uniform and int32 randint, so one
+key drives both renderers to the same samples. A key is a pair of uint32
+words held as Python ints, and key derivation runs on the host. A batch
+of keys holds its words as int64 tensors of one shape: `fold_in` of a key
+with a tensor of data makes one (jax.vmap(fold_in, (None, 0))), and
+`uniform` / `random_bits` of such keys draw `shape` numbers per key, into
+a tensor of shape keys + shape. Tensor arithmetic is int64 masked to 32
+bits, because torch's uint32 support is incomplete (on CUDA especially).
 """
 from __future__ import annotations
 
@@ -19,19 +22,21 @@ _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 @dataclass(frozen=True)
 class Key:
-    """A threefry key: two uint32 words (jax.random.key_data order)."""
-    k1: int
-    k2: int
+    """A threefry key: two uint32 words (jax.random.key_data order), Python
+    ints, or int64 tensors of one shape for a batch of keys."""
+    k1: int | torch.Tensor
+    k2: int | torch.Tensor
 
 
 def _rotl(v, r: int):
     return ((v << r) | (v >> (32 - r))) & _M32
 
 
-def _threefry2x32(k1: int, k2: int, x1, x2):
+def _threefry2x32(k1, k2, x1, x2):
     """The 20-round threefry2x32 block on counters (x1, x2).
 
-    x1, x2 are Python ints or int64 tensors holding uint32 values."""
+    Keys and counters are Python ints or int64 tensors holding uint32
+    values; tensors broadcast."""
     ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
     x1 = (x1 + ks[0]) & _M32
     x2 = (x2 + ks[1]) & _M32
@@ -50,9 +55,14 @@ def PRNGKey(seed: int) -> Key:
                int(seed) & _M32)
 
 
-def fold_in(key: Key, data: int) -> Key:
-    """jax.random.fold_in: threefry of the counter pair (0, data)."""
-    return Key(*_threefry2x32(key.k1, key.k2, 0, int(data) & _M32))
+def fold_in(key: Key, data) -> Key:
+    """jax.random.fold_in: threefry of the counter pair (0, data). A tensor
+    of data gives a batch of keys of its shape."""
+    if isinstance(data, torch.Tensor):
+        data = data.to(torch.int64) & _M32
+    else:
+        data = int(data) & _M32
+    return Key(*_threefry2x32(key.k1, key.k2, 0, data))
 
 
 def split(key: Key, num: int = 2) -> tuple[Key, ...]:
@@ -63,13 +73,19 @@ def split(key: Key, num: int = 2) -> tuple[Key, ...]:
 
 def random_bits(key: Key, shape, device=None) -> torch.Tensor:
     """uint32 bits as int64, one threefry block per flat index: the two
-    output words XORed (jax's partitionable random_bits)."""
+    output words XORed (jax's partitionable random_bits). A batch of keys
+    draws `shape` per key (on the keys' device) -> keys' shape + shape."""
     n = 1
     for s in shape:
         n *= int(s)
+    k1, k2 = key.k1, key.k2
+    batch = ()
+    if isinstance(k1, torch.Tensor):
+        batch, device = tuple(k1.shape), k1.device
+        k1, k2 = k1[..., None], k2[..., None]
     idx = torch.arange(n, dtype=torch.int64, device=device)
-    b1, b2 = _threefry2x32(key.k1, key.k2, torch.zeros_like(idx), idx)
-    return (b1 ^ b2).reshape(tuple(shape))
+    b1, b2 = _threefry2x32(k1, k2, torch.zeros_like(idx), idx)
+    return (b1 ^ b2).reshape(batch + tuple(shape))
 
 
 def uniform(key: Key, shape, device=None) -> torch.Tensor:
@@ -77,3 +93,34 @@ def uniform(key: Key, shape, device=None) -> torch.Tensor:
     minus one (jax.random.uniform's construction)."""
     bits = (random_bits(key, shape, device) >> 9) | 0x3F800000
     return bits.to(torch.int32).view(torch.float32) - 1.0
+
+
+def uniform_segmented(key: Key, shape, segment=None, axis: int = 0,
+                      device=None) -> torch.Tensor:
+    """uniform(key, shape) for a batch of wavefronts of `segment` rays laid
+    end to end along `axis`: each run of `segment` rows draws what
+    uniform(key, shape) with `segment` there draws, as that wavefront would
+    alone. segment None: one wavefront, uniform(key, shape)."""
+    if segment is None:
+        return uniform(key, shape, device)
+    one = list(shape)
+    one[axis] = segment
+    reps = [1] * len(shape)
+    reps[axis] = shape[axis] // segment
+    return uniform(key, tuple(one), device).repeat(*reps)
+
+
+def randint(key: Key, shape, minval: int, maxval: int,
+            device=None) -> torch.Tensor:
+    """jax.random.randint for int32 in [minval, maxval): two rounds of
+    32-bit draws from split(key), hi and lo, folded into the span as
+    (hi % span) * mult + lo % span, modulo span, with mult = (2**16 %
+    span)**2 % span and uint32 wrap-around at each step, as jax computes
+    them (for spans above 2**16 the square wraps to 0, so only lo counts)."""
+    k1, k2 = split(key)
+    hi = random_bits(k1, shape, device)
+    lo = random_bits(k2, shape, device)
+    span = (int(maxval) - int(minval)) & _M32 if maxval > minval else 1
+    mult = ((2 ** 16 % span) ** 2 & _M32) % span
+    off = ((((hi % span) * mult) & _M32) + lo % span) & _M32
+    return (int(minval) + off % span).to(torch.int32)

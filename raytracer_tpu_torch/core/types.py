@@ -7,11 +7,12 @@ device with an explicit `.to(device)`.
 
 Left out on purpose: `Materials.kt` and `RenderSettings.num_paths` (nothing
 reads them) and `RenderSettings.remat` (a JAX-only checkpointing switch).
-Left out until their features are ported: the adaptive-sampling settings
-(ROADMAP queue 1 #11), the BVH and its `Instances.root` (#9) and the edge
-table (#13). A two-level scene carries its instance table and its
+Left out until its feature is ported: the BVH and its `Instances.root`
+(ROADMAP queue 1 #9). A two-level scene carries its instance table and its
 instanced cluster tables (geometry/clusters.InstancedClusters), and the
-cluster table of its motion-blurred world triangles.
+cluster table of its motion-blurred world triangles. Both kinds carry the
+edge table of diff/edges.py unless an instanced scene has too many
+(instance, edge) pairs.
 
 Scene builders (geometry/build.SceneBuilder.build, scenes/registry,
 convert) put their tensors on the card unless the caller names another
@@ -184,6 +185,17 @@ class Instances(TensorData):
     tri_hi: torch.Tensor        # (I,) i32
 
 
+@dataclass
+class EdgeTable(TensorData):
+    """Unique mesh edges with their adjacent faces, for silhouette-edge
+    sampling (diff/edges.py). An instanced scene also enumerates its
+    (instance, edge) pairs: each prototype edge once per instance."""
+    vid: torch.Tensor           # (E, 2) i32 endpoint vertex ids
+    fid: torch.Tensor           # (E, 2) i32 adjacent faces, -1 = open edge
+    pair_inst: Optional[torch.Tensor] = None   # (P,) i32 instance row
+    pair_edge: Optional[torch.Tensor] = None   # (P,) i32 edge id
+
+
 EPS_SHUTTER = 1e-3  # reference Camera ctor m_shutterSpeed = epsilon
 
 
@@ -223,6 +235,10 @@ class RenderSettings:
     path_trace: bool = False
     max_bounces: int = 5
     spec_bounce_cap: int = 5                 # src/Blinn.cpp:248
+    # adaptive supersampling (render_adaptive, src/Scene.cpp:250-293)
+    min_subdivs: int = 1
+    max_subdivs: int = 1
+    noise_threshold: float = 0.01
     max_wavefront_steps: int = 8
     shadow_segments: int = 4
     light_noise_cutoff: float = 0.0
@@ -239,7 +255,8 @@ class RenderSettings:
 class Scene(TensorData):
     """The full scene. A single-level scene carries `clusters`; a
     two-level (instanced) one carries `instances` and `iclusters`, and
-    `mb_clusters` when its world geometry is motion-blurred."""
+    `mb_clusters` when its world geometry is motion-blurred. `edges` is the
+    edge table of diff/edges.py, None beyond the instanced pair cap."""
     geom: Geometry
     materials: Materials
     textures: TexturePack
@@ -252,6 +269,7 @@ class Scene(TensorData):
     instances: Optional[Instances] = None
     iclusters: Optional[object] = None   # geometry.clusters.InstancedClusters
     mb_clusters: Optional[object] = None  # geometry.clusters.Clusters
+    edges: Optional[EdgeTable] = None
     env_tex: int = -1
     # True when the scene is one identity instance of all its triangles
     single_level: bool = True

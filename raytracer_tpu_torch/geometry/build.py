@@ -6,10 +6,12 @@ the dome light: the same method names and defaults, the same array
 layout, the same texel pool, dome tables, instance table and cluster
 tables. Everything here is numpy until `build` wraps the arrays as
 tensors and puts them on its `device` (the card unless the caller names
-another). Not built: the BVH
-(ROADMAP queue 1 #9) and the edge tables (queue 1 #13), which this
-package's render path does not read. Reading image files
-(`add_texture_file`) waits for `io/imageio.py` (queue 1 #9).
+another). Both kinds of scene carry the edge table of diff/edges.py; an
+instanced one also enumerates its (instance, edge) pairs, and beyond
+diff/edges.PAIR_CAP of them carries none, as the JAX build does. Not
+built: the BVH (ROADMAP queue 1 #9), which this package's tracers do not
+read. Reading image files (`add_texture_file`) waits for `io/imageio.py`
+(queue 1 #9).
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from ..core import types as T
+from ..diff.edges import PAIR_CAP, build_edge_table
 from ..io.objload import MeshData, compute_tangents
 from . import clusters as cl_mod
 
@@ -45,6 +48,37 @@ def _bilinear_lookup(img: np.ndarray, u: np.ndarray, v: np.ndarray
     q1 = img[y1, x1] * (1 - dx) + img[y1, x2] * dx
     q2 = img[y2, x1] * (1 - dx) + img[y2, x2] * dx
     return q1 * (1 - dy) + q2 * dy
+
+
+def _edge_pairs(edges: T.EdgeTable, instances: list[dict]):
+    """The edge table with its flat (instance, edge) pairs: each instance
+    row pairs with the edges whose first face lies in its triangles, in
+    edge order; None beyond diff/edges.PAIR_CAP pairs. The JAX build's
+    enumeration (raytracer_tpu/geometry/build.py:400-436): pairs are
+    counted per prototype before any is made."""
+    fid0 = edges.fid[:, 0].numpy()
+    sel_cache: dict = {}
+
+    def inst_sel(inst):
+        k = ('t', id(inst['tris'])) if inst['tris'] is not None \
+            else (inst['lo'], inst['hi'])
+        if k not in sel_cache:
+            if inst['tris'] is not None:
+                sel_cache[k] = np.flatnonzero(
+                    np.isin(fid0, np.asarray(inst['tris'])))
+            else:
+                sel_cache[k] = np.flatnonzero(
+                    (fid0 >= inst['lo']) & (fid0 < inst['hi']))
+        return sel_cache[k]
+
+    if sum(len(inst_sel(inst)) for inst in instances) > PAIR_CAP:
+        return None
+    pi = [np.full(len(inst_sel(inst)), row, np.int32)
+          for row, inst in enumerate(instances)]
+    pe = [inst_sel(inst).astype(np.int32) for inst in instances]
+    return T.EdgeTable(vid=edges.vid, fid=edges.fid,
+                       pair_inst=torch.from_numpy(np.concatenate(pi)),
+                       pair_edge=torch.from_numpy(np.concatenate(pe)))
 
 
 def _cdf_1d(f: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -380,14 +414,16 @@ class SceneBuilder:
         single_level = (len(instances) == 1
                         and instances[0]['tris'] is not None
                         and len(instances[0]['tris']) == self._ntri)
+        edges = build_edge_table(face_v)
         if single_level:
-            tables = dict(clusters=cl_mod.build_clusters(geom))
+            tables = dict(clusters=cl_mod.build_clusters(geom), edges=edges)
         else:
             inst_table = self._instance_table(instances)
             icl, mb = cl_mod.build_instanced_clusters(geom, instances,
                                                       inst_table)
             tables = dict(instances=inst_table, iclusters=icl,
-                          mb_clusters=mb)
+                          mb_clusters=mb,
+                          edges=_edge_pairs(edges, instances))
 
         alpha_of_face = materials.tex_alpha[geom.face_mat.long()] >= 0
         return T.Scene(

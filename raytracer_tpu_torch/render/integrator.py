@@ -106,24 +106,34 @@ def _ior_push(stack, sp, value):
     return stack * (1.0 - onehot) + value[..., None] * onehot, sp2
 
 
-def _sort_wavefront(state: dict) -> dict:
+def _sort_wavefront(state: dict, segment=None) -> dict:
     """Permute the wavefront so ray blocks stay coherent: dead rays to the
     back, then direction octant, then a 12-bit Morton code of the origin in
     the live rays' bounding box. Stable, as jnp.argsort: the permutation
-    decides which RNG slot each ray draws from."""
+    decides which RNG slot each ray draws from. With `segment`, each run of
+    that many rays is a wavefront of its own, sorted within its run by its
+    own box."""
     o, d, alive = state['o'].detach(), state['d'].detach(), state['alive']
     octant = ((d[:, 0] > 0).to(torch.int32)
               | ((d[:, 1] > 0).to(torch.int32) << 1)
               | ((d[:, 2] > 0).to(torch.int32) << 2))
-    lo = torch.where(alive[:, None], o, torch.inf).amin(dim=0)
-    hi = torch.where(alive[:, None], o, -torch.inf).amax(dim=0)
-    q = torch.clamp((o - lo) / torch.clamp(hi - lo, min=1e-6) * 15.0,
-                    0.0, 15.0).to(torch.int32)
+    n = 1 if segment is None else o.shape[0] // segment
+    live_o = torch.where(alive[:, None], o, torch.inf).reshape(n, -1, 3)
+    lo = live_o.amin(dim=1, keepdim=True)
+    hi = torch.where(alive[:, None], o, -torch.inf).reshape(n, -1, 3) \
+        .amax(dim=1, keepdim=True)
+    q = torch.clamp((o.reshape(n, -1, 3) - lo)
+                    / torch.clamp(hi - lo, min=1e-6) * 15.0,
+                    0.0, 15.0).to(torch.int32).reshape(-1, 3)
     morton = torch.zeros_like(q[:, 0])
     for bit in range(4):
         for ax in range(3):
             morton = morton | (((q[:, ax] >> bit) & 1) << (3 * bit + ax))
     key = ((~alive).to(torch.int32) << 20) | (octant << 12) | morton
+    if segment is not None:
+        # the run first: the sort stays within each run
+        run = torch.arange(o.shape[0], device=o.device) // segment
+        key = (run << 21) | key
     perm = torch.argsort(key, stable=True)
     return {k: _take(v, perm) for k, v in state.items()}
 
@@ -216,15 +226,34 @@ def trace_fn(scene: Scene, settings: RenderSettings):
 
 
 def radiance(scene: Scene, settings: RenderSettings, o, d, time,
-             base_key: rng.Key):
+             base_key: rng.Key, kind0=KIND_PRIMARY, prev_mat0=0,
+             gi_bounces0=0, segment=None):
     """Radiance of a wavefront of camera rays -> (R, 3); one sample per
-    ray. (The JAX package's mid-path restart arguments serve diff/edges,
-    ROADMAP queue 1 #13.)"""
+    ray.
+
+    kind0, prev_mat0 and gi_bounces0 (scalars or (R,) tensors) seed the
+    wavefront mid-path: diff/edges.gi_edge_vertex_grad restarts a path at
+    its first diffuse vertex as a GI ray of that vertex's material
+    (kind0=KIND_GI, prev_mat0=the material, gi_bounces0=1), so its side
+    radiances get the GI bounce's env gating and emitter handling. The
+    defaults are a camera ray's.
+
+    segment: the rays are R / segment wavefronts of `segment` rays laid end
+    to end, each traced as radiance() would trace it alone with this key
+    (its own random numbers and its own sort), which is what
+    render_adaptive's chunks are. Not for scenes with alpha maps, whose
+    march budgets its passes by the wavefront's size."""
     R = o.shape[0]
+    if segment is not None and (R % segment or scene.has_alpha_maps):
+        raise ValueError(f'segment {segment}: R = {R} must be a multiple, '
+                         f'in a scene without alpha maps')
     dev = o.device
     f32 = o.dtype
     tracer = trace_fn(scene, settings)
     zi = torch.zeros(R, dtype=torch.int32, device=dev)
+
+    def seed(x):
+        return zi + torch.as_tensor(x, dtype=torch.int32, device=dev)
     ior_stack = torch.zeros((R, IOR_STACK), dtype=f32, device=dev)
     ior_stack[:, 0] = 1.0
     ior_stack[:, 1] += 1.001
@@ -233,12 +262,12 @@ def radiance(scene: Scene, settings: RenderSettings, o, d, time,
         tp=torch.ones((R, 3), dtype=f32, device=dev),
         L=torch.zeros((R, 3), dtype=f32, device=dev),
         alive=torch.ones(R, dtype=torch.bool, device=dev),
-        kind=zi + KIND_PRIMARY,
+        kind=seed(kind0),
         bounces=zi,
-        gi_bounces=zi,
+        gi_bounces=seed(gi_bounces0),
         ior_stack=ior_stack,
         ior_sp=zi + 1,
-        prev_mat=zi,
+        prev_mat=seed(prev_mat0),
         time=torch.as_tensor(time, dtype=f32, device=dev).expand(R).clone(),
         pix=torch.arange(R, dtype=torch.int32, device=dev),
     )
@@ -246,7 +275,8 @@ def radiance(scene: Scene, settings: RenderSettings, o, d, time,
     for step_idx in range(settings.max_wavefront_steps):
         if not bool(state['alive'].any()):
             break
-        state = _step(scene, settings, tracer, state, step_idx, base_key)
+        state = _step(scene, settings, tracer, state, step_idx, base_key,
+                      segment)
     if settings.sort_rays:
         # scatter radiance back to the original ray order
         out = torch.zeros_like(state['L'])
@@ -256,17 +286,19 @@ def radiance(scene: Scene, settings: RenderSettings, o, d, time,
 
 
 def _step(scene: Scene, settings: RenderSettings, tracer, state, step_idx,
-          base_key):
-    """One bounce of the whole wavefront (the JAX package's scan body)."""
+          base_key, segment=None):
+    """One bounce of the whole wavefront (the JAX package's scan body), or
+    of each of its segments (radiance's `segment`)."""
     R = state['o'].shape[0]
     dev = state['o'].device
     f32 = state['o'].dtype
     mats = scene.materials
     key = rng.fold_in(base_key, step_idx)
     k_rr, k_gl, k_gi, k_disp, k_l1, k_l2 = rng.split(key, 6)
-    rnd = rng.uniform(k_rr, (R, 3), dev)        # rr1, rr2, disp
-    rnd_gl = rng.uniform(k_gl, (R, 2), dev)     # glossy
-    rnd_gi = rng.uniform(k_gi, (R, 2), dev)     # GI cosine
+    # rr1, rr2, disp; glossy; GI cosine
+    rnd = rng.uniform_segmented(k_rr, (R, 3), segment, 0, dev)
+    rnd_gl = rng.uniform_segmented(k_gl, (R, 2), segment, 0, dev)
+    rnd_gi = rng.uniform_segmented(k_gi, (R, 2), segment, 0, dev)
 
     o, d, tp, L, alive = (state['o'], state['d'], state['tp'], state['L'],
                           state['alive'])
@@ -388,7 +420,7 @@ def _step(scene: Scene, settings: RenderSettings, tracer, state, step_idx,
     lpw, specw3, lp_back = lt.sample_all_lights(
         scene, tracer, P, the_n, rvec, spec_exp, time, k_l1, False,
         settings, want_back=scene.has_translucency, active=diffuse_branch,
-        secondary_mask=(kind != KIND_PRIMARY))
+        secondary_mask=(kind != KIND_PRIMARY), segment=segment)
 
     w_d = (tp * rr_recip[:, None]) * diffuse_branch[:, None]
     spec_term = ks * spec_amt[:, None] * specw3
@@ -485,5 +517,5 @@ def _step(scene: Scene, settings: RenderSettings, tracer, state, step_idx,
         pix=state['pix'],
     )
     if settings.sort_rays:
-        state = _sort_wavefront(state)
+        state = _sort_wavefront(state, segment)
     return state

@@ -9,7 +9,10 @@ pass's shadow rays; dome samples below the horizon add zero; the dome's
 specular dot is clamped at 0) and the same RNG splits, so a key draws the
 same samples. Secondary rays draw one dome sample
 (RenderSettings.light_secondary_single, src/DomeLight.cpp:89). Every
-sampler takes `tracer(o, d, time, tmin, tmax, any_hit) -> Hit`.
+sampler takes `tracer(o, d, time, tmin, tmax, any_hit) -> Hit`. With
+`segment`, the rays are a batch of wavefronts of that many rays each, and
+every wavefront draws the samples it would draw alone
+(rng.uniform_segmented).
 """
 from __future__ import annotations
 
@@ -121,7 +124,7 @@ def _rect_area_power(v1, v2, v3, power):
 def sample_rect_lights(scene: Scene, tracer, P, N, rvec, spec_exp, time, key,
                        num_samples: int, segments: int = 4,
                        want_back: bool = False, active=None,
-                       noise_cutoff: float = 0.0):
+                       noise_cutoff: float = 0.0, segment=None):
     """Sum over rectangle lights -> (irradiance, spec, back); spec applies
     pow once per light to the sample-averaged spec dot
     (src/RectangleLight.cpp:135-136)."""
@@ -133,7 +136,7 @@ def sample_rect_lights(scene: Scene, tracer, P, N, rvec, spec_exp, time, key,
     for i in range(rl.v1.shape[0]):
         p_eff = _rect_area_power(rl.v1[i], rl.v2[i], rl.v3[i], rl.power[i])
         key, sub = rng.split(key)
-        e = rng.uniform(sub, (num_samples, R, 2), dev)
+        e = rng.uniform_segmented(sub, (num_samples, R, 2), segment, 1, dev)
         acc = z
         acc_s = torch.zeros(R, dtype=dt, device=dev)
         acc_b = z
@@ -211,7 +214,8 @@ def _sample_cdf(cdf, u):
 def sample_dome_light(scene: Scene, tracer, P, N, rvec, spec_exp, time, key,
                       num_samples: int, segments: int = 4,
                       want_back: bool = False, active=None,
-                      noise_cutoff: float = 0.0, single_mask=None):
+                      noise_cutoff: float = 0.0, single_mask=None,
+                      segment=None):
     """HDR dome importance sampling -> (irradiance, spec, back), each
     (R, 3) (src/DomeLight.cpp:80-161): u from the marginal CDF, v from its
     column's CDF, the direction from the table angles at floor indices,
@@ -227,7 +231,7 @@ def sample_dome_light(scene: Scene, tracer, P, N, rvec, spec_exp, time, key,
     nu = dome.u_func.shape[0]
     nv = dome.v_func.shape[1]
     key, sub = rng.split(key)
-    e = rng.uniform(sub, (num_samples, R, 2), dev)
+    e = rng.uniform_segmented(sub, (num_samples, R, 2), segment, 1, dev)
     tex_id = torch.full((R,), dome.tex, dtype=torch.int32, device=dev)
     acc, acc_b = z, z
     acc_s = torch.zeros(R, dtype=dt, device=dev)
@@ -278,7 +282,7 @@ def sample_dome_light(scene: Scene, tracer, P, N, rvec, spec_exp, time, key,
 
 def sample_all_lights(scene: Scene, tracer, P, N, rvec, spec_exp, time, key,
                       secondary: bool, settings, want_back: bool = False,
-                      active=None, secondary_mask=None):
+                      active=None, secondary_mask=None, segment=None):
     """The per-hit light loop (src/Blinn.cpp:213-221) -> (lightPower,
     lightSpec, backPower), each (R, 3). secondary_mask (R,) marks the rays
     that draw one dome sample (src/DomeLight.cpp:89; rect lights ignore
@@ -296,7 +300,7 @@ def sample_all_lights(scene: Scene, tracer, P, N, rvec, spec_exp, time, key,
         key, sub = rng.split(key)
         p, s, b = sample_rect_lights(scene, tracer, P, N, rvec, spec_exp,
                                      time, sub, ns, segs, want_back, active,
-                                     settings.light_noise_cutoff)
+                                     settings.light_noise_cutoff, segment)
         total, spec, back = total + p, spec + s, back + b
     if scene.dome is not None:
         if not settings.light_secondary_single:
@@ -306,6 +310,6 @@ def sample_all_lights(scene: Scene, tracer, P, N, rvec, spec_exp, time, key,
         p, s, b = sample_dome_light(scene, tracer, P, N, rvec, spec_exp,
                                     time, sub, ns, segs, want_back, active,
                                     settings.light_noise_cutoff,
-                                    secondary_mask)
+                                    secondary_mask, segment)
         total, spec, back = total + p, spec + s, back + b
     return total, spec, back

@@ -2,7 +2,7 @@
 
     python3 scripts/torch_frame_profile.py [--scene NAME] [--tiles 17,19,21]
                                            [--trace PATH] [--train]
-                                           [--pallas]
+                                           [--pallas] [--edges]
 
 Renders --scene (default `sponza_standin`: 1 spp, 10 bounces; or
 `instanced_grid_standin`, `forest_standin` or `final_forest_standin` at
@@ -23,8 +23,15 @@ split into forward and backward device time with the top kernels of each
 and the trace kernels' time; then the backward device time of each leaf
 alone (a profiled step whose only leaf that requires grad is that one).
 --pallas takes the 'pallas' cell instead: `sponza_standin` cut to 12
-spheres (8,836 triangles), intersector 'pallas' (the MT kernel). Needs a
-CUDA device.
+spheres (8,836 triangles), intersector 'pallas' (the MT kernel).
+
+--edges profiles one step of the edge trainer instead
+(diff/edges.loss_and_grads_with_edges with GI edges, 4,096 edge samples,
+against a zero target, at the largest tile of --tiles), part by part,
+each ended by a device sync: the interior pass, the extra forward render
+of the adjoint, the primary and the GI edge terms. Per part it prints the
+wall, the device kernel time, the trace kernels' time and the top
+kernels. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -44,6 +51,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import raytracer_tpu_torch as rt  # noqa: E402
 from raytracer_tpu_torch.core import rng  # noqa: E402
+from raytracer_tpu_torch.diff import edges  # noqa: E402
 from raytracer_tpu_torch.ops import cluster_trace as ct  # noqa: E402
 from raytracer_tpu_torch.parallel import sharding  # noqa: E402
 from raytracer_tpu_torch.render import camera as cam_mod  # noqa: E402
@@ -190,6 +198,80 @@ def main_train(args, scene, cam, st) -> int:
     return 0
 
 
+def main_edges(args, scene, cam, st) -> int:
+    tile = 1 << max(int(x) for x in args.tiles.split(',') if x)
+    params = sharding.get_params(scene)
+    target = torch.zeros((st.height, st.width, 3), device='cuda')
+    key = rng.PRNGKey(0)
+    n = 4096
+    state = {}
+
+    def adjoint():
+        state['s'], state['dL'], state['keys'] = edges.edge_adjoint(
+            params, scene, cam, st, target, key)
+
+    parts = (
+        ('interior', lambda: sharding.loss_and_grads_scanned(
+            params, scene, cam, st, target, key, tile=tile)),
+        ('adjoint_render', adjoint),
+        ('primary_edges', lambda: edges.edge_sampling_vertex_grad(
+            state['s'], cam, st, state['dL'], state['keys']['primary'],
+            n_samples=n)),
+        ('gi_edges', lambda: edges.gi_edge_vertex_grad(
+            state['s'], cam, st, state['dL'], state['keys']['gi'],
+            n_samples=max(n, 8192))))
+
+    def step():
+        spans = []
+        for name, fn in parts:
+            t0 = time.perf_counter()
+            with torch.profiler.record_function(name):
+                fn()
+                torch.cuda.synchronize()
+            spans.append((name, time.perf_counter() - t0))
+        return spans
+
+    step()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        spans = step()
+        wall_s = time.perf_counter() - t0
+    names = [name for name, _ in parts]
+    starts = {e.name: e.time_range.start for e in prof.events()
+              if e.name in names}
+    edges_at = sorted((starts[k], k) for k in names)
+    dev_ev = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.name not in names]
+    by_part = {k: [] for k in names}
+    for e in dev_ev:
+        owner = [k for t, k in edges_at if t <= e.time_range.start]
+        if owner:
+            by_part[owner[-1]].append(e)
+    total_us = sum(e.device_time_total for e in dev_ev)
+    rec = {'edges_profile_tile': tile, 'profiled_wall_s': wall_s,
+           'device_kernel_s': total_us / 1e6,
+           'device_busy_share': total_us / 1e6 / wall_s, 'parts': {}}
+    for name, w in spans:
+        t_us, top = by_name(by_part[name])
+        trace_us = sum(e.device_time_total for e in by_part[name]
+                       if TRACE_KERNEL.search(e.name))
+        rec['parts'][name] = dict(wall_s=w, device_s=t_us / 1e6,
+                                  trace_kernel_s=trace_us / 1e6,
+                                  n_device_kernels=len(by_part[name]))
+        for kname, us in top[:8]:
+            print(json.dumps({'part': name, 'kernel': kname[:90],
+                              'device_ms': us / 1e3,
+                              'share': us / max(t_us, 1e-9)}))
+    print(json.dumps(rec))
+    if args.trace:
+        os.makedirs(os.path.dirname(args.trace) or '.', exist_ok=True)
+        prof.export_chrome_trace(args.trace)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument('--scene', default='sponza_standin',
@@ -200,6 +282,7 @@ def main() -> int:
     ap.add_argument('--trace', default=None)
     ap.add_argument('--train', action='store_true')
     ap.add_argument('--pallas', action='store_true')
+    ap.add_argument('--edges', action='store_true')
     args = ap.parse_args()
     assert torch.cuda.is_available(), 'needs a CUDA device'
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
@@ -214,6 +297,8 @@ def main() -> int:
                                    ray_tile=DEFAULT_TILE, **kw)
     if args.train:
         return main_train(args, scene, cam, st)
+    if args.edges:
+        return main_edges(args, scene, cam, st)
     key = rng.PRNGKey(2024)
     W, H = st.width, st.height
 

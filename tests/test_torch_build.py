@@ -99,16 +99,14 @@ def test_sponza_standin_size():
 
 
 def test_unported_features_raise():
-    """Image files, adaptive sampling, the BVH and motion-blurred
-    prototypes (which need the BVH tracer) still raise; a scene without
-    its cluster table does not convert."""
-    from raytracer_tpu_torch import SceneBuilder, render_adaptive
+    """Image files, the BVH and motion-blurred prototypes (which need the
+    BVH tracer) still raise; a scene without its cluster table does not
+    convert."""
+    from raytracer_tpu_torch import SceneBuilder
     from raytracer_tpu_torch.io.objload import make_single_triangle
     b = SceneBuilder()
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         b.add_texture_file('leaf.tga')
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        render_adaptive()
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         b.build(bvh=True)
     tri = make_single_triangle((0, 0, 0), (1, 0, 0), (0, 1, 0))
@@ -175,13 +173,15 @@ def test_camera_from_arrays():
 
 
 @pytest.mark.parametrize('entry', ['registry', 'builder', 'convert',
-                                   'camera', 'params'])
+                                   'camera', 'params', 'stone'])
 def test_builders_default_to_the_card(entry):
-    """Scenes, cameras and parameters land on the card unless the caller
-    names another device; without a card the default raises (it never
-    builds on the CPU quietly), and device='cpu' builds there."""
+    """Scenes, cameras, parameters and baked textures land on the card
+    unless the caller names another device; without a card the default
+    raises (it never builds on the CPU quietly), and device='cpu' builds
+    there."""
     from raytracer_tpu_torch import SceneBuilder
     from raytracer_tpu_torch.io.objload import make_single_triangle
+    from raytracer_tpu_torch.shading import procedural
     sj, _, _ = cpu(registry.triangle_sphere, size=8,
                    builder=rj.SceneBuilder())
     arrays, static = scene_arrays(sj)
@@ -202,7 +202,9 @@ def test_builders_default_to_the_card(entry):
         camera=lambda **kw: convert.camera_from_arrays(cam_arrays, **kw),
         params=lambda **kw: convert.params_from_arrays(
             {k: np.zeros(2, np.float32) for k in convert.PARAM_KEYS},
-            **kw))[entry]
+            **kw),
+        stone=lambda **kw: procedural.bake_stone_texture(num_cells=4,
+                                                         size=4, **kw))[entry]
     if torch.cuda.is_available():
         assert _devices(make()) == {'cuda'}
     else:
@@ -212,9 +214,11 @@ def test_builders_default_to_the_card(entry):
 
 
 def _devices(x):
-    """Device types of a params dict, a Scene or a Camera."""
+    """Device types of a params dict, a Scene, a Camera or a tensor."""
     if isinstance(x, dict):
         vals = list(x.values())
+    elif isinstance(x, torch.Tensor):
+        vals = [x]
     elif hasattr(x, 'geom'):
         vals = [x.geom.vertices, x.materials.kd, x.env_exposure,
                 x.clusters.p0, x.clusters.tri]

@@ -1,7 +1,8 @@
 """The CUDA trace kernels (cluster, segment and hierarchical instance trace,
 and the brute-force Moller-Trumbore sweep) against their plain PyTorch
-versions, and the trainer's loss and gradients against the CPU's, on the
-card. Every test here needs an
+versions, and the trainer's loss and gradients, the edge-sampled boundary
+terms, adaptive renders and the baked stone texture against the CPU's, on
+the card. Every test here needs an
 NVIDIA GPU and nvcc, and skips elsewhere.
 
 This file imports torch and the port only, so it runs on a machine without
@@ -33,7 +34,8 @@ from raytracer_tpu_torch.parallel import sharding as ts
 from raytracer_tpu_torch.render import camera as cam_mod
 from raytracer_tpu_torch.scenes import registry
 
-from .torch_port_util import (box_rays, cluster_table, cpu, grazing_rays,
+from .torch_port_util import (box_rays, cluster_table, cpu,
+                              edge_sample_parity, grazing_rays,
                               instanced_table, segment_table, table_rays,
                               triangle_soup)
 
@@ -660,3 +662,94 @@ def test_mt_kernel_grids(dev, case, monkeypatch):
     for g, w, f in zip(got, want, ('t', 'tri', 'a', 'b')):
         np.testing.assert_array_equal(g.cpu().numpy(), w.numpy(), err_msg=f)
     assert (got[1].cpu()[:1024] == -1).all()
+
+
+# --------------------------------- edge gradients and adaptive rendering
+EDGE_CASES = {
+    # scene (the wavefront sort off), its edge terms
+    'sponza_12': (lambda: cpu(registry.sponza_standin, 32, 24, max_bounces=3,
+                              n_spheres=12, sort_rays=False),
+                  ('primary', 'gi')),
+    'triangle_sphere': (lambda: cpu(registry.triangle_sphere, size=32,
+                                    sort_rays=False), ('primary', 'shadow')),
+    'instanced_teapots': (lambda: cpu(registry.instanced_teapots_standin, 32,
+                                      24, sort_rays=False), ('primary',)),
+}
+
+
+@pytest.mark.parametrize('name', sorted(EDGE_CASES))
+def test_edge_grads_on_card_match_cpu(dev, name):
+    """Each boundary term's samples on the card (kernels) against the CPU
+    (plain versions), the same key and adjoint (the CPU's render of a
+    black target's loss): the same edges and positions; at most 5% of the
+    samples with a side radiance that took another path or accepted on
+    one device only, at least 90% of the nonzero samples kept, and the
+    gradient of those kept within rtol 1e-3 and atol 1e-4 x max|term|
+    (the card's index_add_ sums in no fixed order). The wavefront sort is
+    off, as in test_adaptive_on_card_matches_cpu."""
+    from raytracer_tpu_torch.diff import edges as ed
+
+    samplers = dict(
+        primary=(ed.primary_edge_samples, 1024),
+        shadow=(lambda *a: ed.EdgeSamples.cat(ed.shadow_edge_samples(*a)),
+                1024),
+        gi=(ed.gi_edge_samples, 8192))
+    make, terms = EDGE_CASES[name]
+    host, cam, st = make()
+    s, dL, keys = ed.edge_adjoint(ts.get_params(host), host, cam, st,
+                                  torch.zeros((st.height, st.width, 3)),
+                                  rng.PRNGKey(8))
+    card, cam_d, dL_d = s.to(dev), cam.to(dev), dL.to(dev)
+    kernel = ck if host.single_level else isk
+    for term in terms:
+        fn, n = samplers[term]
+        want = fn(s, cam, st, dL, keys[term], n)
+        n0, c0 = kernel.LAUNCHES, ct.CALLS + ist.CALLS
+        got = fn(card, cam_d, st, dL_d, keys[term], n)
+        torch.cuda.synchronize()
+        assert kernel.LAUNCHES > n0 and ct.CALLS + ist.CALLS == c0
+        assert bool(torch.isfinite(got.scal).all())
+        assert bool((want.scal != 0).any()), term
+        out, kept, excess = edge_sample_parity(got, want, s.geom.vertices)
+        assert out <= 0.05 * n, (term, out)
+        assert kept >= 0.9 * int((want.scal != 0).sum()), (term, kept)
+        assert excess <= 0.0, (term, excess)
+
+
+@pytest.mark.parametrize('ray_tile', [96, 2048])
+def test_adaptive_on_card_matches_cpu(dev, ray_tile):
+    """render_adaptive of the 12-sphere sponza_standin at 32x24, 2 bounces,
+    levels 1-3: the card against the CPU with the render rule, and equal
+    sample counts on >= 99% of pixels; in 96-pixel tiles of one chunk, and
+    in one 2048-pixel tile of two 1024-pixel chunks. The wavefront sort is
+    off: with it on, a path that turns on an ulp-level sin/cos difference
+    hands the rest of its chunk other random numbers, and over a level's
+    many integrator calls that moves a few percent of the pixels."""
+    host, cam, st = cpu(registry.sponza_standin, 32, 24, max_bounces=2,
+                        n_spheres=12, ray_tile=ray_tile, min_subdivs=2,
+                        max_subdivs=3, noise_threshold=0.05,
+                        sort_rays=False)
+    key = rng.PRNGKey(9)
+    img_c, cnt_c = rt.render_adaptive(host, cam, st, key, with_counts=True)
+    n0 = ck.LAUNCHES
+    img_g, cnt_g = rt.render_adaptive(host.to(dev), cam.to(dev), st, key,
+                                      with_counts=True)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES > n0
+    got, want = img_g.cpu().numpy(), img_c.numpy()
+    d = np.abs(got - want)
+    assert (d <= 1e-4 + 1e-3 * np.abs(want)).all(-1).mean() >= 0.99
+    assert d.mean() < 1e-3 * np.abs(want).mean()
+    assert (cnt_g.cpu() == cnt_c).double().mean() >= 0.99
+    assert set(np.unique(cnt_c.numpy())) <= {5, 14}
+
+
+def test_stone_bake_on_card_matches_cpu(dev):
+    from raytracer_tpu_torch.shading import procedural
+
+    got = procedural.bake_stone_texture(num_cells=40, size=128, device=dev)
+    want = procedural.bake_stone_texture(num_cells=40, size=128,
+                                         device='cpu')
+    assert got.device.type == 'cuda'
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
+                               atol=1e-5)

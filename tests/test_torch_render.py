@@ -86,10 +86,11 @@ def test_render_sponza_standin(sponza):
 
 
 def test_imports_without_jax(tmp_path):
-    """The port builds a scene, renders and takes a train step with jax,
-    flax, optax and raytracer_tpu unimportable, from a copy of its package
-    alone: no file of the JAX package is within reach, and the native
-    library builds into the copy's own _build directory."""
+    """The port builds a scene, renders (uniform and adaptive), takes a
+    train step, adds the edge-sampled boundary terms and bakes the stone
+    texture with jax, flax, optax and raytracer_tpu unimportable, from a
+    copy of its package alone: no file of the JAX package is within reach,
+    and the native library builds into the copy's own _build directory."""
     shutil.copytree(os.path.join(REPO, 'raytracer_tpu_torch'),
                     tmp_path / 'raytracer_tpu_torch',
                     ignore=shutil.ignore_patterns('_build', '__pycache__'))
@@ -119,6 +120,18 @@ def test_imports_without_jax(tmp_path):
         '                                   rng.PRNGKey(1))',
         'assert bool(loss.isfinite()) and float(loss) > 0',
         'assert not torch.equal(params["vertices"], v0)',
+        'from raytracer_tpu_torch.diff import edges',
+        'from raytracer_tpu_torch.shading import procedural',
+        'img2, cnt = rt.render_adaptive(scene, cam, st, rng.PRNGKey(2),',
+        '                               with_counts=True)',
+        'assert img2.shape == (8, 8, 3) and int(cnt.min()) == 1',
+        'loss, g = edges.loss_and_grads_with_edges(',
+        '    sharding.get_params(scene), scene, cam, st,',
+        '    torch.zeros(8, 8, 3), rng.PRNGKey(3), edge_samples=64)',
+        'assert bool(g["vertices"].isfinite().all())',
+        'tex = procedural.bake_stone_texture(num_cells=4, size=4,',
+        "                                    device='cpu')",
+        'assert tex.shape == (4, 4, 3)',
         "assert not any(m.startswith(('jax', 'flax', 'optax',",
         "                             'raytracer_tpu.'))",
         '               for m in sys.modules if sys.modules[m] is not None)',

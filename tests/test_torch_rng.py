@@ -1,11 +1,14 @@
 """raytracer_tpu_torch.core.rng against jax.random, bit for bit.
 
-The port's renders draw the JAX package's samples only if fold_in, split
-and uniform agree exactly, so the tolerance is zero (compared as bits).
+The port's renders draw the JAX package's samples only if fold_in, split,
+uniform and randint agree exactly, with single keys and with batches of
+keys, so the tolerance is zero (compared as bits).
 """
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from raytracer_tpu_torch.core import rng
 
@@ -46,3 +49,44 @@ def test_uniform_bits(shape):
         assert ut.shape == uj.shape and ut.dtype == np.float32
         np.testing.assert_array_equal(ut.view(np.uint32), uj.view(np.uint32))
         assert ut.min() >= 0.0 and ut.max() < 1.0
+
+
+# spans of diff/edges.gi_edge_vertex_grad's pixel draws (W * H, most not
+# powers of two), both sides of 2**16 (above it jax's multiplier wraps
+# to 0), a power of two, a shifted range and an empty one
+RANGES = [(0, 32 * 32), (0, 64 * 48), (0, 1920 * 1080), (0, 1000),
+          (0, 65536), (0, 65537), (0, 1 << 20), (-7, 12), (-10, 2 ** 31 - 1),
+          (5, 5)]
+
+
+@pytest.mark.parametrize('lo,hi', RANGES)
+def test_randint_bits(lo, hi):
+    for seed in (0, 7, -3):
+        for data in (0, 0x61ed):
+            kj = jax.random.fold_in(jax.random.PRNGKey(seed), data)
+            kt = rng.fold_in(rng.PRNGKey(seed), data)
+            want = np.asarray(jax.random.randint(kj, (4099,), lo, hi))
+            got = rng.randint(kt, (4099,), lo, hi).numpy()
+            assert got.dtype == want.dtype == np.int32
+            np.testing.assert_array_equal(got, want)
+    assert got.min() >= lo and (got.max() < hi or lo == hi)
+
+
+def test_tensor_keys_fold_in_and_uniform():
+    """jax.vmap(fold_in, (None, 0))(k, ids) and uniform(k, (5,)) per key,
+    as render_adaptive draws its per-pixel jitter, from a batch of keys."""
+    ids = np.arange(0, 3000, 3, dtype=np.int32)
+    kj = jax.random.fold_in(jax.random.PRNGKey(9), 4)
+    keys_j = jax.vmap(jax.random.fold_in, (None, 0))(kj, jnp.asarray(ids))
+    u_j = np.asarray(jax.vmap(lambda k: jax.random.uniform(k, (5,)))(keys_j))
+    keys = rng.fold_in(rng.fold_in(rng.PRNGKey(9), 4), torch.from_numpy(ids))
+    assert keys.k1.shape == (1000,) and keys.k1.dtype == torch.int64
+    np.testing.assert_array_equal(
+        np.stack([keys.k1.numpy(), keys.k2.numpy()], -1),
+        np.asarray(keys_j).astype(np.int64))
+    u = rng.uniform(keys, (5,)).numpy()
+    assert u.shape == (1000, 5)
+    np.testing.assert_array_equal(u.view(np.uint32), u_j.view(np.uint32))
+    # the int path is the tensor path at one key
+    one = rng.fold_in(rng.fold_in(rng.PRNGKey(9), 4), int(ids[7]))
+    np.testing.assert_array_equal(rng.uniform(one, (5,)).numpy(), u[7])

@@ -62,6 +62,25 @@ def jax_settings(settings, **overrides):
     return JT.RenderSettings(**kw)
 
 
+def port_settings(settings_j, **overrides):
+    """The JAX package's RenderSettings as the port's (the fields the
+    port keeps)."""
+    from raytracer_tpu_torch.core.types import RenderSettings
+
+    kw = {f.name: getattr(settings_j, f.name)
+          for f in dataclasses.fields(RenderSettings)}
+    kw.update(overrides)
+    return RenderSettings(**kw)
+
+
+def port_camera(cam_j):
+    """A JAX Camera as the port's, on the CPU."""
+    leaves = {f: np.asarray(getattr(cam_j, f)) for f in (
+        'eye', 'view_dir', 'up', 'fov', 'focus_plane', 'aperture',
+        'shutter')}
+    return cpu(convert.camera_from_arrays, leaves)
+
+
 def random_rays(bb_min, bb_max, tri, R, seed):
     """Incoherent rays: origins scattered around the scene's box, aimed at
     random points inside it -> numpy (o, d, time, distance to that point)."""
@@ -417,3 +436,32 @@ def mt_split_trace(o, d, p0, p1, p2, valid, tmin, tmax, per_split):
     return (torch.where(got, t[:, 0], tmt.MIRO_TMAX),
             torch.where(got, j, -1).to(torch.int32),
             torch.where(got, a[:, 0], 0.0), torch.where(got, b[:, 0], 0.0))
+
+
+def edge_sample_parity(got, want, verts):
+    """Two devices' samples of one edge term (diff/edges.EdgeSamples, the
+    same key and adjoint) -> (the number of samples left out, the number
+    of nonzero samples kept, the largest excess over rtol 1e-3 and atol
+    1e-4 x max|grad| of the gradient summed from those kept). The same
+    edges and positions must be sampled. Left out: the samples whose side
+    radiance took another path on `got`'s device (a radiance more than
+    1e-6 + 1e-4 |f| apart: the CPU and CUDA libraries' sin/cos and rsqrt
+    differ in the last ulp, which turns a path, and the wavefront sort
+    then hands the other rays of its wavefront other random numbers) and
+    those accepted on one device only (a knife-edge silhouette or
+    visibility test)."""
+    import torch
+    from raytracer_tpu_torch.diff.edges import EdgeSamples
+
+    got = EdgeSamples(*(getattr(got, f.name).cpu()
+                        for f in dataclasses.fields(got)))
+    assert torch.equal(got.es, want.es) and torch.equal(got.ss, want.ss)
+    off = lambda x, y: ((x - y).abs() > 1e-6 + 1e-4 * y.abs()).any(-1)
+    out = off(got.f_plus, want.f_plus) | off(got.f_minus, want.f_minus) \
+        | ((got.scal == 0) != (want.scal == 0))
+    g = dataclasses.replace(got, scal=torch.where(out, 0.0, got.scal))
+    w = dataclasses.replace(want, scal=torch.where(out, 0.0, want.scal))
+    g, w = g.grad(verts), w.grad(verts)
+    atol = 1e-4 * float(w.abs().max())
+    return (int(out.sum()), int(((want.scal != 0) & ~out).sum()),
+            float(((g - w).abs() - (atol + 1e-3 * w.abs())).max()))
