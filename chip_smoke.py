@@ -6,10 +6,10 @@ through `parallel/sharding.loss_and_grads_scanned`, Adam steps through
 `train_step`) at 1920x1080, 1 spp, in phases:
 
   1. device: the card's name and power limit; TF32 off;
-  2. build: the four CUDA kernels (cluster, segment and hierarchical
-     instance trace, the brute-force MT sweep; one nvcc each, all started
-     together, the trace kernels with csrc/trace_common.cuh) and the native
-     host library, all compiled from this checkout; each kernel's
+  2. build: the five CUDA kernels (cluster, segment and hierarchical
+     instance trace, the brute-force MT sweep, the wide-BVH walk; one nvcc
+     each, all started together, each with csrc/trace_common.cuh) and the
+     native host library, all compiled from this checkout; each kernel's
      registers, spills and shared memory (ptxas -v);
   3. scene: the 174,724-triangle `sponza_standin` atrium, built on the
      card;
@@ -96,10 +96,39 @@ through `parallel/sharding.loss_and_grads_scanned`, Adam steps through
      difference hands the rest of its chunk other random numbers; that
      image's figures are printed, not held);
  21. the procedural stone texture baked at 256x256 on the card and on the
-     CPU, within 1e-5.
+     CPU, within 1e-5;
+ 22. the wide BVH: `sponza_standin` built with bvh=True on the card (the
+     build's seconds and bvh_stats); the BVH kernel against its plain
+     version, both on the card, at 32,768 coherent and incoherent rays,
+     nearest and any-hit, with the test counters, bit for bit, there and
+     on `instanced_teapots_standin` (two levels), `mb_bullet_standin`
+     (motion blur), `alpha_leaf_standin` (alpha maps in the walk) and
+     `mb_prototype_standin` (a motion-blurred prototype), which 'auto'
+     must send to the BVH kernel; the 100,000-instance grid's build with
+     its Python TLAS; then the 1080p, 10-bounce frame with intersector
+     'bvh' (the BVH kernel carries every trace; median wall of 3, peak
+     memory); its centre-of-pixel camera rays' nearest t bit for bit
+     with the cluster kernel's; where its wavefronts part from the 'auto' frame's (every
+     trace of the 'auto' frame run through both kernels: t, ties,
+     barycentrics and any-hit compared; each bounce's sorted wavefront
+     compared slot by slot); its image against phase 5's and, both with
+     the wavefront sort off, against the 'auto' frame, each under phase
+     6's rule; and the CPU/GPU parity of 'bvh' at 64x48, 3 bounces, as
+     phase 6;
+ 23. the loaders at full size: `sponza_standin`'s meshes written as OBJ
+     files, read back with load_obj (its seconds) and built on the card:
+     every scene array byte-equal to the in-memory build's, and the 1080p
+     frame at phase 5's key equal to phase 5's image bit for bit;
+ 24. the CLI on the card as a subprocess (`python -m
+     raytracer_tpu_torch.cli --scene sponza_standin --progressive 1`): 1
+     spp with a checkpoint, resumed to 2, against an uninterrupted 2-spp
+     run: the same PPM bytes, read back through imageio.load_ppm; then
+     `render_with_stats(...).pretty()` for phase 22's scene, with its
+     probe's test counters.
 
-Each path (phases 5, 7, 9, 10, 13, 14, 16-18, 20) is driven with every
-launch and plain-version count set to 0 just before and read just after.
+Each path (phases 5, 7, 9, 10, 13, 14, 16-18, 20, 22's frame and the
+motion-blurred prototype's trace) is driven with every launch and
+plain-version count set to 0 just before and read just after.
 Any failure
 raises. The last two lines are the kernels' JSON record (one entry per
 kernel and mode group, with the least time its work could take on the
@@ -110,23 +139,28 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import statistics
 from concurrent.futures import ThreadPoolExecutor
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 import raytracer_tpu_torch as rt
-from raytracer_tpu_torch import bench, native
+from raytracer_tpu_torch import bench, convert, native
 from raytracer_tpu_torch.core import rng
 from raytracer_tpu_torch.diff import edges as ed
+from raytracer_tpu_torch.io import imageio, objload
 from raytracer_tpu_torch.ops import cluster_trace as ct
 from raytracer_tpu_torch.ops import icluster_trace as ict
 from raytracer_tpu_torch.ops import iseg_trace as ist
 from raytracer_tpu_torch.ops import mt_trace as tmt
+from raytracer_tpu_torch.ops import traverse as ttr
+from raytracer_tpu_torch.ops.cuda import bvh_kernel as bvk
 from raytracer_tpu_torch.ops.cuda import cluster_kernel as ck
 from raytracer_tpu_torch.ops.cuda import icluster_kernel as ick
 from raytracer_tpu_torch.ops.cuda import iseg_kernel as isk
@@ -136,13 +170,9 @@ from raytracer_tpu_torch.render import camera as cam_mod
 from raytracer_tpu_torch.render import integrator
 from raytracer_tpu_torch.scenes import registry
 from raytracer_tpu_torch.shading import procedural
+from raytracer_tpu_torch.utils import profiling
 
 WIDTH, HEIGHT, BOUNCES = 1920, 1080, 10
-# rays per wavefront tile: one tile holds the whole 1080p frame, so every
-# bounce is one launch per trace and the frame's per-ray state stays on the
-# card (2.65 GB peak; 0.78 s a frame against 1.14 s at 2**19 and 3.71 s at
-# 2**17, scripts/torch_frame_profile.py on an H100 80GB HBM3 at 700 W)
-RAY_TILE = 1 << 21
 N_RAYS = 32_768
 PARITY = dict(width=64, height=48, max_bounces=3)
 KEY = 2024
@@ -159,8 +189,8 @@ INSTANCED = (
      INSTANCED_REPLACES[1][1]))
 # the reduced final forest of the CPU/GPU parity check (phase 11)
 FOREST_PARITY = dict(n_trees=4, n_flowers=20, grass_grid=8, max_bounces=1)
-KERNELS = (ck, isk, ick, mtk)
-PLAINS = (ct, ist, ict, tmt)
+KERNELS = (ck, isk, ick, mtk, bvk)
+PLAINS = (ct, ist, ict, tmt, ttr)
 # the 'pallas' cells: sponza_standin cut to 12 spheres (8,836 triangles)
 MT_SPHERES = 12
 MT_REPLACES = 'raytracer_tpu/ops/pallas/mt_kernel.py:122'
@@ -444,8 +474,8 @@ def render_cell(scene, cam, st, key, kernel, tag, also=(), **fields):
     """One 1080p render with every launch count set to 0 just before and
     read just after (the kernel, and the kernels in `also`, must carry
     every trace, the plain versions none), then the median wall of 3 ->
-    (the kernel's launch count, {kernel module: launches by mode}), both
-    read right after that first render."""
+    (the kernel's launch count, {kernel module: launches by mode}, both
+    read right after that first render, and its image)."""
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
@@ -479,7 +509,7 @@ def render_cell(scene, cam, st, key, kernel, tag, also=(), **fields):
           launches_by_mode={m.__name__.rsplit('.', 1)[-1]: c
                             for m, c in modes.items()},
           alpha_march=march, **fields)
-    return launches, modes
+    return launches, modes, img
 
 
 def mb_rays(cl, cam, dev):
@@ -570,7 +600,7 @@ def forest_cell(dev, key, records, n_trees: int) -> None:
     against their plain versions, and its frame."""
     t0 = time.perf_counter()
     scene, cam, st = registry.final_forest_standin(
-        WIDTH, HEIGHT, n_trees=n_trees, ray_tile=RAY_TILE, device=dev)
+        WIDTH, HEIGHT, n_trees=n_trees, device=dev)
     torch.cuda.synchronize()
     icl, mb = scene.iclusters, scene.mb_clusters
     deep = icl.max_proto_clusters > 16
@@ -611,7 +641,7 @@ def forest_cell(dev, key, records, n_trees: int) -> None:
                         source=f'raytracer_tpu_torch/csrc/{name}.cu',
                         replaces=replaces, max_abs_err=err, ms=t_k,
                         plain_ms=t_p, **bnd))
-    _, modes = render_cell(scene, cam, st, key, kernel,
+    _, modes, _ = render_cell(scene, cam, st, key, kernel,
                            f'render_1080p_final_forest_{n_trees}', also=(ck,),
                            **fields)
     # the new modes' launches in that frame, the only modes it runs
@@ -945,8 +975,7 @@ def adjoint_of(scene, cam, st, key):
 
 def shadow_edges_cell(dev, key) -> None:
     """Phase 17: the shadow boundary term on `triangle_sphere`, 1080^2."""
-    scene, cam, st = registry.triangle_sphere(size=HEIGHT, ray_tile=RAY_TILE,
-                                              device=dev)
+    scene, cam, st = registry.triangle_sphere(size=HEIGHT, device=dev)
     dL = adjoint_of(scene, cam, st, key)
     reset_counts()
     g, wall = synced(lambda: ed.shadow_edge_vertex_grad(
@@ -963,7 +992,7 @@ def shadow_edges_cell(dev, key) -> None:
 def instanced_edges_cell(dev, key) -> None:
     """Phase 18: instanced primary edges on `instanced_teapots_standin`."""
     scene, cam, st = registry.instanced_teapots_standin(
-        WIDTH, HEIGHT, ray_tile=RAY_TILE, device=dev)
+        WIDTH, HEIGHT, device=dev)
     assert scene.edges is not None and scene.edges.pair_inst is not None
     dL = adjoint_of(scene, cam, st, key)
     reset_counts()
@@ -1061,7 +1090,7 @@ def adaptive_cell(dev, key) -> None:
     """Phase 20: render_adaptive of `sponza_standin` at 1080p, then its
     CPU/GPU parity at 64x48."""
     scene, cam, st = registry.sponza_standin(
-        WIDTH, HEIGHT, max_bounces=BOUNCES, ray_tile=RAY_TILE, **ADAPTIVE,
+        WIDTH, HEIGHT, max_bounces=BOUNCES, **ADAPTIVE,
         device=dev)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -1124,6 +1153,357 @@ def stone_cell(dev) -> None:
         'stone texture: the card and the CPU disagree'
 
 
+def bvh_rays(scene, cam, dev, fan: bool):
+    """N_RAYS coherent rays and N_RAYS incoherent ones (from around the
+    scene's vertex box to random points in it), each with a random time in
+    [0, 1). The coherent ones are a 256 x 128 image of the scene's camera,
+    or with `fan` a 256 x 128 fan from its eye over the middle of the
+    vertex box (for scenes that fill little of their camera's view)."""
+    v = scene.geom.vertices.cpu().numpy()
+    lo, hi = v.min(0), v.max(0)
+    rs = np.random.default_rng(KEY + 8)
+    f = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    unit = lambda x: x / np.linalg.norm(x, axis=-1, keepdims=True)
+    if fan:
+        gx, gy = np.meshgrid(np.linspace(0, 1, 256),
+                             np.linspace(0, 1, N_RAYS // 256))
+        tgt = lo + np.stack([gx.ravel(), gy.ravel(),
+                             np.full(gx.size, 0.5)], -1) * (hi - lo)
+        eye = cam.eye.cpu().numpy()
+        o, d = f(np.tile(eye, (len(tgt), 1))), f(unit(tgt - eye))
+    else:
+        o, d, _ = cam_mod.center_rays(cam, 256, N_RAYS // 256)
+    ctr, ext = (lo + hi) / 2, (hi - lo).max()
+    o2 = ctr + rs.normal(size=(N_RAYS, 3)) * ext
+    d2 = unit(lo + rs.uniform(size=(N_RAYS, 3)) * (hi - lo) - o2)
+    times = lambda: f(rs.uniform(size=N_RAYS))
+    return {'coherent': (o.to(dev), d.to(dev), times()),
+            'incoherent': (f(o2), f(d2), times())}
+
+
+def compare_bvh(scene, cam, dev, tag, fan=False):
+    """Phase 22: the BVH kernel against its plain version, both on the
+    card, at 32,768 coherent and incoherent rays, nearest and any-hit,
+    with the test counters: t, tri, inst, a, b and the counters bit for
+    bit -> (max |error|, ms, plain ms, bound fields). Any-hit rays stop at
+    0.5-1.5 times their nearest hit's distance. The bound counts the plain
+    walk's box and triangle tests (the kernel's own), each table and
+    geometry byte once, and the rays' inputs and outputs."""
+    max_err, ms_k, ms_p = 0.0, 0.0, 0.0
+    work = Work()
+    bvh, g = scene.blas, scene.geom
+    table_bytes = sum(x.numel() * x.element_size() for x in (
+        bvh.node_min, bvh.node_max, bvh.child, bvh.count, bvh.prim_order,
+        g.face_v, g.vertices)) + (g.vertices_t1.numel() * 4
+                                  if scene.has_motion_blur else 0)
+    mb = scene.has_motion_blur
+    rs = np.random.default_rng(KEY + 9)
+    for kind, (o, d, tm) in bvh_rays(scene, cam, dev, fan).items():
+        tmax = torch.full_like(tm, 1e12)
+        for any_hit in (False, True):
+            if any_hit:
+                u = torch.as_tensor(rs.uniform(0.5, 1.5, N_RAYS),
+                                    dtype=torch.float32, device=dev)
+                tmax = torch.clamp(hp.t * u, max=1e12)
+            args = (o, d, tm, 1e-3, tmax, any_hit, True)
+            t_k, (hk, sk) = cuda_ms(lambda: bvk.bvh_trace(scene, *args))
+            t_p, (hp, sp) = cuda_ms(lambda: ttr.bvh_trace(scene, *args),
+                                    reps=2)
+            ms_k += t_k
+            ms_p += t_p
+            box, tri = int(sp['ray_aabb'].sum()), int(sp['ray_tri'].sum())
+            # o, d, time, tmin, tmax in; t, tri, inst, a, b out
+            work.add(box * BOX_OPS + tri * (MT_OPS + (LERP_OPS if mb else 0)),
+                     table_bytes + N_RAYS * 56)
+            hits = int((hp.tri >= 0).sum())
+            differ = int(((hk.tri != hp.tri) | (hk.inst != hp.inst)).sum())
+            counts = int(((sk['ray_aabb'] != sp['ray_aabb'])
+                          | (sk['ray_tri'] != sp['ray_tri'])).sum())
+            errs = {f: float((getattr(hk, f) - getattr(hp, f)).abs().max())
+                    for f in ('t', 'a', 'b')}
+            max_err = max(max_err, *errs.values())
+            phase(tag, rays=kind, mode='any' if any_hit else 'nearest',
+                  n=N_RAYS, hits=hits, tri_inst_mismatch=differ,
+                  counter_mismatch=counts,
+                  **{f'max_abs_d{f}': e for f, e in errs.items()},
+                  kernel_ms=t_k, plain_ms=t_p, box_tests_per_ray=box / N_RAYS,
+                  tri_tests_per_ray=tri / N_RAYS)
+            assert differ == 0 and counts == 0, f'{tag} {kind}: ids differ'
+            assert max(errs.values()) == 0.0, f'{tag} {kind}: t, a, b differ'
+            assert hits > N_RAYS // 20, 'too few hits to compare'
+    return max_err, ms_k, ms_p, work.bound()
+
+
+def sorted_divergence(scene, cam, st, key):
+    """Where the sorted 'auto' and 'bvh' frames part. Both frames are
+    rendered again with each bounce's wavefront kept after its sort (the
+    pixel in each slot, the origins, the live mask), and every trace of
+    the 'auto' frame is also run through the BVH kernel on the same rays
+    -> (per trace: rays, t differing, equal t on another triangle (a
+    tie), the same hit with other barycentrics, any-hit existence
+    differing; per bounce: slots holding another pixel's ray, rays whose
+    origin or live flag differs, rays whose sort key differs; the two
+    images). The first few rays of a
+    trace whose t differs come with their origin, direction, both t and
+    both triangles."""
+    traces, kept = [], {}
+    real_step, real_trace = integrator._step, ck.cluster_trace
+
+    def both(sc, o, d, tm, tmin, tmax, any_hit, **kw):
+        h = real_trace(sc, o, d, tm, tmin, tmax, any_hit, **kw)
+        hb = bvk.bvh_trace(sc, o, d, tm, tmin, tmax, any_hit)
+        if any_hit:
+            traces.append(dict(mode='any', rays=o.shape[0], exists_differ=int(
+                ((h.tri >= 0) != (hb.tri >= 0)).sum())))
+        else:
+            same = (h.tri == hb.tri) & (h.inst == hb.inst)
+            differ = torch.nonzero(h.t != hb.t)[:, 0]
+            traces.append(dict(
+                mode='nearest', rays=o.shape[0],
+                t_differ=int(differ.shape[0]),
+                tie_tri_differ=int(((h.t == hb.t) & ~same).sum()),
+                ab_differ=int((same & (h.tri >= 0)
+                               & ((h.a != hb.a) | (h.b != hb.b))).sum()),
+                # the first few rays whose t differs: (cluster, BVH)
+                t_examples=[dict(o=o[i].tolist(), d=d[i].tolist(),
+                                 t=[float(h.t[i]), float(hb.t[i])],
+                                 tri=[int(h.tri[i]), int(hb.tri[i])])
+                            for i in differ[:4].tolist()]))
+        return h
+
+    def keep(*args, **kw):
+        state = real_step(*args, **kw)
+        kept[mode].append(dict(key=integrator.sort_key(state),
+                               **{k: state[k].clone()
+                                  for k in ('pix', 'o', 'alive')}))
+        return state
+
+    imgs = {}
+    try:
+        integrator._step = keep
+        for mode in ('auto', 'bvh'):
+            kept[mode] = []
+            ck.cluster_trace = both if mode == 'auto' else real_trace
+            imgs[mode] = rt.render(scene, cam, dataclasses.replace(
+                st, intersector=mode), key).cpu()
+    finally:
+        integrator._step, ck.cluster_trace = real_step, real_trace
+    steps = []
+    for ka, kb in zip(kept['auto'], kept['bvh']):
+        # each ray's state by its pixel, whatever slot it sorted to
+        by_pix = [{f: torch.empty_like(k[f]).index_copy_(
+            0, k['pix'].long(), k[f]) for f in ('o', 'alive', 'key')}
+            for k in (ka, kb)]
+        steps.append(dict(
+            slots_moved=int((ka['pix'] != kb['pix']).sum()),
+            rays_differ=int(((by_pix[0]['o'] != by_pix[1]['o']).any(-1)
+                             | (by_pix[0]['alive'] != by_pix[1]['alive']))
+                            .sum()),
+            keys_differ=int((by_pix[0]['key'] != by_pix[1]['key']).sum())))
+    return traces, steps, imgs
+
+
+def bvh_cell(dev, key, records, frame_auto) -> None:
+    """Phase 22: the BVH on `sponza_standin` and the other BVH modes, the
+    100,000-instance TLAS build, the 1080p 'bvh' frame and its CPU/GPU
+    parity."""
+    t0 = time.perf_counter()
+    scene, cam, st = registry.sponza_standin(
+        WIDTH, HEIGHT, max_bounces=BOUNCES, bvh=True,
+        device=dev)
+    torch.cuda.synchronize()
+    phase('scene_bvh', build_s=time.perf_counter() - t0,
+          stack_bound=ttr.stack_bound(scene.blas),
+          **profiling.bvh_stats(scene.blas))
+    err, t_k, t_p, bnd = compare_bvh(scene, cam, dev, 'bvh_kernel_vs_plain')
+    record = dict(name='bvh_trace', route='cuda',
+                  source='raytracer_tpu_torch/csrc/bvh_trace.cu',
+                  replaces='raytracer_tpu/ops/traverse.py:36 (XLA, not a '
+                           'Pallas kernel)',
+                  max_abs_err=err, ms=t_k, plain_ms=t_p, **bnd)
+    # the other modes: two levels, motion blur, alpha maps in the walk
+    for make, kw in ((registry.instanced_teapots_standin,
+                      dict(width=WIDTH, height=HEIGHT)),
+                     (registry.mb_bullet_standin, dict(size=HEIGHT)),
+                     (registry.alpha_leaf_standin, dict(size=HEIGHT))):
+        other, cam_o, _ = make(bvh=True, device=dev, **kw)
+        e = compare_bvh(other, cam_o, dev,
+                        f'bvh_kernel_vs_plain_{make.__name__}', fan=True)[0]
+        record['max_abs_err'] = max(record['max_abs_err'], e)
+    proto, cam_p, _ = registry.mb_prototype_standin(size=HEIGHT, device=dev)
+    assert proto.iclusters is None and proto.mb_clusters is None
+    e = compare_bvh(proto, cam_p, dev, 'bvh_kernel_vs_plain_mb_prototype',
+                    fan=True)[0]
+    record['max_abs_err'] = max(record['max_abs_err'], e)
+    o, d, _ = cam_mod.center_rays(cam_p, 256, 128)
+    reset_counts()
+    h = integrator.trace_fn(proto, rt.RenderSettings())(
+        o, d, 0.5, 1e-3, 1e12, False)
+    check_only(bvk, 'mb_prototype_auto')
+    assert int((h.tri >= 0).sum()) > 0
+    del proto
+    # the TLAS over 100,000 instances (the Python build, as the JAX
+    # package's)
+    t0 = time.perf_counter()
+    grid, _, _ = registry.instanced_grid_standin(WIDTH, HEIGHT, bvh=True,
+                                                 device=dev)
+    torch.cuda.synchronize()
+    phase('scene_bvh_grid', build_s=time.perf_counter() - t0,
+          instances=int(grid.instances.root.shape[0]),
+          **profiling.bvh_stats(grid.blas))
+    del grid
+    # the 1080p 'bvh' frame
+    st_bvh = dataclasses.replace(st, intersector='bvh')
+    record['launches'], _, img = render_cell(scene, cam, st_bvh, key, bvk,
+                                             'render_1080p_bvh')
+    records.append(record)
+    # its camera rays' nearest hits are the cluster kernel's: t bit for
+    # bit, tri apart only where two triangles tie exactly in t
+    o, d, _ = cam_mod.center_rays(cam, WIDTH, HEIGHT)
+    far = torch.full((o.shape[0],), 1e12, device=dev)
+    hb = bvk.bvh_trace(scene, o, d, 0.0, 1e-3, far)
+    hc = ck.cluster_trace(scene, o, d, 0.0, 1e-3, far)
+    t_differ = int((hb.t != hc.t).sum())
+    # where the 'bvh' frame's wavefronts part from the 'auto' frame's: the
+    # sort's key is each ray's origin, quantized in the live rays' box,
+    # and its permutation decides which random numbers each slot draws
+    # (ROADMAP queue 3), so a ray that moves to another slot hands the
+    # rays after it other random numbers
+    traces, steps, again = sorted_divergence(scene, cam, st, key)
+    assert torch.equal(again['auto'], frame_auto) \
+        and torch.equal(again['bvh'], img.cpu()), 'a render is not repeatable'
+    # against phase 5's 'auto' frame, and both tracers' frames with the
+    # wavefront sort off, each under phase 6's rule
+    unsorted = {
+        mode: rt.render(scene, cam, dataclasses.replace(
+            st, intersector=mode, sort_rays=False), key).cpu().numpy()
+        for mode in ('auto', 'bvh')}
+    shares = {}
+    for tag, got, want in (('sorted', img.cpu().numpy(), frame_auto.numpy()),
+                           ('unsorted', unsorted['bvh'], unsorted['auto'])):
+        diff, scale = np.abs(got - want), np.abs(want)
+        shares[tag] = dict(
+            pixels_within=float((diff <= 1e-4 + 1e-3 * scale).all(-1)
+                                .mean()),
+            mean_rel_diff=float(diff.mean() / scale.mean()))
+    phase('bvh_frame_vs_auto_frame', camera_rays=o.shape[0],
+          t_differ=t_differ, tri_differ=int((hb.tri != hc.tri).sum()),
+          traces=traces, bounces=steps, **shares)
+    assert t_differ == 0, "the BVH and cluster kernels' nearest t differ"
+    for tag, share in shares.items():
+        assert share['pixels_within'] >= 0.99 \
+            and share['mean_rel_diff'] < 1e-3, \
+            f"the {tag} 'bvh' frame and the 'auto' frame disagree"
+    host, cam_h, st_h = registry.sponza_standin(**PARITY, bvh=True,
+                                                device='cpu')
+    check_parity(host, cam_h, dataclasses.replace(st_h, intersector='bvh'),
+                 key, bvk, dev, 'cpu_gpu_parity_bvh')
+    return scene, cam, st
+
+
+def write_obj(path: str, mesh) -> None:
+    """A mesh as an OBJ file: every vertex, normal and texture coordinate
+    at 9 significant digits (a float32 reads back exactly), and each
+    triangle's v/t/n or v//n corners."""
+    rows = ['v %.9g %.9g %.9g' % tuple(p) for p in mesh.vertices.tolist()]
+    rows += ['vn %.9g %.9g %.9g' % tuple(n) for n in mesh.normals.tolist()]
+    fv, fn = mesh.face_v + 1, mesh.face_n + 1
+    if mesh.texcoords is not None:
+        rows += ['vt %.9g %.9g' % tuple(t) for t in mesh.texcoords.tolist()]
+        ft = mesh.face_t + 1
+        rows += ['f ' + ' '.join(f'{v}/{t}/{n}' for v, t, n in zip(*c))
+                 for c in zip(fv.tolist(), ft.tolist(), fn.tolist())]
+    else:
+        rows += ['f ' + ' '.join(f'{v}//{n}' for v, n in zip(*c))
+                 for c in zip(fv.tolist(), fn.tolist())]
+    with open(path, 'w') as f:
+        f.write('\n'.join(rows) + '\n')
+
+
+class ObjBuilder(rt.SceneBuilder):
+    """A SceneBuilder that writes each mesh it is given to an OBJ file,
+    reads it back with load_obj and adds what it read (the t = 1 pose of a
+    motion-blurred mesh as well)."""
+
+    def __init__(self, folder: str):
+        super().__init__()
+        self.folder = folder
+        self.load_s = 0.0
+        self.files = 0
+
+    def _round_trip(self, mesh):
+        path = os.path.join(self.folder, f'mesh{self.files}.obj')
+        self.files += 1
+        write_obj(path, mesh)
+        t0 = time.perf_counter()
+        out = objload.load_obj(path)
+        self.load_s += time.perf_counter() - t0
+        return out
+
+    def add_mesh(self, mesh, material, mesh_t1=None):
+        super().add_mesh(self._round_trip(mesh), material,
+                         None if mesh_t1 is None
+                         else self._round_trip(mesh_t1))
+
+
+def loaders_cell(dev, key, frame_auto) -> None:
+    """Phase 23: `sponza_standin` written as OBJ files, read back with
+    load_obj and built on the card: every table byte-equal to the
+    in-memory build's, and the 1080p frame at phase 5's key equal to
+    phase 5's image bit for bit."""
+    kw = dict(width=WIDTH, height=HEIGHT, max_bounces=BOUNCES, device=dev)
+    want, _, _ = registry.sponza_standin(**kw)
+    with tempfile.TemporaryDirectory() as folder:
+        b = ObjBuilder(folder)
+        t0 = time.perf_counter()
+        scene, cam, st = registry.sponza_standin(builder=b, **kw)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+    arrays, static = convert.scene_to_arrays(scene)
+    want_arrays, want_static = convert.scene_to_arrays(want)
+    assert static == want_static and arrays.keys() == want_arrays.keys()
+    differ = [k for k in arrays if arrays[k].dtype != want_arrays[k].dtype
+              or arrays[k].tobytes() != want_arrays[k].tobytes()]
+    reset_counts()
+    img = rt.render(scene, cam, st, key)
+    torch.cuda.synchronize()
+    check_only(ck, 'render_1080p_from_obj')
+    same = bool(torch.equal(img.cpu(), frame_auto))
+    phase('loaders_1080p', obj_files=b.files, load_obj_s=b.load_s,
+          build_s=build_s, triangles=scene.num_tris, arrays=len(arrays),
+          arrays_differ=differ, frame_equal_phase5=same)
+    assert not differ, f'tables differ after the OBJ round trip: {differ}'
+    assert same, "the frame from OBJ files differs from phase 5's"
+
+
+def cli_cell(tmp: str) -> None:
+    """Phase 24: the CLI on the card, as a subprocess: sponza_standin to 1
+    spp with a checkpoint, resumed to 2, against an uninterrupted 2-spp
+    run: the same PPM bytes, read back through imageio.load_ppm."""
+    def run(out, spp, *extra):
+        cmd = [sys.executable, '-m', 'raytracer_tpu_torch.cli', '--scene',
+               'sponza_standin', '--spp', str(spp), '--progressive', '1',
+               '--out', out, *extra]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True,
+                             cwd=os.path.dirname(os.path.abspath(__file__)))
+        assert res.returncode == 0, res.stderr
+        return time.perf_counter() - t0
+    ckpt = os.path.join(tmp, 'cli.npz')
+    walls = dict(
+        whole_s=run(os.path.join(tmp, 'whole.ppm'), 2),
+        first_s=run(os.path.join(tmp, 'resumed.ppm'), 1, '--ckpt', ckpt),
+        resumed_s=run(os.path.join(tmp, 'resumed.ppm'), 2, '--ckpt', ckpt))
+    data = {n: open(os.path.join(tmp, f'{n}.ppm'), 'rb').read()
+            for n in ('whole', 'resumed')}
+    img, _ = imageio.load_ppm(os.path.join(tmp, 'resumed.ppm'))
+    phase('cli_1080p', bytes=len(data['resumed']),
+          equal=data['whole'] == data['resumed'], shape=list(img.shape),
+          mean=float(img.mean()), **walls)
+    assert data['whole'] == data['resumed'], 'the resumed CLI run differs'
+    assert img.shape == (HEIGHT, WIDTH, 3) and img.mean() > 0
+
+
 def check_image(img, shape) -> None:
     assert tuple(img.shape) == shape, img.shape
     assert bool(torch.isfinite(img).all()), 'non-finite pixels'
@@ -1151,11 +1531,11 @@ def main(dev=None) -> int:
         return time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(5) as pool:
+    with ThreadPoolExecutor(6) as pool:
         jobs = {name: pool.submit(timed, fn) for name, fn in (
             ('cluster_trace_s', ck.build), ('iseg_trace_s', isk.build),
             ('icluster_trace_s', ick.build), ('mt_trace_s', mtk.build),
-            ('native_host_s', native.get_lib))}
+            ('bvh_trace_s', bvk.build), ('native_host_s', native.get_lib))}
         built = {name: job.result() for name, job in jobs.items()}
     phase('build', wall_s=time.perf_counter() - t0, **built)
     # registers, spills and shared memory of every kernel instantiation
@@ -1164,12 +1544,13 @@ def main(dev=None) -> int:
                              if 'entry' in line or 'spill' in line
                              or 'Used' in line]
                       for name in ('cluster_trace', 'iseg_trace',
-                                   'icluster_trace', 'mt_trace')})
+                                   'icluster_trace', 'mt_trace',
+                                   'bvh_trace')})
 
     # ----------------------------------------------------------- 3. scene
     t0 = time.perf_counter()
     scene, cam, st = registry.sponza_standin(
-        WIDTH, HEIGHT, max_bounces=BOUNCES, ray_tile=RAY_TILE, device=dev)
+        WIDTH, HEIGHT, max_bounces=BOUNCES, device=dev)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     # the host edge table (a lexsort), part of the build, timed alone
@@ -1193,8 +1574,9 @@ def main(dev=None) -> int:
 
     # ------------------------------------------------------ 5. full render
     key = rng.PRNGKey(KEY)
-    records[0]['launches'] = render_cell(scene, cam, st, key, ck,
-                                         'render_1080p')[0]
+    records[0]['launches'], _, frame_auto = render_cell(
+        scene, cam, st, key, ck, 'render_1080p')
+    frame_auto = frame_auto.cpu()       # held by phases 22 and 23
 
     # ------------------------------------------------- 6. CPU/GPU parity
     scene_s, cam_s, st_s = registry.sponza_standin(**PARITY, device='cpu')
@@ -1203,7 +1585,7 @@ def main(dev=None) -> int:
     # --------------------------------------------- 7. two-level instancing
     for make, n_inst, kernel, plain, name, replaces in INSTANCED:
         t0 = time.perf_counter()
-        scene, cam, st = make(WIDTH, HEIGHT, ray_tile=RAY_TILE, device=dev)
+        scene, cam, st = make(WIDTH, HEIGHT, device=dev)
         torch.cuda.synchronize()
         icl = scene.iclusters
         fields = dict(instances=icl.num_instances, segments=icl.num_entries,
@@ -1215,7 +1597,7 @@ def main(dev=None) -> int:
             scene, cam, getattr(kernel, name), getattr(plain, name), dev)
         if kernel is isk:
             err = max(err, compare_segment_band(scene, cam, dev))
-        launches, _ = render_cell(scene, cam, st, key, kernel,
+        launches, _, _ = render_cell(scene, cam, st, key, kernel,
                                   f'render_1080p_{name}', **fields)
         records.append({'name': name, 'route': 'cuda',
                         'source': f'raytracer_tpu_torch/csrc/{name}.cu',
@@ -1274,6 +1656,22 @@ def main(dev=None) -> int:
 
     # ---------------------------------------- 21. the procedural stone
     stone_cell(dev)
+
+    # ------------------------------------------------- 22. the wide BVH
+    scene, cam, st = bvh_cell(dev, key, records, frame_auto)
+
+    # ------------------------------------ 23. the loaders at full size
+    loaders_cell(dev, key, frame_auto)
+
+    # ------------------------------------------------ 24. the CLI
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_cell(tmp)
+    _, report = profiling.render_with_stats(scene, cam, st, key, log=False)
+    print(report.pretty(), flush=True)
+    phase('render_with_stats', wall_s=report.wall_s,
+          first_call_extra_s=report.compile_s,
+          primary_rays_per_s=report.primary_rays_per_s, probe=report.probe)
+    assert report.probe['ray_tri'] > 0
 
     print(json.dumps({'kernels': [
         {k: r[k] for k in ('name', 'route', 'source', 'replaces', 'launches',

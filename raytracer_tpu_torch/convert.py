@@ -8,9 +8,10 @@ included), and `scene_to_arrays` is its inverse over the fields this
 package keeps; `params_from_arrays` and `params_to_arrays` do the same for
 the trainer's six parameter leaves (parallel/sharding.get_params). Scenes,
 cameras and parameters land on `device`, the card unless the caller names
-another. This module sees numpy arrays only, never a jax object. Leaves
-this package does not read (the BVH, the instance table's BVH roots,
-`materials.kt`) are ignored.
+another. This module sees numpy arrays only, never a jax object. The
+merged BVH (`blas`, its static `depth`), the instance table's BLAS roots
+and `bvh_root` come across with the rest; `materials.kt`, which nothing
+reads, is ignored.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ from .geometry.clusters import Clusters, InstancedClusters
 # flags of the JAX Scene that this package's Scene keeps
 SCENE_FLAGS = ('env_tex', 'has_material_env', 'has_dispersion',
                'has_translucency', 'single_level', 'has_motion_blur',
-               'has_alpha_maps', 'mb_has_alpha')
+               'has_alpha_maps', 'mb_has_alpha', 'bvh_root')
 # the static fields of the two-level table and of the dome
 ICLUSTER_STATIC = tuple(f'iclusters.{k}' for k in (
     'cluster_size', 'num_instances', 'num_entries', 'max_proto_clusters'))
@@ -36,7 +37,8 @@ STATIC_FIELDS = SCENE_FLAGS + (
     'point_lights.cast_shadows', 'point_lights.fast_shadows',
     'rect_lights.cast_shadows', 'rect_lights.fast_shadows',
     'rect_lights.num_samples', 'clusters.cluster_size',
-    'mb_clusters.cluster_size') + ICLUSTER_STATIC + DOME_STATIC
+    'mb_clusters.cluster_size', 'blas.depth') + ICLUSTER_STATIC \
+    + DOME_STATIC
 
 _GROUPS = {'geom': T.Geometry, 'materials': T.Materials,
            'textures': T.TexturePack, 'point_lights': T.PointLights,
@@ -44,14 +46,15 @@ _GROUPS = {'geom': T.Geometry, 'materials': T.Materials,
 # tables a scene may or may not carry
 _OPTIONAL = {'dome': T.DomeLight, 'clusters': Clusters,
              'instances': T.Instances, 'iclusters': InstancedClusters,
-             'mb_clusters': Clusters, 'edges': T.EdgeTable}
+             'mb_clusters': Clusters, 'edges': T.EdgeTable,
+             'blas': T.BVHArrays}
 _CAMERA_FIELDS = ('eye', 'view_dir', 'up', 'fov', 'focus_plane',
                   'aperture', 'shutter')
 
 
 def _check_tables(arrays: dict, static: dict) -> None:
     tables = ('clusters.tri',) if static['single_level'] else (
-        'iclusters.tri', 'mb_clusters.tri')
+        'iclusters.tri', 'mb_clusters.tri', 'blas.child')
     if not any(t in arrays for t in tables):
         raise ValueError(f'the scene carries no {tables[0].split(".")[0]} '
                          f'table')

@@ -8,10 +8,12 @@ tables. Everything here is numpy until `build` wraps the arrays as
 tensors and puts them on its `device` (the card unless the caller names
 another). Both kinds of scene carry the edge table of diff/edges.py; an
 instanced one also enumerates its (instance, edge) pairs, and beyond
-diff/edges.PAIR_CAP of them carries none, as the JAX build does. Not
-built: the BVH (ROADMAP queue 1 #9), which this package's tracers do not
-read. Reading image files (`add_texture_file`) waits for `io/imageio.py`
-(queue 1 #9).
+diff/edges.PAIR_CAP of them carries none, as the JAX build does. With
+bvh=True the scene also carries the merged wide BVH of geometry/bvh.py and
+its instances' BLAS roots (the tables of the JAX build, byte for byte),
+which intersector='bvh' traces; the default is bvh=False (the JAX
+builder's is True), since the cluster tables carry every other tracer.
+Image files load through io/imageio.load_image (`add_texture_file`).
 """
 from __future__ import annotations
 
@@ -20,7 +22,9 @@ import torch
 
 from ..core import types as T
 from ..diff.edges import PAIR_CAP, build_edge_table
+from ..io import imageio
 from ..io.objload import MeshData, compute_tangents
+from . import bvh as bvh_mod
 from . import clusters as cl_mod
 
 
@@ -136,8 +140,9 @@ class SceneBuilder:
         return len(self._tex_imgs) - 1
 
     def add_texture_file(self, path: str) -> int:
-        raise NotImplementedError(
-            'reading image files (io/imageio.py): ROADMAP queue 1 #9')
+        """A TGA, PPM or HDR file (io/imageio.load_image) as a texture."""
+        img, _ = imageio.load_image(path)
+        return self.add_texture(img)
 
     # ---------------------------------------------------------- materials
     def _add_material(self, kind, kd, ka, ks, ior, spec_exp, spec_amt,
@@ -251,28 +256,6 @@ class SceneBuilder:
             out.append(dict(m=inst['m'], lo=lo, hi=hi, tris=None))
         return out
 
-    def _instance_table(self, instances: list[dict]) -> T.Instances:
-        """The instance rows as raytracer_tpu/geometry/bvh.py:282-317 makes
-        them (one float32 inverse of each 3x3, then -(minv @ t)), without
-        the BVH root."""
-        ms, minvs, minvts, los, his = [], [], [], [], []
-        for inst in instances:
-            m = np.asarray(inst['m'], np.float32)
-            lin = m[:, :3]
-            minv_lin = np.linalg.inv(lin)
-            minv = np.concatenate([minv_lin, -(minv_lin @ m[:, 3])[:, None]],
-                                  1)
-            ms.append(m)
-            minvs.append(minv.astype(np.float32))
-            minvts.append(minv_lin.T.astype(np.float32))
-            los.append(inst['lo'] if inst['lo'] >= 0 else 0)
-            his.append(inst['hi'] if inst['hi'] >= 0 else self._ntri)
-        t = torch.from_numpy
-        return T.Instances(m=t(np.stack(ms)), m_inv=t(np.stack(minvs)),
-                           m_inv_t=t(np.stack(minvts)),
-                           tri_lo=t(np.asarray(los, np.int32)),
-                           tri_hi=t(np.asarray(his, np.int32)))
-
     # -------------------------------------------------------------- lights
     def add_point_light(self, position, power, color=(1, 1, 1),
                         cast_shadows=True, fast_shadows=True) -> None:
@@ -330,13 +313,15 @@ class SceneBuilder:
             fast_shadows=self._dome['fast_shadows'],
             num_samples=self._dome['num_samples'])
 
-    def build(self, bvh: bool = False, device=T.CUDA) -> T.Scene:
+    def build(self, bvh: bool = False, leaf_size: int = 4,
+              device=T.CUDA) -> T.Scene:
         """Assemble the scene with its cluster tables (the flat table of a
         single-level scene, or the instance table and the two-level tables
         of an instanced one) on `device`; raises on the default CUDA device
-        when no card is present."""
-        if bvh:
-            raise NotImplementedError('BVH build: ROADMAP queue 1 #9')
+        when no card is present. bvh=True also builds the merged wide BVH
+        (leaves of up to leaf_size triangles, which must be the tracers'
+        4: any other raises) and the instances' BLAS roots, as the JAX
+        builder's default does; this builder's default is False."""
         dev = T.device_of(device)
         assert self._open_proto is None, 'unclosed prototype'
         assert self._ntri > 0, 'empty scene'
@@ -415,13 +400,20 @@ class SceneBuilder:
                         and instances[0]['tris'] is not None
                         and len(instances[0]['tris']) == self._ntri)
         edges = build_edge_table(face_v)
-        if single_level:
-            tables = dict(clusters=cl_mod.build_clusters(geom), edges=edges)
+        if bvh:
+            blas, inst_table, root = bvh_mod.build_scene_bvh(
+                geom, instances, leaf_size=leaf_size)
+            tables = dict(blas=blas, bvh_root=root, instances=inst_table)
         else:
-            inst_table = self._instance_table(instances)
+            tables, inst_table = {}, None
+        if single_level:
+            tables.update(clusters=cl_mod.build_clusters(geom), edges=edges)
+        else:
+            if inst_table is None:
+                inst_table = bvh_mod.instance_table(instances, self._ntri)
             icl, mb = cl_mod.build_instanced_clusters(geom, instances,
                                                       inst_table)
-            tables = dict(instances=inst_table, iclusters=icl,
+            tables.update(instances=inst_table, iclusters=icl,
                           mb_clusters=mb,
                           edges=_edge_pairs(edges, instances))
 

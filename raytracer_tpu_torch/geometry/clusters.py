@@ -152,8 +152,9 @@ def build_instanced_clusters(geom: Geometry, instances: list[dict],
     of inst_table. Returns (iclusters, mb_clusters): the motion-blurred
     world triangles go into a single-level table of their own, traced
     apart and merged by nearest t; iclusters is None when the world is all
-    motion-blurred and no prototype is placed. Motion-blurred prototype
-    triangles need the BVH tracer (ROADMAP queue 1 #9) and raise."""
+    motion-blurred and no prototype is placed. A scene with a
+    motion-blurred prototype gets no cluster tables, (None, None), and
+    traces through its BVH (raytracer_tpu/geometry/clusters.py:276)."""
     face_mb = geom.face_mb.cpu().numpy()
     proto_keys: dict = {}
     entries = []                 # (key, instance row) per kept instance
@@ -170,9 +171,7 @@ def build_instanced_clusters(geom: Geometry, instances: list[dict],
             key = (inst['lo'], inst['hi'])
             tri_ids = np.arange(inst['lo'], inst['hi'], dtype=np.int64)
             if key not in proto_keys and face_mb[tri_ids].any():
-                raise NotImplementedError(
-                    'motion-blurred prototype triangles need the BVH '
-                    'tracer: ROADMAP queue 1 #9')
+                return None, None       # the BVH tracer's alone
         if key not in proto_keys:
             proto_keys[key] = (len(proto_keys), tri_ids)
         entries.append((key, row))

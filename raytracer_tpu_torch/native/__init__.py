@@ -1,10 +1,12 @@
-"""The native cluster-table builder, loaded with ctypes.
+"""The native host builders and OBJ parser, loaded with ctypes.
 
-Compiles this package's own rt_native.cpp (a framework-free C ABI: the
-binned-SAH cluster build, the same arithmetic as the JAX package's native
-builder) with g++ into the package's git-ignored build directory on first
-use, and binds `rt_build_clusters`. Nothing outside this package is read.
-A failed build raises; there is no fallback.
+Compiles this package's own rt_native.cpp (a framework-free C ABI, the
+same arithmetic as the JAX package's native library) with g++ into the
+package's git-ignored build directory on first use, and binds
+`rt_build_clusters` (the cluster table), `rt_build_bvh` (one wide BLAS of
+geometry/bvh.py) and the two-pass OBJ parser `rt_obj_count` /
+`rt_obj_fill`. Nothing outside this package is read. A failed build
+raises; there is no fallback.
 """
 from __future__ import annotations
 
@@ -80,6 +82,21 @@ def get_lib() -> ctypes.CDLL:
                 ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, ctypes.c_int64,
                 f32, f32, f32, f32, f32, f32, f32, f32,
                 fp(np.int32, flags='C')]
+            lib.rt_build_bvh.restype = ctypes.c_int64
+            lib.rt_build_bvh.argtypes = [
+                f32, f32, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
+                ctypes.c_int64, ctypes.c_int64, f32, f32,
+                fp(np.int32, flags='C'), fp(np.int32, flags='C'),
+                fp(np.int64, flags='C'), ctypes.c_int64,
+                ctypes.POINTER(ctypes.c_int32)]
+            lib.rt_obj_count.restype = ctypes.c_int
+            lib.rt_obj_count.argtypes = [ctypes.c_char_p,
+                                         fp(np.int64, flags='C')]
+            lib.rt_obj_fill.restype = ctypes.c_int
+            lib.rt_obj_fill.argtypes = [ctypes.c_char_p, f32, f32, f32,
+                                        fp(np.int32, flags='C'),
+                                        fp(np.int32, flags='C'),
+                                        fp(np.int32, flags='C')]
             _lib = lib
     return _lib
 
@@ -123,3 +140,54 @@ def build_clusters_native(verts: np.ndarray, verts_t1: np.ndarray,
     if has_mb:
         return out + (q0[:m], q1[:m], q2[:m], tri[:m])
     return out + (p0[:m], e1[:m], e2[:m], tri[:m])
+
+
+def build_bvh_native(bmin: np.ndarray, bmax: np.ndarray, leaf_size: int,
+                     branch: int, prim_off: int, node_base: int):
+    """Binned-SAH build of one BLAS over primitive boxes, collapsed to
+    `branch`-wide nodes -> (node_min, node_max, child, count, order,
+    depth): leaf starts offset by prim_off, internal child ids by
+    node_base (geometry/bvh._WidePool.add_block)."""
+    lib = get_lib()
+    n = len(bmin)
+    cap = 2 * n + 8
+    node_min = np.empty((cap, branch, 3), np.float32)
+    node_max = np.empty((cap, branch, 3), np.float32)
+    child = np.empty((cap, branch), np.int32)
+    count = np.empty((cap, branch), np.int32)
+    order = np.empty(n, np.int64)
+    depth = ctypes.c_int32(0)
+    n_nodes = lib.rt_build_bvh(
+        np.ascontiguousarray(bmin, np.float32),
+        np.ascontiguousarray(bmax, np.float32), n, leaf_size, branch,
+        prim_off, node_base, node_min.reshape(-1), node_max.reshape(-1),
+        child.reshape(-1), count.reshape(-1), order, cap,
+        ctypes.byref(depth))
+    if n_nodes < 0:
+        raise RuntimeError('rt_build_bvh overflowed its node table')
+    return (node_min[:n_nodes], node_max[:n_nodes], child[:n_nodes],
+            count[:n_nodes], order, int(depth.value))
+
+
+def parse_obj_native(path: str):
+    """The two-pass OBJ parse -> dict of raw arrays (v, vt, vn, fv, ft,
+    fn, has_t, has_n), or None for a file without vertices or faces (the
+    JAX package then parses it in Python). Raises if the file cannot be
+    read."""
+    lib = get_lib()
+    counts = np.zeros(6, np.int64)
+    if lib.rt_obj_count(path.encode(), counts) != 0:
+        raise OSError(f'cannot read {path}')
+    nv, nvt, nvn, ntri, has_t, has_n = (int(x) for x in counts)
+    if nv == 0 or ntri == 0:
+        return None
+    v = np.empty((nv, 3), np.float32)
+    vt = np.empty((max(nvt, 1), 2), np.float32)
+    vn = np.empty((max(nvn, 1), 3), np.float32)
+    fv, ft, fn = (np.empty((ntri, 3), np.int32) for _ in range(3))
+    if lib.rt_obj_fill(path.encode(), v.reshape(-1), vt.reshape(-1),
+                       vn.reshape(-1), fv.reshape(-1), ft.reshape(-1),
+                       fn.reshape(-1)) != 0:
+        raise OSError(f'cannot read {path}')
+    return dict(v=v, vt=vt[:nvt], vn=vn[:nvn], fv=fv, ft=ft, fn=fn,
+                has_t=bool(has_t), has_n=bool(has_n))

@@ -19,6 +19,7 @@ from ..core.types import Scene, RenderSettings, MAT_LAMBERT
 from ..core.vecmath import EPSILON, MIRO_TMAX
 from ..ops import cluster_trace as ct
 from ..ops import intersect as isect
+from ..ops.cuda import bvh_kernel as bvk
 from ..ops.cuda import cluster_kernel as ck
 from ..ops.cuda import icluster_kernel as ick
 from ..ops.cuda import iseg_kernel as isk
@@ -107,12 +108,19 @@ def _ior_push(stack, sp, value):
 
 
 def _sort_wavefront(state: dict, segment=None) -> dict:
-    """Permute the wavefront so ray blocks stay coherent: dead rays to the
-    back, then direction octant, then a 12-bit Morton code of the origin in
-    the live rays' bounding box. Stable, as jnp.argsort: the permutation
-    decides which RNG slot each ray draws from. With `segment`, each run of
-    that many rays is a wavefront of its own, sorted within its run by its
-    own box."""
+    """Permute the wavefront so ray blocks stay coherent: a stable sort
+    (as jnp.argsort) of `sort_key`. The permutation decides which RNG slot
+    each ray draws from."""
+    perm = torch.argsort(sort_key(state, segment), stable=True)
+    return {k: _take(v, perm) for k, v in state.items()}
+
+
+def sort_key(state: dict, segment=None) -> torch.Tensor:
+    """Each ray's wavefront sort key: dead rays to the back, then direction
+    octant, then a 12-bit Morton code of the origin in the live rays'
+    bounding box. With `segment`, each run of that many rays is a
+    wavefront of its own, sorted within its run by its own box. A ray's
+    key does not depend on its slot."""
     o, d, alive = state['o'].detach(), state['d'].detach(), state['alive']
     octant = ((d[:, 0] > 0).to(torch.int32)
               | ((d[:, 1] > 0).to(torch.int32) << 1)
@@ -134,8 +142,7 @@ def _sort_wavefront(state: dict, segment=None) -> dict:
         # the run first: the sort stays within each run
         run = torch.arange(o.shape[0], device=o.device) // segment
         key = (run << 21) | key
-    perm = torch.argsort(key, stable=True)
-    return {k: _take(v, perm) for k, v in state.items()}
+    return key
 
 
 def trace_fn(scene: Scene, settings: RenderSettings):
@@ -157,8 +164,24 @@ def trace_fn(scene: Scene, settings: RenderSettings):
     'brute' is the brute-force oracle of single-level scenes, and
     'pallas' the brute-force Moller-Trumbore sweep (the JAX package's
     Pallas MT kernel; here mt_kernel.brute_trace: the CUDA kernel for
-    CUDA tensors, its plain version for CPU ones), also single-level."""
+    CUDA tensors, its plain version for CPU ones), also single-level.
+    'bvh' traces any scene built with bvh=True through its merged BVH
+    (bvh_kernel.bvh_trace: csrc/bvh_trace.cu for CUDA tensors,
+    ops/traverse.bvh_trace for CPU ones), motion blur and alpha maps
+    inside the walk; 'auto' takes it for a two-level scene that has no
+    cluster tables (a motion-blurred prototype), as the JAX package's
+    'auto' takes 'bvh' off the TPU."""
     mode = settings.intersector
+    if mode == 'auto' and not scene.single_level \
+            and scene.iclusters is None and scene.mb_clusters is None:
+        mode = 'bvh'            # a motion-blurred prototype
+    if mode == 'bvh':
+        if scene.blas is None:
+            raise ValueError(f'intersector {settings.intersector!r}: the '
+                             f'scene carries no BVH to trace; build it '
+                             f'with bvh=True')
+        return lambda o, d, time, tmin, tmax, any_hit: bvk.bvh_trace(
+            scene, o, d, time, tmin, tmax, any_hit)
     if mode == 'auto' and scene.single_level:
         if scene.clusters is None:
             raise ValueError('the scene carries no cluster table')
@@ -179,7 +202,7 @@ def trace_fn(scene: Scene, settings: RenderSettings):
         raise NotImplementedError(
             f"intersector {mode!r} on a "
             f"{'single' if scene.single_level else 'two'}-level scene: "
-            f"'bvh' comes with ROADMAP queue 1 #9, 'ring' with queue 1 #14; "
+            f"'ring' comes with ROADMAP queue 1 #14; "
             f"'brute' and 'pallas' trace single-level scenes and "
             f"'cluster2' two-level ones only (the JAX package's XLA "
             f"'cluster' tracer is not ported)")

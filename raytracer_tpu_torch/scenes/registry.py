@@ -4,13 +4,17 @@ Each builder returns (Scene, Camera, RenderSettings), as in
 raytracer_tpu/scenes/registry.py. `builder=` takes any object with the
 SceneBuilder interface, so a test can pass `raytracer_tpu.SceneBuilder()`
 and have the JAX package build the very same scene (instanced scenes then
-take `bvh=True`, which the JAX builder needs and this package's refuses).
+take `bvh=True`, which the JAX builder needs). Every builder takes `bvh=`
+(default False, but for `mb_prototype_standin`, which only the BVH
+traces): True adds the merged BVH that intersector='bvh' traces.
 `device=` (default: the card) is where the scene and camera land; a
-foreign builder's scene comes back as that builder made it.
+foreign builder's scene comes back as that builder made it. The settings'
+ray tile is `frame_tile`'s for the device unless one is given.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..core import transforms as tf
 from ..core.types import CUDA, Camera, RenderSettings, device_of
@@ -29,8 +33,17 @@ def register(name):
     return deco
 
 
+def names():
+    return sorted(_REGISTRY)
+
+
+def get(name):
+    """The registered function that builds scene `name`."""
+    return _REGISTRY[name]
+
+
 def make(name, **kwargs):
-    return _REGISTRY[name](**kwargs)
+    return get(name)(**kwargs)
 
 
 def _build(b, bvh, device):
@@ -44,8 +57,35 @@ def _on(cam, device):
     return cam.to(device_of(device))
 
 
+# the largest ray tile a frame renders in on the card
+FRAME_TILE = 1 << 21
+
+
+def frame_tile(width, height, device) -> int:
+    """The ray tile of a width x height frame on `device`: RenderSettings'
+    1,024 rays (the JAX package's) on the CPU; on the card the whole frame,
+    rounded up to 1,024 rays, up to FRAME_TILE. Eager PyTorch launches a
+    bounce's few hundred kernels whatever the tile, so the card renders
+    the 1080p atrium frame in one tile in 0.78 s, against 1.14 s at 2**19
+    rays and 3.71 s at 2**17 (scripts/torch_frame_profile.py on an H100
+    80GB HBM3 at 700 W); in 1,024-ray tiles it would take minutes."""
+    if torch.device(device).type != 'cuda':
+        return RenderSettings.ray_tile
+    R = width * height
+    return min(R + (-R) % 1024, FRAME_TILE)
+
+
+def _settings(device, **fields) -> RenderSettings:
+    """A scene's RenderSettings on `device`: the ray tile, unless given,
+    is frame_tile's."""
+    if fields.get('ray_tile') is None:
+        fields['ray_tile'] = frame_tile(fields['width'], fields['height'],
+                                        device)
+    return RenderSettings(**fields)
+
+
 @register('triangle_sphere')
-def triangle_sphere(size=256, builder=None, device=CUDA, **kw):
+def triangle_sphere(size=256, builder=None, bvh=False, device=CUDA, **kw):
     """Single triangle + sphere + point light, Lambert (the JAX registry's
     `triangle_sphere`, BASELINE config #1)."""
     b = SceneBuilder() if builder is None else builder
@@ -55,10 +95,11 @@ def triangle_sphere(size=256, builder=None, device=CUDA, **kw):
     b.add_mesh(shapes.uv_sphere((0, 1, 0), 1.0, 12, 24, with_uv=False), lam)
     b.add_point_light((10, 10, 10), 700.0)
     b.set_bg_color((0.0, 0.0, 0.2))
-    scene = _build(b, False, device)
+    scene = _build(b, bvh, device)
     cam = Camera.make(eye=(0, 3, 6), look_at=(0, 0, 0), fov=45.0)
-    settings = RenderSettings(width=size, height=size, path_trace=False,
-                              max_bounces=5, max_wavefront_steps=2, **kw)
+    settings = _settings(
+        device, width=size, height=size, path_trace=False, max_bounces=5,
+        max_wavefront_steps=2, **kw)
     return scene, _on(cam, device), settings
 
 
@@ -70,8 +111,8 @@ QUAD_DROP = 1e-5
 
 @register('sponza_standin')
 def sponza_standin(width=1920, height=1080, max_bounces=10, rect_samples=1,
-                   ray_tile=8 * 128, n_spheres=300, builder=None,
-                   device=CUDA, **kw):
+                   ray_tile=None, n_spheres=300, builder=None,
+                   bvh=False, device=CUDA, **kw):
     """The JAX registry's `sponza_proxy(hd=True)` built from procedural
     shapes alone: the same shell, two colonnade stories, gallery slabs,
     balustrades, camera, rect light and clutter RNG (seed 3163513).
@@ -125,12 +166,12 @@ def sponza_standin(width=1920, height=1080, max_bounces=10, rect_samples=1,
     b.add_rect_light((8.0, RECT_Y, 2), (8.0, RECT_Y, -2.0), (-8, RECT_Y, 2),
                      power=1.5, num_samples=rect_samples)
     b.set_bg_color((0.0, 0.0, 0.2))
-    scene = _build(b, False, device)
+    scene = _build(b, bvh, device)
     cam = Camera.make(eye=(8, 1.5, 1), look_at=(0, 2.5, -1), fov=55.0)
-    settings = RenderSettings(width=width, height=height, path_trace=True,
-                              max_bounces=max_bounces,
-                              max_wavefront_steps=max_bounces + 2,
-                              ray_tile=ray_tile, **kw)
+    settings = _settings(
+        device, width=width, height=height, path_trace=True,
+        max_bounces=max_bounces, max_wavefront_steps=max_bounces + 2,
+        ray_tile=ray_tile, **kw)
     return scene, _on(cam, device), settings
 
 
@@ -170,8 +211,9 @@ def instanced_teapots_standin(width=256, height=256, grid=4, builder=None,
     scene = _build(b, bvh, device)
     cam = Camera.make(eye=(0, 8, grid * 2.5 + 6), look_at=(0, 0.5, 0),
                       fov=45.0)
-    settings = RenderSettings(width=width, height=height, path_trace=False,
-                              max_wavefront_steps=2, **kw)
+    settings = _settings(
+        device, width=width, height=height, path_trace=False,
+        max_wavefront_steps=2, **kw)
     return scene, _on(cam, device), settings
 
 
@@ -213,8 +255,9 @@ def instanced_grid_standin(width=256, height=256, n=100_000, spacing=2.0,
     scene = _build(b, bvh, device)
     cam = Camera.make(eye=(0, g * spacing * 0.12, g * spacing * 0.55),
                       look_at=(0, 0.0, 0), fov=50.0)
-    settings = RenderSettings(width=width, height=height, path_trace=False,
-                              max_wavefront_steps=2, **kw)
+    settings = _settings(
+        device, width=width, height=height, path_trace=False,
+        max_wavefront_steps=2, **kw)
     return scene, _on(cam, device), settings
 
 
@@ -283,13 +326,15 @@ def forest_standin(width=256, height=256, n_trees=200, canopy=(60, 64),
     b.set_bg_color((0.4, 0.5, 0.7))
     scene = _build(b, bvh, device)
     cam = Camera.make(eye=(0.0, 1.0, 6.0), look_at=(0.0, 1.2, 0.0), fov=50.0)
-    settings = RenderSettings(width=width, height=height, path_trace=False,
-                              max_bounces=5, max_wavefront_steps=7, **kw)
+    settings = _settings(
+        device, width=width, height=height, path_trace=False, max_bounces=5,
+        max_wavefront_steps=7, **kw)
     return scene, _on(cam, device), settings
 
 
 @register('mb_bullet_standin')
-def mb_bullet_standin(size=256, shutter=1.0, builder=None, device=CUDA, **kw):
+def mb_bullet_standin(size=256, shutter=1.0, builder=None, bvh=False,
+                      device=CUDA, **kw):
     """The JAX registry's `mb_bullet` (the motion-blur fixture) without its
     mesh pair: a shattered sphere (`assets.shattered_sphere`, 224 shards of
     radius 1) whose t = 1 pose pushes every shard 0.3-0.9 outward stands in
@@ -304,20 +349,54 @@ def mb_bullet_standin(size=256, shutter=1.0, builder=None, device=CUDA, **kw):
                                     n=(0, 1, 0)), floor)
     b.add_point_light((5, 10, 5), 500.0)
     b.set_bg_color((0.1, 0.1, 0.15))
-    scene = _build(b, False, device)
+    scene = _build(b, bvh, device)
     lo = m0.vertices.min(0)
     hi = m0.vertices.max(0)
     c = 0.5 * (lo + hi)
     cam = Camera.make(eye=c + np.asarray([0, 0.5, 3.5]) * (hi - lo).max(),
                       look_at=c, fov=45.0, shutter=shutter)
-    settings = RenderSettings(width=size, height=size, path_trace=False,
-                              max_wavefront_steps=2, **kw)
+    settings = _settings(
+        device, width=size, height=size, path_trace=False,
+        max_wavefront_steps=2, **kw)
+    return scene, _on(cam, device), settings
+
+
+@register('mb_prototype_standin')
+def mb_prototype_standin(size=256, grid=4, rings=12, segs=24, builder=None,
+                         bvh=True, device=CUDA, **kw):
+    """A two-level scene whose prototype is motion-blurred: a sphere of
+    rings x segs that moves up over the 1.0 shutter, placed grid x grid
+    times over a floor, each placement 5% larger than the last. No JAX
+    registry scene is like it. It has no cluster tables, so only the BVH
+    traces it ('auto' takes 'bvh'), and bvh defaults to True here."""
+    b = SceneBuilder() if builder is None else builder
+    mat = b.add_lambert(kd=(0.7, 0.6, 0.5))
+    h = 2.0 * grid
+    b.add_mesh(shapes.quad((-h, 0, -h), (h, 0, -h), (h, 0, h), (-h, 0, h),
+                           with_uv=False), mat)
+    b.begin_prototype()
+    b.add_mesh(shapes.uv_sphere((0, 0.6, 0), 0.5, rings, segs, with_uv=False),
+               mat, mesh_t1=shapes.uv_sphere((0, 1.4, 0), 0.5, rings, segs,
+                                             with_uv=False))
+    proto = b.end_prototype()
+    for i in range(grid * grid):
+        m = np.eye(4, dtype=np.float32)
+        m[:3, :3] *= 1.0 + 0.05 * i
+        m[0, 3] = 4.0 * (i % grid) - 2.0 * (grid - 1)
+        m[2, 3] = 4.0 * (i // grid) - 2.0 * (grid - 1)
+        b.add_instance(proto, m)
+    b.add_point_light((3, 6, 4), 300.0)
+    scene = _build(b, bvh, device)
+    cam = Camera.make(eye=(0, 0.75 * h, 1.5 * h), look_at=(0, 0, 0),
+                      fov=50.0, shutter=1.0)
+    settings = _settings(device, width=size, height=size, path_trace=False,
+                         max_wavefront_steps=2, **kw)
     return scene, _on(cam, device), settings
 
 
 @register('alpha_leaf_standin')
-def alpha_leaf_standin(size=256, max_bounces=5, builder=None, device=CUDA,
-                       **kw):
+def alpha_leaf_standin(size=256, max_bounces=5, builder=None, bvh=False,
+                       device=CUDA, **kw):
     """The JAX registry's `alpha_leaf` (makeAlphaTest) without its files:
     two leaf cards (a 2 x 2 quad each, for leaf_test.obj) moved as there,
     with a procedural RGBA leaf (`assets.leaf_texture`) as both colour and
@@ -335,12 +414,12 @@ def alpha_leaf_standin(size=256, max_bounces=5, builder=None, device=CUDA,
     b.add_point_light((-10, -10, -10), 4000.0)
     b.set_env_map(env, 1.0)
     b.set_bg_color((0, 0, 0))
-    scene = _build(b, False, device)
+    scene = _build(b, bvh, device)
     cam = Camera.make(eye=(0, 3, 6), look_at=(0, 0, 0), fov=45.0,
                       aperture=0.001, focus_plane=4.0)
-    settings = RenderSettings(width=size, height=size, path_trace=True,
-                              max_bounces=max_bounces,
-                              max_wavefront_steps=max_bounces + 2, **kw)
+    settings = _settings(
+        device, width=size, height=size, path_trace=True,
+        max_bounces=max_bounces, max_wavefront_steps=max_bounces + 2, **kw)
     return scene, _on(cam, device), settings
 
 
@@ -352,7 +431,8 @@ DOME_ROWS = 127
 
 
 @register('dome_standin')
-def dome_standin(size=256, dome_samples=4, builder=None, device=CUDA, **kw):
+def dome_standin(size=256, dome_samples=4, builder=None, bvh=False,
+                 device=CUDA, **kw):
     """The JAX registry's `dome_teapot` without its files: a procedural
     lat-long HDR sky with a sun spot (`assets.sky_hdr`, for sky.hdr) as both
     dome light and env map, a procedural grass texture on the same ground
@@ -370,10 +450,11 @@ def dome_standin(size=256, dome_samples=4, builder=None, device=CUDA, **kw):
     b.add_mesh(_teapot_sphere(), tmat)
     b.set_dome_light(sky, gain=1.0, num_samples=dome_samples)
     b.set_env_map(sky, 1.0)
-    scene = _build(b, False, device)
+    scene = _build(b, bvh, device)
     cam = Camera.make(eye=(0, 2.5, 5), look_at=(0, 0.8, 0), fov=45.0)
-    settings = RenderSettings(width=size, height=size, path_trace=False,
-                              max_wavefront_steps=2, **kw)
+    settings = _settings(
+        device, width=size, height=size, path_trace=False,
+        max_wavefront_steps=2, **kw)
     return scene, _on(cam, device), settings
 
 
@@ -610,7 +691,7 @@ def final_forest_standin(width=1920, height=1080, n_trees=200, n_flowers=100,
     cam = Camera.make(eye=cam_eye, look_at=(0.294, 0.511, 0.503),
                       fov=39.0, aperture=0.0018, focus_plane=2.0,
                       shutter=0.1)
-    settings = RenderSettings(width=width, height=height, path_trace=False,
-                              max_bounces=max_bounces,
-                              max_wavefront_steps=max_bounces + 2, **kw)
+    settings = _settings(
+        device, width=width, height=height, path_trace=False,
+        max_bounces=max_bounces, max_wavefront_steps=max_bounces + 2, **kw)
     return scene, _on(cam, device), settings

@@ -2,7 +2,7 @@
 
     python3 scripts/torch_frame_profile.py [--scene NAME] [--tiles 17,19,21]
                                            [--trace PATH] [--train]
-                                           [--pallas] [--edges]
+                                           [--pallas] [--edges] [--bvh]
 
 Renders --scene (default `sponza_standin`: 1 spp, 10 bounces; or
 `instanced_grid_standin`, `forest_standin` or `final_forest_standin` at
@@ -23,7 +23,9 @@ split into forward and backward device time with the top kernels of each
 and the trace kernels' time; then the backward device time of each leaf
 alone (a profiled step whose only leaf that requires grad is that one).
 --pallas takes the 'pallas' cell instead: `sponza_standin` cut to 12
-spheres (8,836 triangles), intersector 'pallas' (the MT kernel).
+spheres (8,836 triangles), intersector 'pallas' (the MT kernel). --bvh
+builds the scene with its BVH and traces it with intersector 'bvh' (the
+BVH kernel).
 
 --edges profiles one step of the edge trainer instead
 (diff/edges.loss_and_grads_with_edges with GI edges, 4,096 edge samples,
@@ -61,7 +63,7 @@ DEFAULT_TILE = 1 << 21      # chip_smoke.py's tile: the whole 1080p frame
 # the port's CUDA trace kernels, by the names of their __global__ functions
 # (mt_trace_kernel: the MT sweep before it was split in three)
 TRACE_KERNEL = re.compile(r'(cluster_trace|iseg_trace|icluster_trace|'
-                          r'mt_trace|mt_prep|mt_sweep|mt_resolve)_kernel')
+                          r'mt_trace|mt_prep|mt_sweep|mt_resolve|bvh)_kernel')
 
 
 def wall(fn, reps=3):
@@ -283,6 +285,7 @@ def main() -> int:
     ap.add_argument('--train', action='store_true')
     ap.add_argument('--pallas', action='store_true')
     ap.add_argument('--edges', action='store_true')
+    ap.add_argument('--bvh', action='store_true')
     args = ap.parse_args()
     assert torch.cuda.is_available(), 'needs a CUDA device'
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
@@ -293,6 +296,8 @@ def main() -> int:
         name, kw = 'final_forest_standin', dict(n_trees=0)
     if args.pallas:
         name, kw = 'sponza_standin', dict(n_spheres=12, intersector='pallas')
+    if args.bvh:
+        kw.update(bvh=True, intersector='bvh')
     scene, cam, st = registry.make(name, width=1920, height=1080,
                                    ray_tile=DEFAULT_TILE, **kw)
     if args.train:

@@ -2,9 +2,9 @@
 
 Both builders run the same native SAH cluster build on the same geometry,
 so the cluster tables (flat, or instance and two-level for an instanced
-scene, which the JAX builder builds with its BVH, and the motion-blurred
+scene, which both builders build with their BVH, and the motion-blurred
 partition) must be byte-equal, and every scene array equal exactly: the
-t = 1 pose tables, the texel pool and the dome's CDF tables too.
+t = 1 pose tables, the texel pool, the dome's CDF tables and the BVH too.
 convert.scene_from_arrays must carry a JAX-built scene across without a
 change, and scene_to_arrays must invert it.
 """
@@ -29,15 +29,14 @@ BUILDS = {
     'sponza_standin_12': lambda b: cpu(registry.sponza_standin,
         32, 24, max_bounces=3, n_spheres=12, builder=b),
     'instanced_teapots': lambda b: cpu(registry.instanced_teapots_standin,
-        8, 8, builder=b, bvh=b is not None),
+        8, 8, builder=b, bvh=True),
     'forest_8': lambda b: cpu(registry.forest_standin,
-        8, 8, n_trees=8, canopy=(30, 32), builder=b, bvh=b is not None),
+        8, 8, n_trees=8, canopy=(30, 32), builder=b, bvh=True),
     'mb_bullet': lambda b: cpu(registry.mb_bullet_standin, 8, builder=b),
     'alpha_leaf': lambda b: cpu(registry.alpha_leaf_standin, 8, builder=b),
     'dome': lambda b: cpu(registry.dome_standin, 8, builder=b),
     'final_forest_2': lambda b: cpu(registry.final_forest_standin,
-        8, 8, n_trees=2, n_flowers=4, grass_grid=3, builder=b,
-        bvh=b is not None),
+        8, 8, n_trees=2, n_flowers=4, grass_grid=3, builder=b, bvh=True),
 }
 
 
@@ -99,23 +98,26 @@ def test_sponza_standin_size():
 
 
 def test_unported_features_raise():
-    """Image files, the BVH and motion-blurred prototypes (which need the
-    BVH tracer) still raise; a scene without its cluster table does not
-    convert."""
-    from raytracer_tpu_torch import SceneBuilder
+    """Image files, the BVH and motion-blurred prototypes build now (a
+    motion-blurred prototype leaves the scene without cluster tables: it
+    traces through its BVH, and without one 'auto' raises); a scene
+    without its cluster table does not convert."""
+    from raytracer_tpu_torch import SceneBuilder, RenderSettings
     from raytracer_tpu_torch.io.objload import make_single_triangle
+    from raytracer_tpu_torch.render import integrator
     b = SceneBuilder()
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
+    with pytest.raises(FileNotFoundError):
         b.add_texture_file('leaf.tga')
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        b.build(bvh=True)
     tri = make_single_triangle((0, 0, 0), (1, 0, 0), (0, 1, 0))
     b.begin_prototype()
     b.add_mesh(tri, b.add_lambert(), mesh_t1=tri)
     b.add_instance(b.end_prototype(), np.eye(4))
     b.add_mesh(make_single_triangle((0, 0, 1), (1, 0, 1), (0, 1, 1)), 0)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        cpu(b.build)
+    bare = cpu(b.build)
+    assert bare.iclusters is None and bare.mb_clusters is None
+    with pytest.raises(ValueError, match='bvh=True'):
+        integrator.trace_fn(bare, RenderSettings())
+    assert cpu(b.build, bvh=True).blas is not None
     sj, _, _ = cpu(registry.triangle_sphere, size=8,
                    builder=rj.SceneBuilder())
     arrays, static = scene_arrays(sj)
@@ -173,7 +175,7 @@ def test_camera_from_arrays():
 
 
 @pytest.mark.parametrize('entry', ['registry', 'builder', 'convert',
-                                   'camera', 'params', 'stone'])
+                                   'camera', 'params', 'stone', 'bvh'])
 def test_builders_default_to_the_card(entry):
     """Scenes, cameras, parameters and baked textures land on the card
     unless the caller names another device; without a card the default
@@ -204,7 +206,9 @@ def test_builders_default_to_the_card(entry):
             {k: np.zeros(2, np.float32) for k in convert.PARAM_KEYS},
             **kw),
         stone=lambda **kw: procedural.bake_stone_texture(num_cells=4,
-                                                         size=4, **kw))[entry]
+                                                         size=4, **kw),
+        bvh=lambda **kw: registry.triangle_sphere(size=8, bvh=True,
+                                                  **kw)[0])[entry]
     if torch.cuda.is_available():
         assert _devices(make()) == {'cuda'}
     else:
@@ -222,6 +226,8 @@ def _devices(x):
     elif hasattr(x, 'geom'):
         vals = [x.geom.vertices, x.materials.kd, x.env_exposure,
                 x.clusters.p0, x.clusters.tri]
+        if x.blas is not None:
+            vals += [x.blas.node_min, x.blas.prim_order, x.instances.root]
     else:
         vals = [x.eye, x.fov]
     return {v.device.type for v in vals}

@@ -1,6 +1,6 @@
 """The CUDA trace kernels (cluster, segment and hierarchical instance trace,
-and the brute-force Moller-Trumbore sweep) against their plain PyTorch
-versions, and the trainer's loss and gradients, the edge-sampled boundary
+the brute-force Moller-Trumbore sweep and the wide-BVH walk) against their
+plain PyTorch versions, and the trainer's loss and gradients, the edge-sampled boundary
 terms, adaptive renders and the baked stone texture against the CPU's, on
 the card. Every test here needs an
 NVIDIA GPU and nvcc, and skips elsewhere.
@@ -26,6 +26,8 @@ from raytracer_tpu_torch.ops import cluster_trace as ct
 from raytracer_tpu_torch.ops import icluster_trace as ict
 from raytracer_tpu_torch.ops import iseg_trace as ist
 from raytracer_tpu_torch.ops import mt_trace as tmt
+from raytracer_tpu_torch.ops import traverse as ttr
+from raytracer_tpu_torch.ops.cuda import bvh_kernel as bvk
 from raytracer_tpu_torch.ops.cuda import cluster_kernel as ck
 from raytracer_tpu_torch.ops.cuda import icluster_kernel as ick
 from raytracer_tpu_torch.ops.cuda import iseg_kernel as isk
@@ -35,8 +37,9 @@ from raytracer_tpu_torch.render import camera as cam_mod
 from raytracer_tpu_torch.scenes import registry
 
 from .torch_port_util import (box_rays, cluster_table, cpu,
-                              edge_sample_parity, grazing_rays,
-                              instanced_table, segment_table, table_rays,
+                              edge_sample_parity, filled_scene, grazing_rays,
+                              instanced_table, ray_bounds, scene_rays,
+                              segment_table, table_rays, tie_scene,
                               triangle_soup)
 
 pytestmark = pytest.mark.cuda
@@ -753,3 +756,109 @@ def test_stone_bake_on_card_matches_cpu(dev):
     assert got.device.type == 'cuda'
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
                                atol=1e-5)
+
+
+# ------------------------------------------------------ the wide-BVH kernel
+BVH_SCENES = {
+    'triangle_sphere': (registry.triangle_sphere, dict(size=8)),
+    'sponza_full': (registry.sponza_standin, dict(width=32, height=24)),
+    'teapots': (registry.instanced_teapots_standin, dict(width=8, height=8)),
+    'grid_2000': (registry.instanced_grid_standin, dict(width=8, height=8,
+                                                        n=2000)),
+    'mb_bullet': (registry.mb_bullet_standin, dict(size=8)),
+    'alpha_leaf': (registry.alpha_leaf_standin, dict(size=8)),
+    'final_forest_2': (registry.final_forest_standin, dict(
+        width=8, height=8, n_trees=2, n_flowers=6, grass_grid=3)),
+    'mb_proto': (registry.mb_prototype_standin, dict(size=8, grid=2, rings=6,
+                                                     segs=10)),
+    'ties': (filled_scene, dict(fill=tie_scene)),
+}
+
+
+@pytest.fixture(scope='module', params=sorted(BVH_SCENES))
+def bvh_scene(request, dev):
+    make, kw = BVH_SCENES[request.param]
+    host = cpu(make, bvh=True, **kw)[0]
+    return request.param, host, host.to(dev)
+
+
+@pytest.mark.parametrize('any_hit', [False, True])
+def test_bvh_kernel_matches_plain(bvh_scene, dev, any_hit):
+    """Every mode the scene has (two levels, motion blur, alpha maps inside
+    the walk) with the counters: t, tri, inst, a, b and the box and
+    triangle counts bit for bit; the tie scene's duplicated triangles
+    decided alike."""
+    name, host, card = bvh_scene
+    o, d, tm, dist = scene_rays(host, 2 * R, 5)
+    tmin, tmax = ray_bounds(dist, any_hit)
+    t = torch.from_numpy
+    hp, sp = ttr.bvh_trace(card, *(t(x).to(dev) for x in (o, d, tm, tmin,
+                                                          tmax)),
+                           any_hit=any_hit, collect_stats=True)
+    n0, c0 = bvk.LAUNCHES, ttr.CALLS
+    hk, sk = bvk.bvh_trace(card, *(t(x).to(dev) for x in (o, d, tm, tmin,
+                                                          tmax)),
+                           any_hit=any_hit, collect_stats=True)
+    torch.cuda.synchronize()
+    assert bvk.LAUNCHES == n0 + 1 and ttr.CALLS == c0
+    assert int((hp.tri >= 0).sum()) > R // 8
+    for f in ('t', 'tri', 'inst', 'a', 'b'):
+        assert torch.equal(getattr(hk, f), getattr(hp, f)), f
+    for k in ('ray_aabb', 'ray_tri'):
+        assert torch.equal(sk[k], sp[k]), k
+    # the plain version on the card is the plain version on the CPU
+    hc = ttr.bvh_trace(host, t(o), t(d), t(tm), t(tmin), t(tmax), any_hit)
+    assert torch.equal(hc.tri, hp.tri.cpu())
+    if name == 'ties' and not any_hit:
+        assert int(torch.isin(hk.tri.cpu(), torch.arange(6)).sum()) > 20
+
+
+def test_bvh_kernel_refuses_a_deep_stack(dev):
+    """A BVH whose stack bound exceeds the kernel's fixed stack raises
+    before the launch; it is never cut short."""
+    import dataclasses
+    host = cpu(registry.triangle_sphere, size=8, bvh=True)[0]
+    card = host.to(dev)
+    deep = dataclasses.replace(card, blas=dataclasses.replace(
+        card.blas, depth=(bvk.STACK - 4 - 16) // 3 + 1))
+    assert ttr.stack_bound(deep.blas) > bvk.STACK
+    o = torch.zeros(4, 3, device=dev)
+    d = torch.ones(4, 3, device=dev)
+    n0 = bvk.LAUNCHES
+    with pytest.raises(ValueError, match='stack'):
+        bvk.bvh_trace(deep, o, d, 0.0, 1e-3, 1e12)
+    assert bvk.LAUNCHES == n0
+    ok = dataclasses.replace(card, blas=dataclasses.replace(
+        card.blas, depth=(bvk.STACK - 4 - 16) // 3))
+    assert ttr.stack_bound(ok.blas) <= bvk.STACK
+    bvk.bvh_trace(ok, o, d, 0.0, 1e-3, 1e12)
+    assert bvk.LAUNCHES == n0 + 1
+
+
+def test_bvh_render_on_card_matches_cpu(dev):
+    """intersector 'bvh' (and 'auto' on a motion-blurred prototype): every
+    trace through the kernel, the image held as the other renders."""
+    import dataclasses
+    for scene, cam, st in (
+            cpu(registry.sponza_standin, 32, 24, max_bounces=3,
+                n_spheres=12, bvh=True),
+            cpu(registry.instanced_teapots_standin, 32, 24, bvh=True)):
+        st = dataclasses.replace(st, intersector='bvh')
+        key = rng.PRNGKey(12)
+        want = rt.render(scene, cam, st, key).numpy()
+        n0, c0 = bvk.LAUNCHES, ttr.CALLS
+        got = rt.render(scene.to(dev), cam.to(dev), st, key)
+        torch.cuda.synchronize()
+        assert bvk.LAUNCHES > n0 and ttr.CALLS == c0
+        d = np.abs(got.cpu().numpy() - want)
+        assert (d <= 1e-4 + 1e-3 * np.abs(want)).all(-1).mean() >= 0.99
+        assert d.mean() < 1e-3 * np.abs(want).mean()
+    mb = cpu(registry.mb_prototype_standin, size=8, grid=2, rings=6,
+             segs=10)[0]
+    o, d, tm, _ = scene_rays(mb, R, 6)
+    from raytracer_tpu_torch.render import integrator
+    n0 = bvk.LAUNCHES
+    h = integrator.trace_fn(mb.to(dev), rt.RenderSettings())(
+        *(torch.from_numpy(x).to(dev) for x in (o, d, tm)), 1e-3, 1e12,
+        False)
+    assert bvk.LAUNCHES == n0 + 1 and bool((h.tri >= 0).any())

@@ -87,10 +87,11 @@ def test_render_sponza_standin(sponza):
 
 def test_imports_without_jax(tmp_path):
     """The port builds a scene, renders (uniform and adaptive), takes a
-    train step, adds the edge-sampled boundary terms and bakes the stone
-    texture with jax, flax, optax and raytracer_tpu unimportable, from a
-    copy of its package alone: no file of the JAX package is within reach,
-    and the native library builds into the copy's own _build directory."""
+    train step, adds the edge-sampled boundary terms, bakes the stone
+    texture, builds and traces the BVH and runs the CLI with jax, flax,
+    optax and raytracer_tpu unimportable, from a copy of its package alone:
+    no file of the JAX package is within reach, and the native library
+    builds into the copy's own _build directory."""
     shutil.copytree(os.path.join(REPO, 'raytracer_tpu_torch'),
                     tmp_path / 'raytracer_tpu_torch',
                     ignore=shutil.ignore_patterns('_build', '__pycache__'))
@@ -132,6 +133,18 @@ def test_imports_without_jax(tmp_path):
         'tex = procedural.bake_stone_texture(num_cells=4, size=4,',
         "                                    device='cpu')",
         'assert tex.shape == (4, 4, 3)',
+        'import dataclasses',
+        "scene, cam, st = registry.triangle_sphere(size=8, bvh=True,",
+        "                                          device='cpu')",
+        'assert scene.blas is not None',
+        "img3 = rt.render(scene, cam, dataclasses.replace(",
+        "    st, intersector='bvh'), rng.PRNGKey(0))",
+        'assert bool((img3 - img).abs().max() < 1e-3)',
+        'from raytracer_tpu_torch import cli',
+        'from raytracer_tpu_torch.io import imageio',
+        "assert cli.main(['--size', '8', '--spp', '1', '--device', 'cpu',",
+        "                 '--out', 'frame.ppm']) == 0",
+        "assert imageio.load_ppm('frame.ppm')[0].shape == (8, 8, 3)",
         "assert not any(m.startswith(('jax', 'flax', 'optax',",
         "                             'raytracer_tpu.'))",
         '               for m in sys.modules if sys.modules[m] is not None)',

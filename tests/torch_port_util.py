@@ -15,6 +15,8 @@ import operator
 import numpy as np
 
 from raytracer_tpu_torch import convert
+from raytracer_tpu_torch.geometry import shapes
+from raytracer_tpu_torch.io.objload import make_single_triangle
 
 
 def cpu(make, *args, **kw):
@@ -465,3 +467,58 @@ def edge_sample_parity(got, want, verts):
     atol = 1e-4 * float(w.abs().max())
     return (int(out.sum()), int(((want.scal != 0) & ~out).sum()),
             float(((g - w).abs() - (atol + 1e-3 * w.abs())).max()))
+
+
+def tie_scene(b):
+    """Fill the SceneBuilder `b` with duplicated triangles: 6 copies of one
+    (split over two BVH leaves by the median split of equal centroids) and
+    3 of another, beside a small mesh of distinct ones: exact ties in t
+    within a leaf and across leaves."""
+    mat = b.add_lambert()
+    a = make_single_triangle((-1, -1, 0), (1, -1, 0), (0, 1, 0))
+    c = make_single_triangle((2, -1, 0.5), (3, -1, 0.5), (2.5, 1, 0.5))
+    for _ in range(6):
+        b.add_mesh(a, mat)
+    b.add_mesh(shapes.uv_sphere((-2.5, 0, 1), 0.6, 4, 8, with_uv=False), mat)
+    for _ in range(3):
+        b.add_mesh(c, mat)
+    return b
+
+
+def filled_scene(fill, builder=None, bvh=True, device='cpu'):
+    """(scene, None, None) of the builder that `fill` fills: `builder` (the
+    JAX package's) builds as it builds, else a new port SceneBuilder on
+    `device`; the registry builders' return shape."""
+    if builder is not None:
+        return fill(builder).build(bvh=bvh), None, None
+    from raytracer_tpu_torch import SceneBuilder
+    return fill(SceneBuilder()).build(bvh=bvh, device=device), None, None
+
+
+def scene_rays(scene, R, seed):
+    """R rays from around the scene's vertex box to random points in it,
+    each with a time in [0, 1) and a distance of 0.3-1.3 times its target's
+    -> numpy (o, d, time, dist)."""
+    rs = np.random.default_rng(seed)
+    v = scene.geom.vertices.cpu().numpy()
+    lo, hi = v.min(0), v.max(0)
+    ctr, ext = (lo + hi) / 2, (hi - lo).max()
+    o = ctr + rs.normal(size=(R, 3)) * ext
+    tgt = lo + rs.uniform(size=(R, 3)) * (hi - lo)
+    d = tgt - o
+    dist = np.linalg.norm(d, axis=-1)
+    d /= dist[:, None]
+    f = lambda x: np.ascontiguousarray(x, np.float32)
+    return (f(o), f(d), f(rs.uniform(size=R)),
+            f(dist * rs.uniform(0.3, 1.3, R)))
+
+
+def ray_bounds(dist, any_hit):
+    """(tmin, tmax) of the BVH tests: every 4th ray starts at half its
+    distance, every 16th is dead (tmax -1); any-hit rays stop at their
+    distance, nearest ones at 1e12."""
+    lane = np.arange(len(dist))
+    tmin = np.where(lane % 4 == 1, 0.5 * dist, 1e-3).astype(np.float32)
+    tmax = np.where(lane % 16 == 3, -1.0,
+                    dist if any_hit else 1e12).astype(np.float32)
+    return tmin, tmax
