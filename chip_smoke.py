@@ -124,11 +124,41 @@ through `parallel/sharding.loss_and_grads_scanned`, Adam steps through
      spp with a checkpoint, resumed to 2, against an uninterrupted 2-spp
      run: the same PPM bytes, read back through imageio.load_ppm; then
      `render_with_stats(...).pretty()` for phase 22's scene, with its
-     probe's test counters.
+     probe's test counters;
+ 25. several ranks (parallel/worker.py, started as subprocesses with a
+     deadline each; a rank that fails or hangs fails the run): two gloo
+     ranks on the one card run the 1080p frame through render_sharded,
+     held to the single-process per-shard estimator (rank i's chunk with
+     fold_in(key, i)) under phase 6's rule, with whether it is bit for
+     bit; bench.py's fwd+bwd step through loss_and_grads_scanned(mesh) at
+     a 2^20-ray tile (a tile a rank), held to the single-process step at
+     that tile under phase 15's rule; two train_step(mesh) steps, finite,
+     the ranks holding the same parameters. Each rank's walls, peak
+     memory, launches and all-reduce time. Two ranks on one card share its
+     SMs: their walls are no scaling figure;
+ 26. the geometry-sharded ring on the same two ranks: 32,768 incoherent
+     rays round the ring, nearest and any-hit, t bit for bit with the
+     cluster kernel on the whole table and tri equal except at counted
+     ties; the 1080p render_geometry_sharded frame against phase 25's
+     (wavefront sort on: the share within phase 6's rule, reported) and,
+     sort off, against render_sharded of the same run under phase 6's
+     rule; one loss_and_grads_geometry_sharded step against
+     loss_and_grads(mesh) under phase 15's rule; the kernel's launches per
+     rank (one a round, two a trace) and the hops' bytes and walls;
+ 27. one NCCL rank runs phase 25's step: bit for bit with the
+     single-process step where that step repeats itself bit for bit
+     (phase 25 runs it twice), else under phase 15's rule; with two cards
+     or more, phases 25-26's frames again with one NCCL rank a card and
+     the rays/s against one rank (with one card the phase says it did not
+     run them);
+ 28. graft_entry.dryrun_multichip(2) on the card: two train_step(mesh)
+     steps and one loss_and_grads(mesh), finite.
 
 Each path (phases 5, 7, 9, 10, 13, 14, 16-18, 20, 22's frame and the
 motion-blurred prototype's trace) is driven with every launch and
-plain-version count set to 0 just before and read just after.
+plain-version count set to 0 just before and read just after; in phases
+25-28 each rank does so around each of its tasks, and every rank must
+have launched the cluster kernel and called no plain version.
 Any failure
 raises. The last two lines are the kernels' JSON record (one entry per
 kernel and mode group, with the least time its work could take on the
@@ -151,7 +181,7 @@ import numpy as np
 import torch
 
 import raytracer_tpu_torch as rt
-from raytracer_tpu_torch import bench, convert, native
+from raytracer_tpu_torch import bench, convert, graft_entry, native
 from raytracer_tpu_torch.core import rng
 from raytracer_tpu_torch.diff import edges as ed
 from raytracer_tpu_torch.io import imageio, objload
@@ -165,9 +195,10 @@ from raytracer_tpu_torch.ops.cuda import cluster_kernel as ck
 from raytracer_tpu_torch.ops.cuda import icluster_kernel as ick
 from raytracer_tpu_torch.ops.cuda import iseg_kernel as isk
 from raytracer_tpu_torch.ops.cuda import mt_kernel as mtk
-from raytracer_tpu_torch.parallel import sharding as ts
+from raytracer_tpu_torch.parallel import sharding as ts, worker
 from raytracer_tpu_torch.render import camera as cam_mod
 from raytracer_tpu_torch.render import integrator
+from raytracer_tpu_torch.render.renderer import render_pixels
 from raytracer_tpu_torch.scenes import registry
 from raytracer_tpu_torch.shading import procedural
 from raytracer_tpu_torch.utils import profiling
@@ -199,6 +230,11 @@ TRAIN_PARITY = dict(width=64, height=48, max_bounces=3, n_spheres=12)
 # the edge trainer's samples (the JAX package's defaults; the GI term
 # takes at least 8,192)
 EDGE_SAMPLES = 4096
+# the several-rank phases (25-28): two ranks on the one card, the fwd+bwd
+# step's tile (one per rank at 1080p), a deadline per launch of ranks
+RANKS = 2
+RANK_TILE = 1 << 20
+RANK_TIMEOUT = 400
 # render_adaptive's cells: levels 1-3, convergence from level 2
 ADAPTIVE = dict(min_subdivs=2, max_subdivs=3, noise_threshold=0.05)
 
@@ -1504,6 +1540,256 @@ def cli_cell(tmp: str) -> None:
     assert img.shape == (HEIGHT, WIDTH, 3) and img.mean() > 0
 
 
+def launch_ranks(n, tasks, backend='gloo', *extra) -> dict:
+    """n ranks of parallel/worker.py on the card(s), the 1080p atrium at
+    BOUNCES (the parent's caches freed first) -> their arrays, with
+    `stats` parsed and the launch's wall; a rank that fails or outlives
+    RANK_TIMEOUT fails the phase."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        res = worker.launch(
+            n, ['--scene', 'sponza_standin', '--scene-kw', json.dumps(dict(
+                width=WIDTH, height=HEIGHT, max_bounces=BOUNCES)),
+                '--seed', KEY, '--tasks', ','.join(tasks), *extra],
+            os.path.join(tmp, 'out.npz'), device='cuda', backend=backend,
+            timeout=RANK_TIMEOUT)
+    res['stats'] = json.loads(str(res['stats']))
+    res['launch_s'] = time.perf_counter() - t0
+    return res
+
+
+def rank_fields(res, task) -> dict:
+    """Per rank: the task's wall, peak memory, cluster-kernel launches,
+    plain calls and collectives; each rank must have launched the cluster
+    kernel, no other kernel and no plain version."""
+    out = {k: [] for k in ('walls', 'peak_mem_gb', 'launches',
+                           'plain_calls', 'reduce_s', 'reduce_bytes',
+                           'gather_s', 'hops', 'hop_bytes', 'hop_s',
+                           'ring_traces', 'flags')}
+    for r, st in enumerate(res['stats']):
+        s = st[task]
+        assert s['launches']['cluster_trace'] > 0, \
+            f'{task}: rank {r} never launched the cluster kernel'
+        assert s['plain_calls'] == 0, f'{task}: rank {r} called a plain version'
+        assert not any(v for k, v in s['launches'].items()
+                       if k != 'cluster_trace'), f'{task}: another kernel'
+        for k in out:
+            out[k].append(s['launches']['cluster_trace'] if k == 'launches'
+                          else s[k])
+    return out
+
+
+def close_rule(got, want) -> tuple[float, float]:
+    """Phase 6's rule: (share of pixels within 1e-4 + 1e-3 |x|, mean
+    relative difference)."""
+    diff = np.abs(got - want)
+    within = float((diff <= 1e-4 + 1e-3 * np.abs(want)).all(-1).mean())
+    return within, float(diff.mean() / np.abs(want).mean())
+
+
+def grads_rule(loss, grads, loss_w, grads_w) -> tuple[float, dict]:
+    """Phase 15's rule against (loss_w, grads_w): -> (relative loss
+    difference, each leaf's largest excess over rtol 1e-3 and atol 1e-4 x
+    max|leaf|)."""
+    worst = {}
+    for k in ts.PARAM_KEYS:
+        g, w = np.asarray(grads[k]), np.asarray(grads_w[k])
+        atol = 1e-4 * float(np.abs(w).max()) if w.size else 0.0
+        worst[k] = float((np.abs(g - w) - (atol + 1e-3 * np.abs(w))).max()) \
+            if w.size else 0.0
+    return abs(float(loss) - float(loss_w)) / abs(float(loss_w)), worst
+
+
+def data_parallel_cell(dev, key) -> dict:
+    """Phase 25: two gloo ranks on the one card. The parent computes the
+    single-process references first: the per-shard estimator (rank i's
+    pixel chunk with fold_in(key, i), one render_pixels call each) and
+    the fwd+bwd step at RANK_TILE, twice (is it deterministic?). Then the
+    ranks run render_sharded, loss_and_grads_scanned(mesh) at RANK_TILE
+    and two train_step(mesh) steps. -> the references and the ranks'
+    frame, for phases 26-27."""
+    scene, cam, st = registry.sponza_standin(
+        WIDTH, HEIGHT, max_bounces=BOUNCES, device=dev)
+    px, py = cam_mod.pixel_coords(WIDTH, HEIGHT, dev)
+    shards = []
+    for i in range(RANKS):
+        with torch.no_grad():
+            shards.append(render_pixels(
+                scene, cam, st, 1, ts._chunk(px, RANKS, i),
+                ts._chunk(py, RANKS, i), rng.fold_in(key, i)).cpu())
+    own = torch.cat(shards)[:WIDTH * HEIGHT].reshape(HEIGHT, WIDTH, 3)
+    target = torch.zeros((HEIGHT, WIDTH, 3), device=dev)
+    steps, walls = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        t0 = time.perf_counter()
+        loss, grads = ts.loss_and_grads_scanned(
+            ts.get_params(scene), scene, cam, st, target, key,
+            tile=RANK_TILE)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        steps.append((float(loss), {k: g.cpu().numpy()
+                                    for k, g in grads.items()}))
+        del loss, grads
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    deterministic = steps[0][0] == steps[1][0] and all(
+        np.array_equal(steps[0][1][k], steps[1][1][k]) for k in ts.PARAM_KEYS)
+    del scene, target
+    res = launch_ranks(RANKS, ['render', 'step', 'train'], 'gloo',
+                       '--tile', RANK_TILE, '--repeat', 2)
+    img = res['render/img']
+    within, rel = close_rule(img, own.numpy())
+    bits = bool(np.array_equal(img, own.numpy()))
+    loss_rel, worst = grads_rule(res['step/loss'], {
+        k: res[f'step/grad/{k}'] for k in ts.PARAM_KEYS}, *steps[0])
+    losses = res['train/losses'].tolist()
+    sums = {json.dumps(s['train']['param_sum']) for s in res['stats']}
+    phase('multi_rank_data_parallel', ranks=RANKS, backend='gloo',
+          card='one card shared by both ranks: no scaling figure',
+          launch_s=res['launch_s'],
+          render=rank_fields(res, 'render'), render_pixels_within=within,
+          render_mean_rel_diff=rel, render_bit_for_bit=bits,
+          step=rank_fields(res, 'step'), step_tile=RANK_TILE,
+          step_loss=float(res['step/loss']), step_loss_rel_diff=loss_rel,
+          step_grad_excess_over_tol=worst,
+          single_process_step_deterministic=deterministic,
+          single_process_step_walls=walls, single_process_peak_mem_gb=peak,
+          train=rank_fields(res, 'train'), train_losses=losses,
+          train_step_walls=[s['train']['step_walls'] for s in res['stats']])
+    check_image(torch.from_numpy(img), (HEIGHT, WIDTH, 3))
+    assert within >= 0.99 and rel < 1e-3, 'render_sharded: shards disagree'
+    assert loss_rel <= 1e-4 and max(worst.values()) <= 0.0, \
+        'the two-rank step disagrees with the single-process one'
+    assert np.isfinite(losses).all() and len(sums) == 1, \
+        'train_step(mesh): non-finite, or the ranks hold other parameters'
+    return dict(img=img, step=steps[0], deterministic=deterministic)
+
+
+def ring_cell(dev, key, ref) -> None:
+    """Phase 26: the geometry-sharded ring on two gloo ranks on the one
+    card. The ranks trace 32,768 incoherent rays round the ring (nearest,
+    and any-hit to the shadow distances), which the parent holds against
+    the cluster kernel on the whole table; then the 1080p
+    render_geometry_sharded frame (sort on, against phase 25's
+    render_sharded frame; sort off, against the render_sharded frame of
+    this run) and one loss_and_grads_geometry_sharded step against
+    loss_and_grads(mesh) of this run."""
+    scene, cam, _ = registry.sponza_standin(
+        WIDTH, HEIGHT, max_bounces=BOUNCES, device=dev)
+    o, d, dist = test_rays(cam, dev)['incoherent']
+    tmin = torch.full((N_RAYS,), 1e-3, device=dev)
+    tmax = torch.full((N_RAYS,), 1e12, device=dev)
+    want = ck.cluster_trace(scene, o, d, 0.0, tmin, tmax)
+    want_any = ck.cluster_trace(scene, o, d, 0.0, tmin, dist, True)
+    del scene
+    with tempfile.TemporaryDirectory() as tmp:
+        rays = os.path.join(tmp, 'rays.npz')
+        np.savez(rays, o=o.cpu().numpy(), d=d.cpu().numpy(),
+                 time=np.zeros(N_RAYS, np.float32), tmin=tmin.cpu().numpy(),
+                 tmax=tmax.cpu().numpy(), any_tmax=dist.cpu().numpy())
+        res = launch_ranks(RANKS, ['ring', 'render_geometry',
+                                   'render_geometry@nosort', 'render@nosort',
+                                   'step_geometry', 'loss'], 'gloo',
+                           '--rays', rays, '--repeat', 2)
+    t, tri = res['ring/t'], res['ring/tri']
+    t_w, tri_w = want.t.cpu().numpy(), want.tri.cpu().numpy()
+    ties = tri != tri_w
+    dt = float(np.abs(t - t_w).max())
+    any_differ = int(((res['ring/any_tri'] >= 0)
+                      != (want_any.tri.cpu().numpy() >= 0)).sum())
+    sorted_within, sorted_rel = close_rule(res['render_geometry/img'],
+                                           ref['img'])
+    within, rel = close_rule(res['render_geometry@nosort/img'],
+                             res['render@nosort/img'])
+    loss_rel, worst = grads_rule(
+        res['step_geometry/loss'],
+        {k: res[f'step_geometry/grad/{k}'] for k in ts.PARAM_KEYS},
+        res['loss/loss'], {k: res[f'loss/grad/{k}'] for k in ts.PARAM_KEYS})
+    frame = rank_fields(res, 'render_geometry')
+    phase('ring_1080p', ranks=RANKS, backend='gloo', n=N_RAYS,
+          hits=int((tri_w >= 0).sum()), max_abs_dt=dt,
+          tri_ties=int(ties.sum()), any_hit_mismatch=any_differ,
+          ring=rank_fields(res, 'ring'), launch_s=res['launch_s'],
+          frame=frame, frame_sorted_pixels_within=sorted_within,
+          frame_sorted_mean_rel_diff=sorted_rel,
+          frame_unsorted_pixels_within=within,
+          frame_unsorted_mean_rel_diff=rel,
+          frame_unsorted=rank_fields(res, 'render_geometry@nosort'),
+          data_parallel_unsorted=rank_fields(res, 'render@nosort'),
+          step=rank_fields(res, 'step_geometry'), step_loss_rel_diff=loss_rel,
+          step_grad_excess_over_tol=worst,
+          loss=rank_fields(res, 'loss'),
+          hop_mb_per_trace=[b / max(n, 1) / 1e6 for b, n in zip(
+              frame['hop_bytes'], frame['ring_traces'])],
+          hop_ms_per_trace=[1e3 * s / max(n, 1) for s, n in zip(
+              frame['hop_s'], frame['ring_traces'])])
+    assert dt == 0.0, 'the ring and the whole-table kernel part in t'
+    assert np.array_equal(t[ties], t_w[ties]) and ties.sum() <= N_RAYS // 100
+    assert any_differ == 0, 'the ring and the kernel part on any-hit rays'
+    for launches, traces in zip(frame['launches'], frame['ring_traces']):
+        assert launches == RANKS * traces, 'a ring round without its launch'
+    assert within >= 0.99 and rel < 1e-3, 'the unsorted ring frame differs'
+    assert loss_rel <= 1e-4 and max(worst.values()) <= 0.0, \
+        'the geometry-sharded step differs from loss_and_grads(mesh)'
+
+
+def nccl_cell(ref) -> None:
+    """Phase 27: one NCCL rank runs phase 25's step; it must equal the
+    single-process step bit for bit where that step repeats itself bit
+    for bit, else within phase 15's rule. Phases 25-26 with one NCCL rank
+    a card need at least two cards."""
+    res = launch_ranks(1, ['step'], 'nccl', '--tile', RANK_TILE,
+                       '--repeat', 2)
+    loss, grads = res['step/loss'], {k: res[f'step/grad/{k}']
+                                     for k in ts.PARAM_KEYS}
+    bits = float(loss) == ref['step'][0] and all(
+        np.array_equal(grads[k], ref['step'][1][k]) for k in ts.PARAM_KEYS)
+    loss_rel, worst = grads_rule(loss, grads, *ref['step'])
+    cards = torch.cuda.device_count()
+    phase('nccl', ranks=1, step=rank_fields(res, 'step'),
+          launch_s=res['launch_s'], bit_for_bit=bits,
+          single_process_step_deterministic=ref['deterministic'],
+          loss_rel_diff=loss_rel, grad_excess_over_tol=worst, cards=cards,
+          one_rank_a_card='not run: it needs two cards, this machine has '
+          f'{cards}' if cards < 2 else 'run')
+    if ref['deterministic']:
+        assert bits, 'one NCCL rank differs from the single-process step'
+    assert loss_rel <= 1e-4 and max(worst.values()) <= 0.0
+    if cards >= 2:
+        scaling_cell(cards)
+
+
+def scaling_cell(cards) -> None:
+    """Phases 25-26 with one NCCL rank a card: the data-parallel frame's
+    rays/s on `cards` ranks against one."""
+    walls = {}
+    for n in (1, cards):
+        res = launch_ranks(n, ['render', 'render_geometry'], 'nccl',
+                           '--repeat', 2)
+        walls[n] = max(s['render']['wall_s'] for s in res['stats'])
+        phase('nccl_ranks', ranks=n, render=rank_fields(res, 'render'),
+              ring=rank_fields(res, 'render_geometry'))
+    phase('nccl_scaling', cards=cards,
+          rays_per_s={n: WIDTH * HEIGHT / w for n, w in walls.items()},
+          efficiency=walls[1] / (cards * walls[cards]))
+
+
+def dryrun_cell() -> None:
+    """Phase 28: graft_entry.dryrun_multichip(2) on the card."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = graft_entry.dryrun_multichip(RANKS, timeout=RANK_TIMEOUT)
+    stats = json.loads(str(res['stats']))
+    phase('dryrun_multichip', ranks=RANKS, wall_s=time.perf_counter() - t0,
+          losses=res['train/losses'].tolist(), loss=float(res['loss/loss']),
+          launches=[s['train']['launches']['cluster_trace'] for s in stats],
+          plain_calls=[s['train']['plain_calls'] for s in stats])
+    assert all(s['train']['launches']['cluster_trace'] > 0
+               and s['train']['plain_calls'] == 0 for s in stats)
+
+
 def check_image(img, shape) -> None:
     assert tuple(img.shape) == shape, img.shape
     assert bool(torch.isfinite(img).all()), 'non-finite pixels'
@@ -1672,6 +1958,13 @@ def main(dev=None) -> int:
           first_call_extra_s=report.compile_s,
           primary_rays_per_s=report.primary_rays_per_s, probe=report.probe)
     assert report.probe['ray_tri'] > 0
+    del scene
+
+    # ------------------ 25-28. several ranks: data-parallel, ring, NCCL
+    ref = data_parallel_cell(dev, key)
+    ring_cell(dev, key, ref)
+    nccl_cell(ref)
+    dryrun_cell()
 
     print(json.dumps({'kernels': [
         {k: r[k] for k in ('name', 'route', 'source', 'replaces', 'launches',

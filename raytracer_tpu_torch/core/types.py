@@ -270,7 +270,8 @@ class RenderSettings:
     shadow_segments: int = 4
     light_noise_cutoff: float = 0.0
     use_schlick: bool = False
-    # 'auto' | 'cluster2' | 'brute' | 'pallas' | 'bvh'
+    # 'auto' | 'cluster2' | 'brute' | 'pallas' | 'bvh' | 'ring' (a rank's
+    # shard of the cluster table, ops/ring_trace.py)
     intersector: str = 'auto'
     ray_tile: int = 8 * 128
     sort_rays: bool = True

@@ -7,7 +7,8 @@ diffuse and specular branches as the reference samples them
 one continuation ray (diffuse GI, reflection or refraction) is spawned per
 step. The RNG keys, splits and draws are the JAX package's, so one key
 renders the same image on both. The loop stops early once every ray has
-terminated (the JAX package's lax.cond step skip).
+terminated (the JAX package's lax.cond step skip); under 'ring', once
+every ray of every rank has.
 """
 from __future__ import annotations
 
@@ -17,8 +18,10 @@ from ..core import rng
 from ..core import vecmath as vm
 from ..core.types import Scene, RenderSettings, MAT_LAMBERT
 from ..core.vecmath import EPSILON, MIRO_TMAX
+from ..parallel import distributed
 from ..ops import cluster_trace as ct
 from ..ops import intersect as isect
+from ..ops import ring_trace as ring
 from ..ops.cuda import bvh_kernel as bvk
 from ..ops.cuda import cluster_kernel as ck
 from ..ops.cuda import icluster_kernel as ick
@@ -170,8 +173,15 @@ def trace_fn(scene: Scene, settings: RenderSettings):
     ops/traverse.bvh_trace for CPU ones), motion blur and alpha maps
     inside the walk; 'auto' takes it for a two-level scene that has no
     cluster tables (a motion-blurred prototype), as the JAX package's
-    'auto' takes 'bvh' off the TPU."""
+    'auto' takes 'bvh' off the TPU. 'ring' traces a single-level scene
+    whose scene.clusters is this rank's shard (ops/ring_trace.RingTracer,
+    as raytracer_tpu/render/integrator.py:365-371): every rank of the
+    shard's mesh must trace alike, so the tracer carries the mesh, and
+    radiance and the alpha march take their host decisions over it;
+    without a process group it raises."""
     mode = settings.intersector
+    if mode == 'ring':
+        return ring.RingTracer(scene)
     if mode == 'auto' and not scene.single_level \
             and scene.iclusters is None and scene.mb_clusters is None:
         mode = 'bvh'            # a motion-blurred prototype
@@ -202,7 +212,6 @@ def trace_fn(scene: Scene, settings: RenderSettings):
         raise NotImplementedError(
             f"intersector {mode!r} on a "
             f"{'single' if scene.single_level else 'two'}-level scene: "
-            f"'ring' comes with ROADMAP queue 1 #14; "
             f"'brute' and 'pallas' trace single-level scenes and "
             f"'cluster2' two-level ones only (the JAX package's XLA "
             f"'cluster' tracer is not ported)")
@@ -295,8 +304,10 @@ def radiance(scene: Scene, settings: RenderSettings, o, d, time,
         pix=torch.arange(R, dtype=torch.int32, device=dev),
     )
 
+    # a ring's ranks stop together (ops/ring_trace.py)
+    mesh = getattr(tracer, 'mesh', None)
     for step_idx in range(settings.max_wavefront_steps):
-        if not bool(state['alive'].any()):
+        if not distributed.any_true(state['alive'], mesh):
             break
         state = _step(scene, settings, tracer, state, step_idx, base_key,
                       segment)

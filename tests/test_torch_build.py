@@ -175,13 +175,14 @@ def test_camera_from_arrays():
 
 
 @pytest.mark.parametrize('entry', ['registry', 'builder', 'convert',
-                                   'camera', 'params', 'stone', 'bvh'])
+                                   'camera', 'params', 'stone', 'bvh',
+                                   'graft_entry'])
 def test_builders_default_to_the_card(entry):
     """Scenes, cameras, parameters and baked textures land on the card
     unless the caller names another device; without a card the default
     raises (it never builds on the CPU quietly), and device='cpu' builds
     there."""
-    from raytracer_tpu_torch import SceneBuilder
+    from raytracer_tpu_torch import SceneBuilder, graft_entry
     from raytracer_tpu_torch.io.objload import make_single_triangle
     from raytracer_tpu_torch.shading import procedural
     sj, _, _ = cpu(registry.triangle_sphere, size=8,
@@ -208,7 +209,8 @@ def test_builders_default_to_the_card(entry):
         stone=lambda **kw: procedural.bake_stone_texture(num_cells=4,
                                                          size=4, **kw),
         bvh=lambda **kw: registry.triangle_sphere(size=8, bvh=True,
-                                                  **kw)[0])[entry]
+                                                  **kw)[0],
+        graft_entry=lambda **kw: graft_entry.entry(**kw)[1][0])[entry]
     if torch.cuda.is_available():
         assert _devices(make()) == {'cuda'}
     else:

@@ -186,7 +186,8 @@ def test_push_order_is_a_stable_descending_sort():
 
 def test_trace_fn_routes_to_bvh():
     """'bvh' traces any scene with a BVH; 'auto' takes it for a two-level
-    scene without cluster tables; a scene without a BVH raises."""
+    scene without cluster tables; a scene without a BVH raises, and so
+    does 'ring' without a process group."""
     _, sp = _pair('mb_proto')
     o, d, tm, _ = scene_rays(sp, R, 0)
     args = (torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(tm),
@@ -198,7 +199,8 @@ def test_trace_fn_routes_to_bvh():
     flat, _, _ = cpu(registry.triangle_sphere, size=8)
     with pytest.raises(ValueError, match='bvh=True'):
         tint.trace_fn(flat, RenderSettings(intersector='bvh'))
-    with pytest.raises(NotImplementedError, match='#14'):
+    # 'ring' needs the ranks of a process group
+    with pytest.raises(RuntimeError, match='init_from_env'):
         tint.trace_fn(flat, RenderSettings(intersector='ring'))
 
 

@@ -862,3 +862,53 @@ def test_bvh_render_on_card_matches_cpu(dev):
         *(torch.from_numpy(x).to(dev) for x in (o, d, tm)), 1e-3, 1e12,
         False)
     assert bvk.LAUNCHES == n0 + 1 and bool((h.tri >= 0).any())
+
+
+def test_ring_on_one_card_matches_replicated(dev, tmp_path):
+    """Two gloo ranks on the one card (the hop through host memory): every
+    ring round a launch of the cluster kernel on each rank, t bit for bit
+    with the kernel on the whole table, tri equal except at exact ties."""
+    import json
+    from raytracer_tpu_torch.parallel import worker
+    kw = dict(width=32, height=24, n_spheres=12)
+    sp, _, _ = cpu(registry.sponza_standin, **kw)
+    o, d, tm, dist = scene_rays(sp, R, 9)
+    tmin, tmax = ray_bounds(dist, False)
+    np.savez(tmp_path / 'rays.npz', o=o, d=d, time=tm, tmin=tmin, tmax=tmax)
+    res = worker.launch(2, ['--scene', 'sponza_standin', '--scene-kw',
+                            json.dumps(kw), '--tasks', 'ring', '--rays',
+                            tmp_path / 'rays.npz'],
+                        str(tmp_path / 'out.npz'), device='cuda',
+                        backend='gloo', timeout=300)
+    card = sp.to(dev)
+    want = ck.cluster_trace(card, *(torch.from_numpy(x).to(dev) for x in (
+        o, d, tm, tmin, tmax)))
+    np.testing.assert_array_equal(res['ring/t'], want.t.cpu().numpy())
+    ties = res['ring/tri'] != want.tri.cpu().numpy()
+    assert ties.sum() <= R // 100
+    for s in json.loads(str(res['stats'])):
+        g = s['ring']
+        assert g['launches']['cluster_trace'] == g['ring_rounds'] > 0
+        assert g['plain_calls'] == 0 and g['hops'] == g['ring_rounds']
+
+
+def test_nccl_one_rank_step_matches_meshless(dev, tmp_path):
+    """One NCCL rank: loss_and_grads_scanned(mesh) against the mesh-less
+    step on the card (the one rank's all_reduce adds nothing)."""
+    import json
+    from raytracer_tpu_torch.parallel import worker
+    kw = dict(width=32, height=24, max_bounces=3, n_spheres=12)
+    res = worker.launch(1, ['--scene', 'sponza_standin', '--scene-kw',
+                            json.dumps(kw), '--tasks', 'step', '--tile',
+                            256], str(tmp_path / 'out.npz'), device='cuda',
+                        backend='nccl', timeout=300)
+    scene, cam, st = registry.sponza_standin(**kw, device=dev)
+    loss, grads = ts.loss_and_grads_scanned(
+        ts.get_params(scene), scene, cam, st,
+        torch.zeros((24, 32, 3), device=dev), rng.PRNGKey(7), tile=256)
+    np.testing.assert_allclose(res['step/loss'], float(loss), rtol=1e-6)
+    for k in ts.PARAM_KEYS:
+        np.testing.assert_allclose(res[f'step/grad/{k}'],
+                                   grads[k].cpu().numpy(), rtol=1e-5,
+                                   atol=1e-8, err_msg=k)
+    assert json.loads(str(res['stats']))[0]['step']['reduces'] == 1

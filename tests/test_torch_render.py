@@ -88,10 +88,11 @@ def test_render_sponza_standin(sponza):
 def test_imports_without_jax(tmp_path):
     """The port builds a scene, renders (uniform and adaptive), takes a
     train step, adds the edge-sampled boundary terms, bakes the stone
-    texture, builds and traces the BVH and runs the CLI with jax, flax,
-    optax and raytracer_tpu unimportable, from a copy of its package alone:
-    no file of the JAX package is within reach, and the native library
-    builds into the copy's own _build directory."""
+    texture, builds and traces the BVH, runs the CLI and runs two ranks of
+    parallel/worker.py (data-parallel and geometry-sharded) with jax,
+    flax, optax and raytracer_tpu unimportable, from a copy of its package
+    alone: no file of the JAX package is within reach, and the native
+    library builds into the copy's own _build directory."""
     shutil.copytree(os.path.join(REPO, 'raytracer_tpu_torch'),
                     tmp_path / 'raytracer_tpu_torch',
                     ignore=shutil.ignore_patterns('_build', '__pycache__'))
@@ -99,6 +100,7 @@ def test_imports_without_jax(tmp_path):
         'import os, sys',
         "for m in ('jax', 'flax', 'optax', 'raytracer_tpu'):",
         '    sys.modules[m] = None',
+        'import numpy as np',
         'import torch',
         'import raytracer_tpu_torch as rt',
         'from raytracer_tpu_torch import native',
@@ -145,10 +147,25 @@ def test_imports_without_jax(tmp_path):
         "assert cli.main(['--size', '8', '--spp', '1', '--device', 'cpu',",
         "                 '--out', 'frame.ppm']) == 0",
         "assert imageio.load_ppm('frame.ppm')[0].shape == (8, 8, 3)",
+        'from raytracer_tpu_torch.parallel import worker',
+        "res = worker.launch(2, ['--scene', 'triangle_sphere', '--scene-kw',",
+        "                        '{\"size\": 8}', '--tasks',",
+        "                        'render,step,render_geometry', '--tile',",
+        "                        '16'], os.path.join(here, 'w.npz'),",
+        "                    device='cpu')",
+        'assert worker.PKG_ROOT == here',
+        "assert res['render/img'].shape == (8, 8, 3)",
+        "assert np.array_equal(res['render_geometry/img'], res['render/img'])",
         "assert not any(m.startswith(('jax', 'flax', 'optax',",
         "                             'raytracer_tpu.'))",
         '               for m in sys.modules if sys.modules[m] is not None)',
         "print('ok')"])
+    # the worker's ranks start from the copy too (its directory first on
+    # their path), where importing any of these packages raises
+    for m in ('jax', 'flax', 'optax', 'raytracer_tpu'):
+        (tmp_path / m).mkdir()
+        (tmp_path / m / '__init__.py').write_text(
+            f'raise RuntimeError("{m} imported")\n')
     env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
     res = subprocess.run([sys.executable, '-c', code], cwd=tmp_path,
                          capture_output=True, text=True, timeout=300,

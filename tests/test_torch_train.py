@@ -214,7 +214,8 @@ def test_params_round_trip_and_mesh_raises():
     for k in ts.PARAM_KEYS:
         assert torch.equal(again[k], params[k])
     assert params['vertices'] is not sp.geom.vertices
-    with pytest.raises(NotImplementedError, match='queue 1 #14'):
+    # a mesh is parallel.distributed.Mesh (sharding.make_mesh) or nothing
+    with pytest.raises(TypeError, match='distributed.Mesh'):
         ts.loss_and_grads_scanned(params, sp, cam, st, torch.zeros(8, 8, 3),
                                   rng.PRNGKey(0), mesh=object())
     assert ts.loss_and_grads_streamed is ts.loss_and_grads_scanned
