@@ -47,7 +47,6 @@ import torch
 
 from ..core.types import Scene
 from ..core.vecmath import MIRO_TMAX
-from ..parallel import distributed
 from . import bundle
 from . import intersect as isect
 from .intersect import Hit
@@ -335,7 +334,7 @@ def merge_hits(h1: Hit, h2: Hit) -> Hit:
 
 def alpha_aware_trace(scene: Scene, trace_once, o, d, time, tmin, tmax,
                       any_hit: bool = False, max_passes: int = 12,
-                      mesh=None) -> Hit:
+                      any_live=None) -> Hit:
     """Alpha cutouts around a tracer that does not test them: re-trace
     past each hit with alpha < 0.5 from an advanced per-ray tmin, until
     every ray has an opaque hit or a miss (src/BVH.cpp:1401-1435).
@@ -347,12 +346,14 @@ def alpha_aware_trace(scene: Scene, trace_once, o, d, time, tmin, tmax,
     JAX package skips a pass once every ray is settled (lax.cond); here
     that test is a host sync, and the march stops there, since no later
     pass could run either. trace_once(o, d, time, tmin, tmax, any_hit)
-    -> Hit takes per-ray tmin. With a `mesh` (trace_once is a ring trace),
-    the ranks stop together: the test is one all_reduce of their flags,
-    and a rank whose rays are all settled traces the pass with them dead.
-    Each pass's row budget depends only on R, which is equal on every
-    rank."""
+    -> Hit takes per-ray tmin. any_live(flag) -> bool is that test,
+    bool(flag.any()) by default; a ring tracer gives its ranks' shared
+    one, so that they stop together and a rank whose rays are all settled
+    traces the pass with them dead. Each pass's row budget depends only
+    on R, which is equal on every rank."""
     global MARCH_PASSES, MARCH_SYNCS
+    if any_live is None:
+        any_live = lambda flag: bool(flag.any())
     R = o.shape[0]
     time, tmin0, tmax_b = isect.ray_inputs(o, time, tmin, tmax)
     dev = o.device
@@ -399,7 +400,7 @@ def alpha_aware_trace(scene: Scene, trace_once, o, d, time, tmin, tmax,
     MARCH_PASSES += 1
     for p in range(1, max_passes):
         MARCH_SYNCS += 1
-        if not distributed.any_true(~s['done'], mesh):
+        if not any_live(~s['done']):
             break
         Rp = min(R, max(4096, R >> (p + 1)))
         Rp = -(-Rp // 256) * 256 if Rp < R else R

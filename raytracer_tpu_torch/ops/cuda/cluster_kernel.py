@@ -174,7 +174,8 @@ def trace_ids(cl, o, d, tmin, tmax, cheap: bool, time=None, mb: bool = False,
               need_ab: bool = False, mode: str | None = None):
     """(t, tri, a, b) of one table for (R,) tmin and tmax, as
     plain.trace_ids: the kernel for CUDA tensors (`launch`), the plain
-    version for CPU ones (counted in plain.CALLS)."""
+    version for CPU ones (counted in plain.CALLS). A round of
+    ops/ring_trace.ring_trace is one call."""
     if o.device.type == 'cpu':
         plain.CALLS += 1
         return plain.trace_ids(cl, o, d, tmin, tmax, cheap,
@@ -191,11 +192,16 @@ def cluster_trace(scene: Scene, o, d, time, tmin, tmax,
     motion-blurred partition scene.mb_clusters; mb defaults to the scene's
     motion-blur flag) -> Hit (ids and detached floats;
     intersect.refine_hit recomputes differentiably)."""
+    if o.device.type == 'cpu':
+        return plain.cluster_trace(scene, o, d, time, tmin, tmax, any_hit,
+                                   table, mb)
+    if o.device.type != 'cuda':
+        raise ValueError(f'cluster_trace: unsupported device {o.device}')
     cl = scene.clusters if table is None else table
     mb = scene.has_motion_blur if mb is None else mb
     cheap, need_ab = plain.modes(scene, any_hit)
-    o, d = o.detach().float().contiguous(), d.detach().float().contiguous()
+    o, d = o.detach().contiguous(), d.detach().contiguous()
     time, tmin, tmax = isect.ray_inputs(o, time, tmin, tmax)
-    t, tri, a, b = trace_ids(cl, o, d, tmin, tmax, cheap, time, mb, need_ab,
-                             mode_name(any_hit, cheap, need_ab, mb))
+    t, tri, a, b = launch(cl, o, d, tmin, tmax, cheap, time, mb, need_ab,
+                          mode_name(any_hit, cheap, need_ab, mb))
     return plain.finish(scene, o, d, time, t, tri, cheap, a, b)

@@ -104,12 +104,15 @@ def local_shard(clusters: Clusters, mesh) -> Shard:
 
 
 def mesh_of(scene: Scene):
-    """The ring of a scene's shard; the world's mesh for a table that is
-    not a Shard (raises without a process group)."""
+    """The ring of a scene's shard (local_shard's mesh)."""
     cl = scene.clusters
-    if isinstance(cl, Shard) and cl.mesh is not None:
-        return cl.mesh
-    return distributed.global_mesh()
+    if not isinstance(cl, Shard):
+        raise RuntimeError(
+            "intersector 'ring' traces this rank's shard of the cluster "
+            "table: every rank calls parallel.distributed.init_from_env(), "
+            "then parallel.sharding.make_mesh() and "
+            "ops/ring_trace.local_shard(scene.clusters, mesh)")
+    return cl.mesh
 
 
 @torch.no_grad()
@@ -169,15 +172,21 @@ def ring_trace(scene: Scene, o, d, time, tmin, tmax, any_hit: bool = False,
 class RingTracer:
     """integrator.trace_fn's tracer for intersector 'ring':
     tracer(o, d, time, tmin, tmax, any_hit) -> Hit through ring_trace over
-    the scene's shard, inside the alpha march in a scene with alpha maps;
-    `mesh` is the ring, whose ranks take every host decision together."""
+    the scene's shard, inside the alpha march in a scene with alpha maps.
+    The ranks of the shard's mesh must trace alike, so `any_live` is the
+    test that ends a loop over traces (radiance's bounces, the alpha
+    march's passes): one decision that all ranks share."""
 
-    def __init__(self, scene: Scene, mesh=None):
+    def __init__(self, scene: Scene):
         if not scene.single_level or scene.clusters is None:
             raise ValueError("intersector 'ring' traces the cluster table "
                              "of a single-level scene")
         self.scene = scene
-        self.mesh = mesh_of(scene) if mesh is None else mesh
+        self.mesh = mesh_of(scene)
+
+    def any_live(self, flag) -> bool:
+        """flag.any() over every rank of the ring (one all_reduce MAX)."""
+        return distributed.any_true(flag, self.mesh)
 
     def once(self, o, d, time, tmin, tmax, any_hit):
         return ring_trace(self.scene, o, d, time, tmin, tmax, any_hit,
@@ -187,4 +196,5 @@ class RingTracer:
         if not self.scene.has_alpha_maps:
             return self.once(o, d, time, tmin, tmax, any_hit)
         return plain.alpha_aware_trace(self.scene, self.once, o, d, time,
-                                       tmin, tmax, any_hit, mesh=self.mesh)
+                                       tmin, tmax, any_hit,
+                                       any_live=self.any_live)

@@ -250,13 +250,10 @@ def ring_shift(tensors: list, mesh: Mesh) -> list:
     return out
 
 
-def any_true(x, mesh: Mesh | None = None) -> bool:
-    """bool(x.any()) on this rank alone, or, with a mesh, over all its
-    ranks (one all_reduce MAX), so that every rank takes the same branch."""
-    flag = x.any()
-    if mesh is None:
-        return bool(flag)
-    buf = _staged(flag.to(torch.int32).reshape(1), mesh)
+def any_true(x, mesh: Mesh) -> bool:
+    """x.any() over all the mesh's ranks (one all_reduce MAX), so that
+    every rank takes the same branch."""
+    buf = _staged(x.any().to(torch.int32).reshape(1), mesh)
     dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=mesh.group)
     STATS['flags'] += 1
     return bool(buf.item())

@@ -18,7 +18,6 @@ from ..core import rng
 from ..core import vecmath as vm
 from ..core.types import Scene, RenderSettings, MAT_LAMBERT
 from ..core.vecmath import EPSILON, MIRO_TMAX
-from ..parallel import distributed
 from ..ops import cluster_trace as ct
 from ..ops import intersect as isect
 from ..ops import ring_trace as ring
@@ -176,9 +175,9 @@ def trace_fn(scene: Scene, settings: RenderSettings):
     'auto' takes 'bvh' off the TPU. 'ring' traces a single-level scene
     whose scene.clusters is this rank's shard (ops/ring_trace.RingTracer,
     as raytracer_tpu/render/integrator.py:365-371): every rank of the
-    shard's mesh must trace alike, so the tracer carries the mesh, and
-    radiance and the alpha march take their host decisions over it;
-    without a process group it raises."""
+    shard's mesh must trace alike, so radiance and the alpha march take
+    their host decisions through the tracer's `any_live`; for a table
+    that is not a shard it raises."""
     mode = settings.intersector
     if mode == 'ring':
         return ring.RingTracer(scene)
@@ -305,9 +304,10 @@ def radiance(scene: Scene, settings: RenderSettings, o, d, time,
     )
 
     # a ring's ranks stop together (ops/ring_trace.py)
-    mesh = getattr(tracer, 'mesh', None)
+    any_live = tracer.any_live if isinstance(tracer, ring.RingTracer) \
+        else lambda flag: bool(flag.any())
     for step_idx in range(settings.max_wavefront_steps):
-        if not distributed.any_true(state['alive'], mesh):
+        if not any_live(state['alive']):
             break
         state = _step(scene, settings, tracer, state, step_idx, base_key,
                       segment)

@@ -164,7 +164,7 @@ def test_ring_matches_replicated(name, D, tmp_path):
 def test_ring_needs_a_single_level_table():
     sp, _, st = cpu(registry.instanced_teapots_standin, 8, 8)
     with pytest.raises(ValueError, match='single-level'):
-        ring.RingTracer(sp, mesh=object())
+        ring.RingTracer(sp)
 
 
 def test_no_deadlock_when_ranks_part(tmp_path):
