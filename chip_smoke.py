@@ -152,13 +152,44 @@ through `parallel/sharding.loss_and_grads_scanned`, Adam steps through
      the rays/s against one rank (with one card the phase says it did not
      run them);
  28. graft_entry.dryrun_multichip(2) on the card: two train_step(mesh)
-     steps and one loss_and_grads(mesh), finite.
+     steps and one loss_and_grads(mesh), finite;
+ 29. the registry's asset scenes: the stand-in asset tree
+     (scenes/assets.write_tree: 60 OBJ, TGA and HDR files in the
+     reference checkout's layout) written to a temporary directory that
+     RT_ASSETS names; every asset scene built on the card at its defaults
+     (cornell_pt, cornell_spheres, teapot_blinn, dome_teapot, mb_bullet,
+     instanced_teapots, the 100,000-instance instanced_grid, sponza_proxy,
+     alpha_leaf, dispersion, final_forest, and the branches
+     sponza_proxy(hd=True) and dome_teapot(ground='stone')), with its
+     triangles, instances and build seconds;
+ 30. the main path of the asset scenes: bench.py's scene,
+     `sponza_proxy(hd=True)` from the tree (its triangles beside
+     `sponza_standin`'s 174,724), at 1080p, 10 bounces, 1 spp: the
+     forward frame as in phase 5, then bench.py's fwd+bwd step
+     (loss_and_grads_scanned, all six leaves, zero target, median of 3
+     after a warm-up, peak memory), each carried by the cluster kernel
+     alone (launches > 0, plain calls 0); the loss and every grad finite;
+     then one profiled frame and one profiled step (torch.profiler: wall,
+     device kernel time, busy share, trace kernels' time);
+ 31. the two-level asset scenes from the tree: the flagship,
+     `final_forest` at its defaults, its 1080p frame (the hierarchical
+     instance kernel on every instance, since its tree prototypes are
+     deep and its four near trees stand whatever n_trees is, and the
+     cluster kernel's `mb` modes on the motion-blurred partition: launches
+     by kernel and mode, the alpha march's passes and syncs, the wall,
+     peak memory) and a profiled frame; `final_forest(flatten=True,
+     n_trees=20)` (single level: the cluster kernel alone); then
+     `instanced_grid` at its defaults (100,000 teapots) at 1920x1080: the
+     segment kernel alone;
+ 32. CPU/GPU parity under phase 6's rule, at 64x48 and 3 bounces, of
+     `cornell_pt`, `alpha_leaf`, `dispersion` and `final_forest(n_trees=3)`
+     from the tree.
 
-Each path (phases 5, 7, 9, 10, 13, 14, 16-18, 20, 22's frame and the
-motion-blurred prototype's trace) is driven with every launch and
-plain-version count set to 0 just before and read just after; in phases
-25-28 each rank does so around each of its tasks, and every rank must
-have launched the cluster kernel and called no plain version.
+Each path (phases 5, 7, 9, 10, 13, 14, 16-18, 20, 22's frame, the
+motion-blurred prototype's trace, 30 and 31) is driven with every launch
+and plain-version count set to 0 just before and read just after; in
+phases 25-28 each rank does so around each of its tasks, and every rank
+must have launched the cluster kernel and called no plain version.
 Any failure
 raises. The last two lines are the kernels' JSON record (one entry per
 kernel and mode group, with the least time its work could take on the
@@ -199,7 +230,7 @@ from raytracer_tpu_torch.parallel import sharding as ts, worker
 from raytracer_tpu_torch.render import camera as cam_mod
 from raytracer_tpu_torch.render import integrator
 from raytracer_tpu_torch.render.renderer import render_pixels
-from raytracer_tpu_torch.scenes import registry
+from raytracer_tpu_torch.scenes import assets, registry
 from raytracer_tpu_torch.shading import procedural
 from raytracer_tpu_torch.utils import profiling
 
@@ -689,10 +720,11 @@ def forest_cell(dev, key, records, n_trees: int) -> None:
     del scene
 
 
-def check_parity(scene, cam, st, key, kernel, dev, tag) -> None:
+def check_parity(scene, cam, st, key, kernel, dev, tag, hold=True) -> None:
     """The same key rendered on the CPU (plain version) and on the card
     (kernel): >= 99% of pixels within 1e-4 + 1e-3 |x|, mean relative
-    difference < 1e-3."""
+    difference < 1e-3 (with hold=False the figures are printed, not
+    held)."""
     img_cpu = rt.render(scene, cam, st, key).numpy()
     launches0 = kernel.LAUNCHES
     img_gpu = rt.render(scene.to(dev), cam.to(dev), st, key).cpu()
@@ -702,8 +734,9 @@ def check_parity(scene, cam, st, key, kernel, dev, tag) -> None:
     diff = np.abs(img_gpu - img_cpu)
     within = float((diff <= 1e-4 + 1e-3 * np.abs(img_cpu)).all(-1).mean())
     rel = float(diff.mean() / np.abs(img_cpu).mean())
-    phase(tag, pixels_within=within, mean_rel_diff=rel)
-    assert within >= 0.99 and rel < 1e-3, f'{tag}: CPU and GPU disagree'
+    phase(tag, pixels_within=within, mean_rel_diff=rel, held=hold)
+    assert not hold or (within >= 0.99 and rel < 1e-3), \
+        f'{tag}: CPU and GPU disagree'
 
 
 def triangle_soup(dev, T=4133, n_dup=64):
@@ -1437,25 +1470,6 @@ def bvh_cell(dev, key, records, frame_auto) -> None:
     return scene, cam, st
 
 
-def write_obj(path: str, mesh) -> None:
-    """A mesh as an OBJ file: every vertex, normal and texture coordinate
-    at 9 significant digits (a float32 reads back exactly), and each
-    triangle's v/t/n or v//n corners."""
-    rows = ['v %.9g %.9g %.9g' % tuple(p) for p in mesh.vertices.tolist()]
-    rows += ['vn %.9g %.9g %.9g' % tuple(n) for n in mesh.normals.tolist()]
-    fv, fn = mesh.face_v + 1, mesh.face_n + 1
-    if mesh.texcoords is not None:
-        rows += ['vt %.9g %.9g' % tuple(t) for t in mesh.texcoords.tolist()]
-        ft = mesh.face_t + 1
-        rows += ['f ' + ' '.join(f'{v}/{t}/{n}' for v, t, n in zip(*c))
-                 for c in zip(fv.tolist(), ft.tolist(), fn.tolist())]
-    else:
-        rows += ['f ' + ' '.join(f'{v}//{n}' for v, n in zip(*c))
-                 for c in zip(fv.tolist(), fn.tolist())]
-    with open(path, 'w') as f:
-        f.write('\n'.join(rows) + '\n')
-
-
 class ObjBuilder(rt.SceneBuilder):
     """A SceneBuilder that writes each mesh it is given to an OBJ file,
     reads it back with load_obj and adds what it read (the t = 1 pose of a
@@ -1470,7 +1484,7 @@ class ObjBuilder(rt.SceneBuilder):
     def _round_trip(self, mesh):
         path = os.path.join(self.folder, f'mesh{self.files}.obj')
         self.files += 1
-        write_obj(path, mesh)
+        assets.write_obj(path, mesh)
         t0 = time.perf_counter()
         out = objload.load_obj(path)
         self.load_s += time.perf_counter() - t0
@@ -1790,6 +1804,183 @@ def dryrun_cell() -> None:
                and s['train']['plain_calls'] == 0 for s in stats)
 
 
+# the asset phases (29-32): every registry asset scene at its defaults,
+# with the branches sponza_proxy(hd=True) (bench.py's scene) and the
+# baked stone ground; the flagship flattened; the parity scenes
+ASSET_SCENES = ('cornell_pt', 'cornell_spheres', 'teapot_blinn',
+                'dome_teapot', 'mb_bullet', 'instanced_teapots',
+                'instanced_grid', 'sponza_proxy', 'alpha_leaf', 'dispersion',
+                'final_forest')
+ASSET_BUILDS = tuple((name, {}) for name in ASSET_SCENES) + (
+    ('sponza_proxy', dict(hd=True)), ('dome_teapot', dict(ground='stone')))
+STANDIN_TRIANGLES = 174_724          # sponza_standin's (phase 3)
+FLAT_TREES = 20
+ASSET_PARITY = (('cornell_pt', {}, ck), ('alpha_leaf', {}, ck),
+                ('dispersion', {}, ck), ('final_forest', dict(n_trees=3), ick))
+# held with the wavefront sort off: in the closed Cornell room every path
+# lives all 3 bounces, and with the sort on one ulp-level difference hands
+# the rest of its sorted wavefront other random numbers (on the CPU, the
+# eye moved by one ulp leaves 87.5% of pixels within the rule with the
+# sort, 100% without); the sorted figures are printed, not held
+UNSORTED_PARITY = ('cornell_pt',)
+
+
+# the __global__ functions of csrc/*.cu
+TRACE_KERNELS = ('cluster_trace_kernel', 'iseg_trace_kernel',
+                 'icluster_trace_kernel', 'mt_prep_kernel', 'mt_sweep_kernel',
+                 'mt_resolve_kernel', 'bvh_kernel')
+
+
+def busy(fn) -> dict:
+    """One run of fn() unprofiled, then one profiled (torch.profiler, CPU
+    and CUDA): both walls, the device kernels' time, the device busy share
+    (kernel time over each wall) and the trace kernels' time."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_us = trace_us = 0.0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            dev_us += e.device_time_total
+            if any(k in e.name for k in TRACE_KERNELS):
+                trace_us += e.device_time_total
+    return dict(wall_s=plain_wall, profiled_wall_s=wall,
+                device_kernel_s=dev_us / 1e6,
+                busy_share=dev_us / 1e6 / plain_wall,
+                busy_share_profiled=dev_us / 1e6 / wall,
+                trace_kernel_s=trace_us / 1e6)
+
+
+def asset_build_cell(dev, tree: str) -> dict:
+    """Phase 29: the stand-in asset tree written to `tree` and named by
+    RT_ASSETS; every asset scene built on the card at its defaults ->
+    {(name, branch): (scene, camera, settings)} of the scenes that later
+    phases drive."""
+    t0 = time.perf_counter()
+    written = assets.write_tree(tree)
+    os.environ['RT_ASSETS'] = tree
+    phase('asset_tree', files=len(written), write_s=time.perf_counter() - t0)
+    keep = {}
+    for name, kw in ASSET_BUILDS:
+        t0 = time.perf_counter()
+        scene, cam, st = registry.make(name, device=dev, **kw)
+        torch.cuda.synchronize()
+        icl = scene.iclusters
+        phase('asset_scene', scene=name, **kw, build_s=time.perf_counter()
+              - t0, triangles=scene.num_tris,
+              instances=0 if icl is None else icl.num_instances,
+              single_level=scene.single_level, bvh=scene.blas is not None,
+              width=st.width, height=st.height)
+        assert scene.geom.vertices.device == torch.device(dev)
+        if (name, kw.get('hd')) in (('sponza_proxy', True),
+                                    ('final_forest', None),
+                                    ('instanced_grid', None)):
+            keep[name] = (scene, cam, st)
+        del scene
+    return keep
+
+
+def sponza_proxy_cell(scene, cam, st, key) -> None:
+    """Phase 30, the main path: bench.py's scene, `sponza_proxy(hd=True)`
+    from the stand-in tree, at 1080p, 10 bounces, 1 spp: the forward
+    frame and bench.py's fwd+bwd step (loss_and_grads_scanned, all six
+    leaves, zero target, median of 3 after a warm-up), each carried by
+    the cluster kernel alone; then one profiled frame and step."""
+    assert (st.width, st.height, st.max_bounces) == (WIDTH, HEIGHT, BOUNCES)
+    fields = dict(triangles=scene.num_tris,
+                  standin_triangles=STANDIN_TRIANGLES,
+                  clusters=scene.clusters.num_clusters)
+    render_cell(scene, cam, st, key, ck, 'render_1080p_sponza_proxy_hd',
+                **fields)
+    reset_counts()
+    res = bench.run(WIDTH, HEIGHT, BOUNCES, tile=bench.TRAIN_TILE, iters=3,
+                    built=(scene, cam, st))
+    launches = check_only(ck, 'train_1080p_sponza_proxy_hd')
+    grads = res.pop('_grads')
+    loss = float(res.pop('_loss'))
+    assert np.isfinite(loss), 'non-finite loss'
+    check_grads(grads, 'train_1080p_sponza_proxy_hd')
+    target = torch.zeros((HEIGHT, WIDTH, 3), device=scene.geom.vertices.device)
+    phase('train_1080p_sponza_proxy_hd', launches=launches,
+          launches_by_mode=dict(ck.MODES), loss=loss,
+          primary_rays_per_s=res['value'], wall_median_s=res['wall_median_s'],
+          wall_spread_s=res['wall_spread_s'], warmup_s=res['warmup_s'],
+          peak_mem_gb=res['peak_mem_gb'], ray_tile=res['ray_tile'], **fields)
+    del grads
+    phase('profile_sponza_proxy_hd',
+          frame=busy(lambda: rt.render(scene, cam, st, key)),
+          step=busy(lambda: ts.loss_and_grads_scanned(
+              ts.get_params(scene), scene, cam, st, target, key,
+              tile=bench.TRAIN_TILE)))
+
+
+def flagship_cell(dev, scene, cam, st, key) -> None:
+    """Phase 31: `final_forest` from the stand-in tree at its defaults,
+    the 1080p frame (the hierarchical instance kernel on every instance:
+    its tree prototypes are deep, and the four near trees stand whatever
+    n_trees is; the cluster kernel on the motion-blurred partition; the
+    alpha march), with launches by kernel and mode, the march's passes
+    and syncs, and a profiled frame; then flattened with FLAT_TREES trees
+    (single level: the cluster kernel alone)."""
+    icl = scene.iclusters
+    fields = dict(instances=icl.num_instances, triangles=scene.num_tris,
+                  prototype_clusters=icl.max_proto_clusters,
+                  mb_clusters=scene.mb_clusters.num_clusters)
+    assert icl.max_proto_clusters > 16
+    render_cell(scene, cam, st, key, ick, 'render_1080p_final_forest',
+                also=(ck,), **fields)
+    phase('profile_final_forest',
+          frame=busy(lambda: rt.render(scene, cam, st, key)))
+    t0 = time.perf_counter()
+    scene, cam, st = registry.final_forest(flatten=True, n_trees=FLAT_TREES,
+                                           device=dev)
+    torch.cuda.synchronize()
+    assert scene.single_level
+    render_cell(scene, cam, st, key, ck, 'render_1080p_final_forest_flat',
+                build_s=time.perf_counter() - t0, triangles=scene.num_tris,
+                n_trees=FLAT_TREES)
+
+
+def grid_cell(scene, cam, st, key) -> None:
+    """Phase 31: `instanced_grid` from the stand-in tree at its defaults
+    (100,000 teapots, one shallow prototype), its frame at 1920x1080: the
+    segment kernel alone."""
+    st = dataclasses.replace(st, width=WIDTH, height=HEIGHT,
+                             ray_tile=registry.frame_tile(WIDTH, HEIGHT,
+                                                          'cuda'))
+    icl = scene.iclusters
+    assert icl.max_proto_clusters <= 16
+    render_cell(scene, cam, st, key, isk, 'render_1080p_instanced_grid',
+                instances=icl.num_instances, segments=icl.num_entries,
+                triangles=scene.num_tris)
+
+
+def asset_parity_cell(key, dev) -> None:
+    """Phase 32: the asset scenes' CPU/GPU parity under phase 6's rule,
+    at 64x48 and 3 bounces."""
+    for name, kw, kernel in ASSET_PARITY:
+        size = (dict(width=PARITY['width'], height=PARITY['height'])
+                if name == 'final_forest' else dict(size=PARITY['width']))
+        scene, cam, st = registry.make(name, max_bounces=PARITY['max_bounces'],
+                                       device='cpu', **size, **kw)
+        st = dataclasses.replace(st, height=PARITY['height'])
+        tag = f'cpu_gpu_parity_asset_{name}'
+        if name in UNSORTED_PARITY:
+            check_parity(scene, cam, st, key, kernel, dev, tag + '_sorted',
+                         hold=False)
+            st = dataclasses.replace(st, sort_rays=False)
+        check_parity(scene, cam, st, key, kernel, dev, tag)
+
+
 def check_image(img, shape) -> None:
     assert tuple(img.shape) == shape, img.shape
     assert bool(torch.isfinite(img).all()), 'non-finite pixels'
@@ -1965,6 +2156,14 @@ def main(dev=None) -> int:
     ring_cell(dev, key, ref)
     nccl_cell(ref)
     dryrun_cell()
+
+    # ------ 29-32. the asset scenes, from the stand-in tree written to disk
+    with tempfile.TemporaryDirectory() as tree:
+        built = asset_build_cell(dev, tree)
+        sponza_proxy_cell(*built.pop('sponza_proxy'), key)
+        flagship_cell(dev, *built.pop('final_forest'), key)
+        grid_cell(*built.pop('instanced_grid'), key)
+        asset_parity_cell(key, dev)
 
     print(json.dumps({'kernels': [
         {k: r[k] for k in ('name', 'route', 'source', 'replaces', 'launches',

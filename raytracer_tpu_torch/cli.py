@@ -69,10 +69,9 @@ def _start_preview_server(port: int, out_path: str):
 def main(argv=None):
     p = argparse.ArgumentParser(description='raytracer_tpu_torch renderer')
     p.add_argument('--scene', default='triangle_sphere',
-                   help='a registry scene (--list-scenes); the JAX '
-                        "package's default, cornell_pt, reads asset files "
-                        'that this package does not port yet (ROADMAP '
-                        'queue 1 #10)')
+                   help='a registry scene (--list-scenes); the asset '
+                        "scenes (the JAX package's default, cornell_pt, "
+                        'among them) read the tree that RT_ASSETS names')
     p.add_argument('--list-scenes', action='store_true')
     p.add_argument('--size', type=int, default=None, help='square image size')
     p.add_argument('--width', type=int, default=None)

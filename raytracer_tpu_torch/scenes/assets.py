@@ -1,15 +1,30 @@
-"""Procedural stand-ins for the model and image files that the JAX
-registry's textured, motion-blurred and alpha-mapped scenes read, and that
-the repository does not ship: meshes as MeshData and images as float32
-(H, W, C) arrays, top row first, each made with numpy from a fixed seed.
-Nothing here reads a file.
+"""Procedural stand-ins for the model and image files that the registry's
+asset scenes read, and that the repository does not ship: meshes as
+MeshData and images as float32 (H, W, C) arrays, top row first, each made
+with numpy from a fixed seed. Nothing here reads a file.
+
+`write_tree(root)` writes every one of those files under the reference
+checkout's layout (Models/, Models/CornellBox/, Models/Final/, Textures/,
+Images/): OBJ text, uncompressed TGA (type 2; 32-bit where a scene uses the
+image as an alpha map) and flat Radiance RGBE, so that the asset scenes
+build and render from it when RT_ASSETS names it. It is a test and smoke
+tool: what it writes looks nothing like the reference's models.
 """
 from __future__ import annotations
+
+import os
+import struct
 
 import numpy as np
 
 from ..geometry import shapes
 from ..io.objload import MeshData
+
+# rows of the procedural dome skies: odd, so that no dome sample direction
+# (taken at row floor(v) of the table, theta = row pi / rows) is exactly
+# horizontal; such a sample grazes a ground plane at y = 0, and whether its
+# shadow ray hits the ground then rests on the last bit of the hit point
+DOME_ROWS = 127
 
 
 def _grid(h: int, w: int):
@@ -216,3 +231,245 @@ def grass_clump(n_blades: int, seed: int) -> MeshData:
                     normals=np.asarray(norms, np.float32),
                     texcoords=np.asarray(uvs, np.float32), face_v=fv,
                     face_n=fv.copy(), face_t=fv.copy())
+
+
+def petal_ring(y: float, r: float, n: int, size: float) -> MeshData:
+    """n petal cards in a ring of radius r / 2 at height y, tilted up and
+    out."""
+    ang = np.arange(n) * 2 * np.pi / n
+    ring = np.stack([np.cos(ang), np.zeros(n), np.sin(ang)], -1)
+    return cards((0.0, y, 0.0) + ring * r * 0.5,
+                 ring + np.asarray([0.0, 1.5, 0.0]), ring, 0.6 * size, size)
+
+
+def _wall(origin, eu, ev, with_uv: bool = False) -> MeshData:
+    """The quad origin, + eu, + eu + ev, + ev, facing eu x ev."""
+    o, eu, ev = (np.asarray(x, np.float32) for x in (origin, eu, ev))
+    return shapes.quad(o, o + eu, o + eu + ev, o + ev, with_uv=with_uv)
+
+
+def merged(meshes) -> MeshData:
+    """One mesh of several (all with texture coordinates, or none)."""
+    meshes = list(meshes)
+    uv = meshes[0].texcoords is not None
+    off = lambda key: np.cumsum([0] + [len(getattr(m, key))
+                                       for m in meshes[:-1]])
+    ov, on = off('vertices'), off('normals')
+    ot = off('texcoords') if uv else None
+    cat = lambda key, o: np.concatenate(
+        [getattr(m, key) + o[i] for i, m in enumerate(meshes)]).astype(
+            np.int32)
+    return MeshData(
+        vertices=np.concatenate([m.vertices for m in meshes]).astype(
+            np.float32),
+        normals=np.concatenate([m.normals for m in meshes]).astype(
+            np.float32),
+        texcoords=np.concatenate([m.texcoords for m in meshes]).astype(
+            np.float32) if uv else None,
+        face_v=cat('face_v', ov), face_n=cat('face_n', on),
+        face_t=cat('face_t', ot) if uv else None)
+
+
+# the Cornell boxes' room: x in [0, W], z in [-D, 0], the ceiling at H,
+# above the scenes' rect light (at y = 5.5, x and z in 2.5-3 and -3 to
+# -2.5); the emitter quad sits LIGHT_DROP below the light, closer than the
+# shadow rays' stand-off, under the light's own extent
+CORNELL_W, CORNELL_D, CORNELL_H = 5.5, 5.5, 5.6
+LIGHT_Y, LIGHT_DROP = 5.5, 1e-5
+
+
+def _cornell_room(blocks: bool) -> dict:
+    """The Cornell room as its four files' meshes: 'light' (the emitter
+    quad, facing down), 'white' (floor, ceiling, back wall, and with
+    `blocks` a short and a tall block), 'red' (left wall), 'green' (right
+    wall), every wall facing in."""
+    W, D, H = CORNELL_W, CORNELL_D, CORNELL_H
+    white = [_wall((0, 0, 0), (W, 0, 0), (0, 0, -D)),           # floor
+             _wall((0, H, 0), (0, 0, -D), (W, 0, 0)),           # ceiling
+             _wall((0, 0, -D), (W, 0, 0), (0, H, 0))]           # back
+    if blocks:
+        white += [shapes.box((3.2, 0, -2.2), (4.6, 1.6, -0.8)),
+                  shapes.box((0.9, 0, -4.4), (2.3, 3.3, -3.0))]
+    y = LIGHT_Y - LIGHT_DROP
+    return dict(light=_wall((2.5, y, -2.5), (0, 0, -0.5), (0.5, 0, 0)),
+                white=merged(white),
+                red=_wall((0, 0, 0), (0, 0, -D), (0, H, 0)),
+                green=_wall((W, 0, 0), (0, H, 0), (0, 0, -D)))
+
+
+def write_obj(path: str, mesh: MeshData) -> None:
+    """A mesh as an OBJ file: every vertex, normal and texture coordinate
+    at 9 significant digits (a float32 reads back exactly), and each
+    triangle's v/t/n or v//n corners."""
+    rows = ['v %.9g %.9g %.9g' % tuple(p) for p in mesh.vertices.tolist()]
+    rows += ['vn %.9g %.9g %.9g' % tuple(n) for n in mesh.normals.tolist()]
+    fv, fn = mesh.face_v + 1, mesh.face_n + 1
+    if mesh.texcoords is not None:
+        rows += ['vt %.9g %.9g' % tuple(t) for t in mesh.texcoords.tolist()]
+        ft = mesh.face_t + 1
+        rows += ['f ' + ' '.join(f'{v}/{t}/{n}' for v, t, n in zip(*c))
+                 for c in zip(fv.tolist(), ft.tolist(), fn.tolist())]
+    else:
+        rows += ['f ' + ' '.join(f'{v}//{n}' for v, n in zip(*c))
+                 for c in zip(fv.tolist(), fn.tolist())]
+    with open(path, 'w') as f:
+        f.write('\n'.join(rows) + '\n')
+
+
+def _write_tga(path: str, img: np.ndarray) -> None:
+    """(H, W, 3 or 4) linear floats, top row first, as an uncompressed
+    true-colour TGA (type 2), bottom row first in the file as the
+    reference's textures are: colour gamma-encoded (io/imageio's LUT
+    inverted, to the nearest byte), alpha linear, channels BGR(A)."""
+    h, w, c = img.shape
+    x = np.clip(img, 0.0, 1.0)
+    x = np.concatenate([x[..., :3] ** (1 / 2.2), x[..., 3:]], -1)
+    px = np.floor(x * 255.0 + 0.5).astype(np.uint8)
+    px = px[::-1][..., [2, 1, 0] + ([3] if c == 4 else [])]
+    header = struct.pack('<BBBHHBHHHHBB', 0, 0, 2, 0, 0, 0, 0, 0, w, h,
+                         8 * c, 8 if c == 4 else 0)
+    with open(path, 'wb') as f:
+        f.write(header + np.ascontiguousarray(px).tobytes())
+
+
+def _write_hdr(path: str, img: np.ndarray) -> None:
+    """(H, W, 3) floats, top row first, as a flat (unencoded) Radiance RGBE
+    file. The largest channel's mantissa byte is at least 128, so no pixel
+    reads as a run-length marker."""
+    h, w, _ = img.shape
+    rgb = np.maximum(np.asarray(img, np.float64), 0.0)
+    top = rgb.max(-1)
+    m, e = np.frexp(top)
+    live = top > 1e-32
+    scale = np.where(live, 256.0 / np.ldexp(1.0, e), 0.0)
+    px = np.zeros((h, w, 4), np.uint8)
+    px[..., :3] = np.minimum(rgb * scale[..., None], 255.0).astype(np.uint8)
+    px[..., 3] = np.where(live, e + 128, 0).astype(np.uint8)
+    with open(path, 'wb') as f:
+        f.write(b'#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n')
+        f.write(b'-Y %d +X %d\n' % (h, w))
+        f.write(px.tobytes())
+
+
+# the procedural trunks' heights in the JAX registry's final_forest (its
+# _procedural_trunk defaults and its second tree), which size the canopies
+# of the stand-in leaf files; leaf cards per canopy
+FOREST_TRUNKS = (1.2, 1.5)
+LEAF_CARDS = 1500
+
+
+def _canopy(h: float, seed: int) -> MeshData:
+    return random_cards(LEAF_CARDS, (0.0, 0.85 * h, 0.0),
+                        (0.45 * h, 0.3 * h, 0.45 * h), 0.08 * h, seed=seed,
+                        droop=0.5)
+
+
+def _models() -> dict:
+    """Models/: relative path -> the stand-in mesh."""
+    out = {}
+    for name, mesh in _cornell_room(blocks=True).items():
+        out[f'cornell_box-{name}.obj'] = mesh
+    for name, mesh in _cornell_room(blocks=False).items():
+        out[f'CornellBox/Box_{name}.obj'] = mesh
+    out['CornellBox/Sphere_Glass.obj'] = shapes.uv_sphere((1.7, 1.0, -3.4),
+                                                          1.0, 16, 32)
+    out['CornellBox/Sphere_Metal.obj'] = shapes.uv_sphere((3.9, 1.0, -1.9),
+                                                          1.0, 16, 32)
+    # the teapot: a 576-triangle sphere resting on y = 0 (as sponza_standin's
+    # clutter), with texture coordinates for sponza_proxy's tangents
+    out['teapot.obj'] = shapes.uv_sphere((0.0, 1.0, 0.0), 1.0, 13, 24)
+    out['bulletMB_01.obj'], out['bulletMB_02.obj'] = shattered_sphere(
+        (0.0, 0.0, 0.0), 1.0, 8, 16, 0.6, 11)
+    y = 10.0 - LIGHT_DROP             # under sponza_proxy's rect light
+    out['sponza-light.obj'] = _wall((-8, y, -2), (0, 0, 4), (16, 0, 0))
+    out['leaf_test.obj'] = _wall((-1, -1, 0), (2, 0, 0), (0, 2, 0),
+                                 with_uv=True)
+    out['sphere2.obj'] = shapes.uv_sphere((0.0, 2.0, 0.0), 1.0, 24, 48)
+    out['testGrass.obj'] = grass_clump(12, seed=72)
+    F = 'Final/'
+    out[F + 'groundPlane.obj'] = ground_grid(1000.0, 20, 20.0)
+    out[F + 'explosion01.obj'], out[F + 'explosion02.obj'] = \
+        shattered_sphere((0.35, 0.45, 0.4), 0.12, 8, 12, 0.1, 22)
+    ball = shapes.uv_sphere((0.05, 0.4, 0.7), 0.05, 10, 16)
+    out[F + 'cannonBallT1.obj'] = ball
+    out[F + 'cannonBallT2.obj'] = translated(ball, (0.25, 0.0, 0.0))
+    for k, (name, h) in enumerate(zip(('tree02', 'tree03'),
+                                      FOREST_TRUNKS)):
+        out[F + f'{name}Leaves.obj'] = _canopy(h, 40 + k)
+    out[F + 'flower02Body.obj'] = shapes.cylinder((0, 0, 0), 0.008, 0.35,
+                                                  n_seg=6)
+    out[F + 'flower02Bulb.obj'] = shapes.uv_sphere((0, 0.37, 0), 0.025, 6,
+                                                   10)
+    out[F + 'flower02Leaves.obj'] = random_cards(
+        6, (0, 0.12, 0), (0.06, 0.08, 0.06), 0.08, seed=62)
+    out[F + 'flower02Petals.obj'] = petal_ring(0.37, 0.05, 8, 0.06)
+    out[F + 'flower01BigLeaves.obj'] = random_cards(
+        8, (0, 0.08, 0), (0.1, 0.06, 0.1), 0.12, seed=64, droop=1.0)
+    out[F + 'flower01Body.obj'] = shapes.cylinder((0, 0, 0), 0.006, 0.3,
+                                                  n_seg=6)
+    for k, c in enumerate(((0.0, 0.31, 0.0), (0.03, 0.27, 0.01),
+                           (-0.02, 0.25, -0.02))):
+        out[F + f'flower01Bulbs0{k + 1}.obj'] = shapes.uv_sphere(c, 0.015,
+                                                                5, 8)
+    out[F + 'flower01Petals.obj'] = petal_ring(0.31, 0.04, 10, 0.05)
+    out[F + 'flower01Pistils.obj'] = shapes.cylinder((0, 0.3, 0), 0.002,
+                                                     0.03, n_seg=4)
+    out[F + 'flower01SmallLeaves.obj'] = random_cards(
+        10, (0, 0.18, 0), (0.05, 0.05, 0.05), 0.05, seed=66)
+    return {'Models/' + k: v for k, v in out.items()}
+
+
+def _images() -> dict:
+    """Textures/ and Images/: relative path -> the stand-in image (RGBA
+    where a scene uses it as an alpha map)."""
+    sky = sky_hdr(DOME_ROWS, 256)
+    T = 'Textures/'
+    return {
+        T + 'sky.hdr': sky,
+        'Images/sky.hdr': sky,
+        'Images/Topanga_Forest_B_light.hdr': sky_hdr(64, 128,
+                                                     sun_power=40.0),
+        T + 'hdrvfx_nyany_1_n2_v101_Ref.hdr': sky_hdr(
+            128, 256, sun_u=0.7, sun_el=20.0, sun_power=60.0,
+            zenith=(0.3, 0.35, 0.6)),
+        T + 'grass-color-01.tga': solid_texture((0.2, 0.45, 0.1), 64,
+                                                grain=0.4, seed=5),
+        T + 'Tree_03_Leaves.tga': leaf_texture(128, seed=3),
+        T + 'ground-dirt-texture.tga': solid_texture((0.35, 0.25, 0.15), 128,
+                                                     grain=0.5, seed=21),
+        T + 'bw2.tga': checker_texture(),
+        T + 'AL04brk.tga': solid_texture((0.3, 0.22, 0.15), 64, seed=31),
+        T + 'AL04aut.tga': leaf_texture(128, (0.6, 0.3, 0.08), seed=32),
+        T + 'AL17brk.tga': solid_texture((0.25, 0.2, 0.16), 64, seed=33),
+        T + 'AL17aut.tga': leaf_texture(128, (0.55, 0.45, 0.1), seed=34),
+        T + 'bud-yellow-1.tga': solid_texture((0.9, 0.8, 0.2), seed=51),
+        # a tangent-space normal map, stored as 0.5 + 0.5 n as such files are
+        T + 'bud-yellow-1-bump_NRM.tga': 0.5 + 0.5 * normal_map(seed=52),
+        T + 'grass-color-23.tga': solid_texture((0.2, 0.5, 0.15), seed=53),
+        T + 'grass-color-18.tga': solid_texture((0.25, 0.55, 0.2), seed=54),
+        T + 'petal-pink-02.tga': solid_texture((0.95, 0.5, 0.6), seed=55),
+        T + 'FL30lef1.tga': leaf_texture(64, (0.2, 0.5, 0.15), seed=56),
+        T + 'FL30stm1.tga': solid_texture((0.3, 0.5, 0.2), seed=57),
+        T + 'FL30flo1.tga': solid_texture((0.8, 0.3, 0.5), seed=58),
+        T + 'FL30pet1.tga': solid_texture((0.9, 0.6, 0.8), seed=59),
+        T + 'FL30stm2.tga': solid_texture((0.9, 0.85, 0.4), seed=60),
+        T + 'FL30lef2.tga': leaf_texture(64, (0.25, 0.55, 0.2), seed=61),
+        T + 'grassblade2.tga': solid_texture((0.3, 0.6, 0.15), 16, grain=0.3,
+                                             seed=71)}
+
+
+def write_tree(root: str) -> list[str]:
+    """Write every file that the registry's asset scenes read under `root`,
+    in the reference checkout's layout -> their paths relative to root."""
+    written = []
+    for rel, data in [*_models().items(), *_images().items()]:
+        path = os.path.join(root, *rel.split('/'))
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        if rel.endswith('.obj'):
+            write_obj(path, data)
+        elif rel.endswith('.tga'):
+            _write_tga(path, data)
+        else:
+            _write_hdr(path, data)
+        written.append(rel)
+    return written

@@ -1,17 +1,34 @@
-"""Named scene fixtures that need no asset files.
+"""Named scene fixtures.
 
 Each builder returns (Scene, Camera, RenderSettings), as in
-raytracer_tpu/scenes/registry.py. `builder=` takes any object with the
-SceneBuilder interface, so a test can pass `raytracer_tpu.SceneBuilder()`
-and have the JAX package build the very same scene (instanced scenes then
-take `bvh=True`, which the JAX builder needs). Every builder takes `bvh=`
-(default False, but for `mb_prototype_standin`, which only the BVH
-traces): True adds the merged BVH that intersector='bvh' traces.
-`device=` (default: the card) is where the scene and camera land; a
-foreign builder's scene comes back as that builder made it. The settings'
-ray tile is `frame_tile`'s for the device unless one is given.
+raytracer_tpu/scenes/registry.py. Two kinds:
+
+* the JAX registry's asset scenes under its names (`cornell_pt`,
+  `sponza_proxy`, `final_forest`, ...), line for line: the same
+  parameters and defaults, seeds, draw order, cameras and settings. They
+  read the reference checkout's Models/, Textures/ and Images/ under the
+  tree that RT_ASSETS names (default ~/reference). One difference: the
+  JAX registry reads RT_ASSETS when it is imported, this one when a scene
+  is built (`asset_root`). A missing file raises FileNotFoundError
+  (`asset_path`); no builder puts a stand-in in its place.
+  `scenes/assets.write_tree` writes a stand-in tree of every file they
+  read;
+* `*_standin` fixtures and `triangle_sphere`, which need no asset files.
+
+`builder=` takes any object with the SceneBuilder interface, so a test
+can pass `raytracer_tpu.SceneBuilder()` and have the JAX package build the
+very same scene (instanced scenes then take `bvh=True`, which the JAX
+builder needs). Every builder takes `bvh=` (default False for the
+stand-ins, but for `mb_prototype_standin`, which only the BVH traces; the
+asset scenes keep the JAX registry's defaults): True adds the merged BVH
+that intersector='bvh' traces. `device=` (default: the card) is where the
+scene and camera land; a foreign builder's scene comes back as that
+builder made it. The settings' ray tile is `frame_tile`'s for the device
+unless one is given.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -20,7 +37,8 @@ from ..core import transforms as tf
 from ..core.types import CUDA, Camera, RenderSettings, device_of
 from ..geometry.build import SceneBuilder
 from ..geometry import shapes
-from ..io.objload import MeshData, make_single_triangle
+from ..io.objload import (MeshData, compute_tangents, load_obj,
+                          make_single_triangle, transform_mesh)
 from . import assets
 
 _REGISTRY = {}
@@ -272,16 +290,7 @@ def procedural_trunk(height=1.2, radius=0.05) -> MeshData:
         parts.append(shapes.cylinder((0.0, h0, 0.0), r, h, n_seg=8))
         h0 += h
         r *= 0.65
-    verts = np.concatenate([p.vertices for p in parts])
-    norms = np.concatenate([p.normals for p in parts])
-    nv = np.cumsum([0] + [len(p.vertices) for p in parts[:-1]])
-    nn = np.cumsum([0] + [len(p.normals) for p in parts[:-1]])
-    fv = np.concatenate([p.face_v + nv[i] for i, p in enumerate(parts)])
-    fn = np.concatenate([p.face_n + nn[i] for i, p in enumerate(parts)])
-    return MeshData(vertices=verts.astype(np.float32),
-                    normals=norms.astype(np.float32), texcoords=None,
-                    face_v=fv.astype(np.int32), face_n=fn.astype(np.int32),
-                    face_t=None)
+    return assets.merged(parts)
 
 
 @register('forest_standin')
@@ -423,11 +432,8 @@ def alpha_leaf_standin(size=256, max_bounces=5, builder=None, bvh=False,
     return scene, _on(cam, device), settings
 
 
-# rows of the procedural dome skies: odd, so that no dome sample direction
-# (taken at row floor(v) of the table, theta = row pi / rows) is exactly
-# horizontal; such a sample grazes a ground plane at y = 0, and whether its
-# shadow ray hits the ground then rests on the last bit of the hit point
-DOME_ROWS = 127
+# rows of the procedural dome skies (odd: see assets.DOME_ROWS)
+DOME_ROWS = assets.DOME_ROWS
 
 
 @register('dome_standin')
@@ -463,7 +469,7 @@ def dome_standin(size=256, dome_samples=4, builder=None, bvh=False,
 # trunk reaches the stand-in canopy; leaf cards per canopy
 TREES = ((1.2, 0.05), (1.5, 0.06))
 TRUNK_SCALE = 5.0
-LEAF_CARDS = 1500
+LEAF_CARDS = assets.LEAF_CARDS
 
 
 @register('final_forest_standin')
@@ -615,13 +621,6 @@ def final_forest_standin(width=1920, height=1080, n_trees=200, n_flowers=100,
                            translucency=transl, tex_color=tex,
                            tex_alpha=alpha, tex_normal=normal)
 
-    def petals(y, r, n, size, seed):
-        ang = np.arange(n) * 2 * np.pi / n
-        ring = np.stack([np.cos(ang), np.zeros(n), np.sin(ang)], -1)
-        return assets.cards((0.0, y, 0.0) + ring * r * 0.5,
-                            ring + np.asarray([0.0, 1.5, 0.0]),
-                            ring, 0.6 * size, size)
-
     b.begin_prototype()
     b.add_mesh(shapes.cylinder((0, 0, 0), 0.008, 0.35, n_seg=6),
                flower_mat(fl_body_t))
@@ -629,7 +628,7 @@ def final_forest_standin(width=1920, height=1080, n_trees=200, n_flowers=100,
                flower_mat(fl_bulb, normal=fl_bulb_n))
     b.add_mesh(assets.random_cards(6, (0, 0.12, 0), (0.06, 0.08, 0.06), 0.08,
                                    seed=62), flower_mat(fl_leaf_t, transl=0.5))
-    b.add_mesh(petals(0.37, 0.05, 8, 0.06, 63),
+    b.add_mesh(assets.petal_ring(0.37, 0.05, 8, 0.06),
                flower_mat(fl_petal, transl=0.6))
     flower02 = b.end_prototype()
 
@@ -643,7 +642,7 @@ def final_forest_standin(width=1920, height=1080, n_trees=200, n_flowers=100,
                                    (-0.02, 0.25, -0.02))):
         b.add_mesh(shapes.uv_sphere((x, y, z), 0.015, 5, 8),
                    flower_mat(fl01_flo1))
-    b.add_mesh(petals(0.31, 0.04, 10, 0.05, 65),
+    b.add_mesh(assets.petal_ring(0.31, 0.04, 10, 0.05),
                flower_mat(fl01_pet1, transl=0.6))
     b.add_mesh(shapes.cylinder((0, 0.3, 0), 0.002, 0.03, n_seg=4),
                flower_mat(fl01_stm2))
@@ -686,6 +685,605 @@ def final_forest_standin(width=1920, height=1080, n_trees=200, n_flowers=100,
                            rng.random() * 0.3 + 0.85) \
                 @ tf.rotate_y(rng.random() * 360.0)
             b.add_instance(grass, m)
+
+    scene = _build(b, bvh, device)
+    cam = Camera.make(eye=cam_eye, look_at=(0.294, 0.511, 0.503),
+                      fov=39.0, aperture=0.0018, focus_plane=2.0,
+                      shutter=0.1)
+    settings = _settings(
+        device, width=width, height=height, path_trace=False,
+        max_bounces=max_bounces, max_wavefront_steps=max_bounces + 2, **kw)
+    return scene, _on(cam, device), settings
+
+
+# ------------------------------------------------------------ asset scenes
+# The JAX registry's scenes that read the reference checkout's files, line
+# for line: the same parameters, seeds, draw order, cameras and settings.
+
+MODELS, TEXTURES, IMAGES = 'Models', 'Textures', 'Images'
+
+
+def asset_root() -> str:
+    """The asset tree: RT_ASSETS, read when a scene is built, or the
+    reference checkout at ~/reference."""
+    return os.environ.get('RT_ASSETS',
+                          os.path.join(os.path.expanduser('~'), 'reference'))
+
+
+def asset_path(*parts: str) -> str:
+    """A file of the asset tree; FileNotFoundError if it is not there (a
+    builder never puts a stand-in in its place)."""
+    path = os.path.join(asset_root(), *parts)
+    if not os.path.isfile(path):
+        raise FileNotFoundError(
+            f'{path}: no such asset file; RT_ASSETS names the asset tree '
+            f'(a reference checkout, or scenes/assets.write_tree)')
+    return path
+
+
+def _cornell_box(b, emitter_power=0.0):
+    """Shared Cornell geometry (makePathTracingScene,
+    src/assignment2.h:379-438)."""
+    lmat = b.add_blinn(kd=(1, 1, 1), emitted_power=emitter_power, le=(1, 1, 1))
+    b.add_mesh(load_obj(asset_path(MODELS, 'cornell_box-light.obj')), lmat)
+    wmat = b.add_blinn(kd=(1, 1, 1))
+    b.add_mesh(load_obj(asset_path(MODELS, 'cornell_box-white.obj')), wmat)
+    rmat = b.add_blinn(kd=(0.80, 0.20, 0.20))
+    b.add_mesh(load_obj(asset_path(MODELS, 'cornell_box-red.obj')), rmat)
+    gmat = b.add_blinn(kd=(0.20, 0.80, 0.20))
+    b.add_mesh(load_obj(asset_path(MODELS, 'cornell_box-green.obj')), gmat)
+
+
+@register('cornell_pt')
+def cornell_pt(size=512, num_rect_samples=4, bvh=True, max_bounces=5,
+               builder=None, device=CUDA, **kw):
+    """Cornell box, path traced, area RectangleLight (BASELINE config #2;
+    makePathTracingScene, src/assignment2.h:379-438)."""
+    b = SceneBuilder() if builder is None else builder
+    _cornell_box(b, emitter_power=50.0)
+    b.add_rect_light((3.0, 5.5, -2.5), (3.0, 5.5, -3.0), (2.5, 5.5, -2.5),
+                     power=10.0, num_samples=num_rect_samples)
+    b.set_bg_color((0, 0, 0))
+    scene = _build(b, bvh, device)
+    cam = Camera.make(eye=(2.25, 2.25, 5.5), look_at=(2.5, 2.25, 0), fov=55.0)
+    settings = _settings(
+        device, width=size, height=size, path_trace=True,
+        max_bounces=max_bounces, max_wavefront_steps=max_bounces + 2, **kw)
+    return scene, _on(cam, device), settings
+
+
+@register('cornell_spheres')
+def cornell_spheres(size=512, bvh=True, builder=None, device=CUDA, **kw):
+    """Cornell box with a glass and a glossy metal sphere, adaptive 1..4
+    subdivs (makePathTracingScene3, src/assignment2.h:440-524); every IOR
+    channel 2.2, as in the JAX registry."""
+    b = SceneBuilder() if builder is None else builder
+    cb = 'CornellBox'
+    lmat = b.add_blinn(kd=(1, 1, 1), emitted_power=0.0, le=(1, 1, 1))
+    b.add_mesh(load_obj(asset_path(MODELS, cb, 'Box_light.obj')), lmat)
+    wmat = b.add_blinn(kd=(1, 1, 1))
+    b.add_mesh(load_obj(asset_path(MODELS, cb, 'Box_white.obj')), wmat)
+    rmat = b.add_blinn(kd=(0.80, 0.20, 0.20))
+    b.add_mesh(load_obj(asset_path(MODELS, cb, 'Box_red.obj')), rmat)
+    gmat = b.add_blinn(kd=(0.20, 0.80, 0.20))
+    b.add_mesh(load_obj(asset_path(MODELS, cb, 'Box_green.obj')), gmat)
+    glass = b.add_blinn(kd=(0.7, 0.1, 0.05), spec_exp=30.0, ior=2.2,
+                        reflect_amt=1.0, refract_amt=1.0)
+    b.add_mesh(load_obj(asset_path(MODELS, cb, 'Sphere_Glass.obj')), glass)
+    metal = b.add_blinn(kd=(0.09, 0.094, 0.1), spec_exp=30.0, spec_amt=0.0,
+                        ior=6.0, reflect_amt=0.90, refract_amt=0.0,
+                        spec_gloss=0.98)
+    b.add_mesh(load_obj(asset_path(MODELS, cb, 'Sphere_Metal.obj')), metal)
+    b.add_rect_light((3.0, 5.5, -2.5), (3.0, 5.5, -3.0), (2.5, 5.5, -2.5),
+                     power=15.0, num_samples=1)
+    b.set_bg_color((0, 0, 0))
+    scene = _build(b, bvh, device)
+    cam = Camera.make(eye=(2.75, 2.75, 5.0), look_at=(2.75, 2.75, 0),
+                      fov=55.0, focus_plane=8.6, aperture=0.0)
+    settings = _settings(
+        device, width=size, height=size, path_trace=True, max_bounces=5,
+        min_subdivs=1, max_subdivs=4, noise_threshold=0.01,
+        max_wavefront_steps=8, **kw)
+    return scene, _on(cam, device), settings
+
+
+@register('teapot_blinn')
+def teapot_blinn(size=512, bvh=True, spec=True, builder=None, device=CUDA,
+                 **kw):
+    """Teapot and floor, Blinn, point light (BASELINE config #3 stand-in,
+    makeTeapotScene2, src/assignment2.h:34-80)."""
+    b = SceneBuilder() if builder is None else builder
+    mat = b.add_blinn(kd=(1, 1, 1),
+                      spec_amt=0.5 if spec else 0.0, spec_exp=30.0)
+    b.add_mesh(load_obj(asset_path(MODELS, 'teapot.obj')), mat)
+    b.add_mesh(make_single_triangle((-10, 0, -10), (0, 0, 10), (10, 0, -10),
+                                    n=(0, 1, 0)), mat)
+    b.add_point_light((10, 10, 10), 700.0)
+    b.set_bg_color((0.0, 0.0, 0.2))
+    scene = _build(b, bvh, device)
+    cam = Camera.make(eye=(0, 3, 6), look_at=(0, 0, 0), fov=45.0)
+    settings = _settings(device, width=size, height=size, path_trace=False,
+                         max_wavefront_steps=2, **kw)
+    return scene, _on(cam, device), settings
+
+
+@register('dome_teapot')
+def dome_teapot(size=512, hdr='sky.hdr', dome_samples=4, bvh=True,
+                ground='grass', builder=None, device=CUDA, **kw):
+    """Textured ground and teapot under an importance-sampled HDR
+    DomeLight (BASELINE config #4 stand-in; makeFinalScene's sky.hdr dome,
+    src/main.cpp:150-165). ground='stone' bakes the procedural stone
+    texture (shading/procedural.py) onto the ground plane, on `device`."""
+    b = SceneBuilder() if builder is None else builder
+    sky = b.add_texture_file(asset_path(TEXTURES, hdr))
+    if ground == 'stone':
+        from ..shading.procedural import bake_stone_texture
+        grass = b.add_texture(
+            bake_stone_texture(size=256, device=device).cpu().numpy())
+    else:
+        grass = b.add_texture_file(asset_path(TEXTURES,
+                                              'grass-color-01.tga'))
+    gmat = b.add_blinn(kd=(1, 1, 1), tex_color=grass)
+    b.add_mesh(shapes.quad((-8, 0, -8), (8, 0, -8), (8, 0, 8), (-8, 0, 8)),
+               gmat)
+    tmat = b.add_blinn(kd=(0.9, 0.85, 0.8), spec_amt=0.3, spec_exp=20.0)
+    b.add_mesh(load_obj(asset_path(MODELS, 'teapot.obj')), tmat)
+    b.set_dome_light(sky, gain=1.0, num_samples=dome_samples)
+    b.set_env_map(sky, 1.0)
+    scene = _build(b, bvh, device)
+    cam = Camera.make(eye=(0, 2.5, 5), look_at=(0, 0.8, 0), fov=45.0)
+    settings = _settings(device, width=size, height=size, path_trace=False,
+                         max_wavefront_steps=2, **kw)
+    return scene, _on(cam, device), settings
+
+
+@register('mb_bullet')
+def mb_bullet(size=256, bvh=True, shutter=1.0, builder=None, device=CUDA,
+              **kw):
+    """Motion blur: the shattered-bullet two-pose mesh pair
+    (bulletMB_01/02.obj; MBObject, makeFinalScene src/main.cpp:167-200)."""
+    b = SceneBuilder() if builder is None else builder
+    mat = b.add_blinn(kd=(0.8, 0.7, 0.2), spec_amt=0.4, spec_exp=15.0)
+    m0 = load_obj(asset_path(MODELS, 'bulletMB_01.obj'))
+    m1 = load_obj(asset_path(MODELS, 'bulletMB_02.obj'))
+    b.add_mesh(m0, mat, mesh_t1=m1)
+    floor = b.add_lambert(kd=(0.7, 0.7, 0.7))
+    b.add_mesh(make_single_triangle((-20, -2, -20), (0, -2, 20), (20, -2, -20),
+                                    n=(0, 1, 0)), floor)
+    b.add_point_light((5, 10, 5), 500.0)
+    b.set_bg_color((0.1, 0.1, 0.15))
+    scene = _build(b, bvh, device)
+    lo = m0.vertices.min(0)
+    hi = m0.vertices.max(0)
+    c = 0.5 * (lo + hi)
+    cam = Camera.make(eye=c + np.asarray([0, 0.5, 3.5]) * (hi - lo).max(),
+                      look_at=c, fov=45.0, shutter=shutter)
+    settings = _settings(device, width=size, height=size, path_trace=False,
+                         max_wavefront_steps=2, **kw)
+    return scene, _on(cam, device), settings
+
+
+@register('instanced_teapots')
+def instanced_teapots(size=256, grid=4, bvh=True, builder=None, device=CUDA,
+                      **kw):
+    """Two-level instancing: grid x grid teapots (ProxyObject grids,
+    makeBunny20Scene2 src/assignment2.h:137+, makeProxyGrid
+    src/main.cpp:37). Built with its BVH whatever `bvh` says, as in the
+    JAX registry."""
+    b = SceneBuilder() if builder is None else builder
+    mat = b.add_blinn(kd=(0.8, 0.5, 0.3), spec_amt=0.3, spec_exp=20.0)
+    b.begin_prototype()
+    b.add_mesh(load_obj(asset_path(MODELS, 'teapot.obj')), mat)
+    proto = b.end_prototype()
+    # the reference's MT seed (src/Scene.cpp:28)
+    rng = np.random.default_rng(3163513)
+    for i in range(grid):
+        for j in range(grid):
+            ang = rng.uniform(0, 2 * np.pi)
+            ca, sa = np.cos(ang), np.sin(ang)
+            s = rng.uniform(0.6, 1.2)
+            m = np.asarray([[s * ca, 0, s * sa, (i - grid / 2) * 3.0],
+                            [0, s, 0, 0],
+                            [-s * sa, 0, s * ca, (j - grid / 2) * 3.0]],
+                           np.float32)
+            b.add_instance(proto, m)
+    floor = b.add_lambert(kd=(0.7, 0.7, 0.7))
+    b.add_mesh(make_single_triangle((-60, 0, -60), (0, 0, 60), (60, 0, -60),
+                                    n=(0, 1, 0)), floor)
+    b.add_point_light((20, 30, 20), 5000.0)
+    b.set_bg_color((0.05, 0.05, 0.1))
+    scene = _build(b, True, device)
+    cam = Camera.make(eye=(0, 8, grid * 2.5 + 6), look_at=(0, 0.5, 0),
+                      fov=45.0)
+    settings = _settings(device, width=size, height=size, path_trace=False,
+                         max_wavefront_steps=2, **kw)
+    return scene, _on(cam, device), settings
+
+
+@register('instanced_grid')
+def instanced_grid(size=256, n=100_000, spacing=2.0, builder=None,
+                   device=CUDA, **kw):
+    """n teapots on a jittered grid, one shared prototype (the reference's
+    1M instanced bunnies, src/ProxyObject.cpp:149-167,
+    src/BVH.cpp:1305-1338). Built with its BVH, as in the JAX registry."""
+    b = SceneBuilder() if builder is None else builder
+    mat = b.add_blinn(kd=(0.75, 0.55, 0.35), spec_amt=0.3, spec_exp=20.0)
+    b.begin_prototype()
+    b.add_mesh(load_obj(asset_path(MODELS, 'teapot.obj')), mat)
+    proto = b.end_prototype()
+    g = int(np.ceil(np.sqrt(n)))
+    rng = np.random.default_rng(3163513)
+    ii, jj = np.meshgrid(np.arange(g), np.arange(g), indexing='ij')
+    ii = ii.reshape(-1)[:n]
+    jj = jj.reshape(-1)[:n]
+    ang = rng.uniform(0, 2 * np.pi, n)
+    sc = rng.uniform(0.5, 1.0, n).astype(np.float32)
+    jit = rng.uniform(-0.3, 0.3, (n, 2)).astype(np.float32)
+    ca, sa = np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
+    tx = ((ii - g / 2) * spacing + jit[:, 0]).astype(np.float32)
+    tz = ((jj - g / 2) * spacing + jit[:, 1]).astype(np.float32)
+    ms = np.zeros((n, 3, 4), np.float32)
+    ms[:, 0, 0] = sc * ca
+    ms[:, 0, 2] = sc * sa
+    ms[:, 1, 1] = sc
+    ms[:, 2, 0] = -sc * sa
+    ms[:, 2, 2] = sc * ca
+    ms[:, 0, 3] = tx
+    ms[:, 2, 3] = tz
+    for k in range(n):
+        b.add_instance(proto, ms[k])
+    b.add_point_light((0, g * spacing, 0), float(g * spacing) ** 2 * 2.0)
+    b.set_bg_color((0.05, 0.05, 0.1))
+    scene = _build(b, True, device)
+    cam = Camera.make(eye=(0, g * spacing * 0.12, g * spacing * 0.55),
+                      look_at=(0, 0.0, 0), fov=50.0)
+    settings = _settings(device, width=size, height=size, path_trace=False,
+                         max_wavefront_steps=2, **kw)
+    return scene, _on(cam, device), settings
+
+
+@register('sponza_proxy')
+def sponza_proxy(width=1920, height=1080, bvh=True, path_trace=True,
+                 max_bounces=10, rect_samples=1, hd=False, builder=None,
+                 device=CUDA, **kw):
+    """The atrium around the original sponza light quad
+    (Models/sponza-light.obj) and rect light (makeSponzaScenePathTrace,
+    src/assignment2.h:663-710): floor, walls, colonnade, teapot clutter
+    (n_teapots=, default 100, or 300 with hd). hd=True, bench.py's
+    configuration, adds the second-story gallery slabs, the upper
+    colonnade and the balustrade blocks."""
+    b = SceneBuilder() if builder is None else builder
+    white = b.add_blinn(kd=(1, 1, 1))
+    lmat = b.add_blinn(kd=(1, 1, 1), emitted_power=1.5, le=(1, 1, 1))
+    b.add_mesh(load_obj(asset_path(MODELS, 'sponza-light.obj')), lmat)
+    # atrium shell
+    b.add_mesh(shapes.quad((-10, 0, -5), (10, 0, -5), (10, 0, 5), (-10, 0, 5),
+                           with_uv=False), white)
+    b.add_mesh(shapes.box((-10, 0, -5.2), (10, 8, -5.0)), white)
+    b.add_mesh(shapes.box((-10, 0, 5.0), (10, 8, 5.2)), white)
+    b.add_mesh(shapes.box((-10.2, 0, -5.2), (-10.0, 8, 5.2)), white)
+    b.add_mesh(shapes.box((10.0, 0, -5.2), (10.2, 8, 5.2)), white)
+    # ground-floor colonnade
+    for i in range(12):
+        x = -9 + i * 1.64
+        for z in (-3.5, 3.5):
+            b.add_mesh(shapes.cylinder((x, 0, z), 0.3, 5.0, n_seg=16), white)
+    if hd:
+        # second-story gallery: side slabs around the central opening,
+        # upper colonnade and balustrade blocks between the upper columns
+        for z0, z1 in ((-5.0, -2.5), (2.5, 5.0)):
+            b.add_mesh(shapes.box((-10, 4.8, z0), (10, 5.0, z1)), white)
+        for x0, x1 in ((-10.0, -8.5), (8.5, 10.0)):
+            b.add_mesh(shapes.box((x0, 4.8, -2.5), (x1, 5.0, 2.5)), white)
+        for i in range(12):
+            x = -9 + i * 1.64
+            for z in (-3.0, 3.0):
+                b.add_mesh(shapes.cylinder((x, 5.0, z), 0.25, 3.0,
+                                           n_seg=16), white)
+                b.add_mesh(shapes.box((x - 0.7, 5.0, z - 0.08),
+                                      (x + 0.7, 5.6, z + 0.08)), white)
+    # clutter to sponza-scale triangle counts
+    teapot = load_obj(asset_path(MODELS, 'teapot.obj'))
+    compute_tangents(teapot)
+    rng = np.random.default_rng(3163513)
+    n_teapots = kw.pop('n_teapots', 300 if hd else 100)
+    for k in range(n_teapots):
+        t = teapot.vertices * rng.uniform(0.2, 0.5)
+        # hd: a third of the clutter lives on the upper gallery
+        if hd and k % 3 == 0:
+            t = t + np.asarray([rng.uniform(-9, 9), 5.0,
+                                rng.uniform(-4.6, -2.8)], np.float32)
+        else:
+            t = t + np.asarray([rng.uniform(-9, 9), 0.0,
+                                rng.uniform(-4, 4)], np.float32)
+        m = MeshData(vertices=t.astype(np.float32), normals=teapot.normals,
+                     texcoords=teapot.texcoords, face_v=teapot.face_v,
+                     face_n=teapot.face_n, face_t=teapot.face_t,
+                     tangents=teapot.tangents, bitangents=teapot.bitangents)
+        b.add_mesh(m, white)
+    b.add_rect_light((8.0, 10, 2), (8.0, 10, -2.0), (-8, 10, 2), power=1.5,
+                     num_samples=rect_samples)
+    b.set_bg_color((0.0, 0.0, 0.2))
+    scene = _build(b, bvh, device)
+    cam = Camera.make(eye=(8, 1.5, 1), look_at=(0, 2.5, -1), fov=55.0)
+    settings = _settings(
+        device, width=width, height=height, path_trace=path_trace,
+        max_bounces=max_bounces,
+        max_wavefront_steps=max_bounces + 2 if path_trace else 2, **kw)
+    return scene, _on(cam, device), settings
+
+
+@register('alpha_leaf')
+def alpha_leaf(size=256, bvh=True, max_bounces=5, builder=None, device=CUDA,
+               **kw):
+    """makeAlphaTest (src/Assignment3.h:19-95): two leaf_test.obj quads with
+    Tree_03_Leaves.tga as both colour and alpha map (cutout), translucency
+    0.9, a point light from below and behind, the
+    Topanga_Forest_B_light.hdr env map, path traced."""
+    b = SceneBuilder() if builder is None else builder
+    leaf_tex = b.add_texture_file(asset_path(TEXTURES, 'Tree_03_Leaves.tga'))
+    env = b.add_texture_file(asset_path(IMAGES,
+                                        'Topanga_Forest_B_light.hdr'))
+    leaf2 = b.add_blinn(kd=(1, 1, 1), translucency=0.9,
+                        tex_color=leaf_tex, tex_alpha=leaf_tex)
+    b.add_mesh(load_obj(asset_path(MODELS, 'leaf_test.obj'),
+                        tf.translate(-2, 0, 0)), leaf2)
+    b.add_mesh(load_obj(asset_path(MODELS, 'leaf_test.obj'),
+                        tf.translate(-1, 0.5, 0)), leaf2)
+    b.add_point_light((-10, -10, -10), 4000.0)
+    b.set_env_map(env, 1.0)
+    b.set_bg_color((0, 0, 0))
+    scene = _build(b, bvh, device)
+    cam = Camera.make(eye=(0, 3, 6), look_at=(0, 0, 0), fov=45.0,
+                      aperture=0.001, focus_plane=4.0)
+    settings = _settings(
+        device, width=size, height=size, path_trace=True,
+        max_bounces=max_bounces, max_wavefront_steps=max_bounces + 2, **kw)
+    return scene, _on(cam, device), settings
+
+
+@register('dispersion')
+def dispersion(size=256, bvh=True, max_bounces=6, dome_samples=6,
+               builder=None, device=CUDA, **kw):
+    """testDispersion (src/Assignment3.h:97-193): a glass sphere with
+    per-channel IOR (1.57, 1.60, 1.62), disperse=True, a sky.hdr dome light
+    (gain 0.15, 6 samples), the Topanga env map, path traced."""
+    b = SceneBuilder() if builder is None else builder
+    sky = b.add_texture_file(asset_path(IMAGES, 'sky.hdr'))
+    env = b.add_texture_file(asset_path(IMAGES,
+                                        'Topanga_Forest_B_light.hdr'))
+    glass = b.add_blinn(kd=(0.0, 0.5, 0.5), spec_exp=30.0,
+                        ior=(1.57, 1.60, 1.62), reflect_amt=1.0,
+                        refract_amt=1.0, disperse=True)
+    b.add_mesh(load_obj(asset_path(MODELS, 'sphere2.obj')), glass)
+    b.set_dome_light(sky, gain=0.15, num_samples=dome_samples)
+    b.set_env_map(env, 1.0)
+    b.set_bg_color((0, 0, 0))
+    scene = _build(b, bvh, device)
+    cam = Camera.make(eye=(0, 3, 6), look_at=(0, 2, 0), fov=45.0,
+                      aperture=0.001, focus_plane=4.0)
+    settings = _settings(
+        device, width=size, height=size, path_trace=True,
+        max_bounces=max_bounces, max_wavefront_steps=max_bounces + 2, **kw)
+    return scene, _on(cam, device), settings
+
+
+@register('final_forest')
+def final_forest(width=1920, height=1080, bvh=True, n_trees=200,
+                 n_flowers=100, grass_grid=40, max_bounces=5,
+                 flatten=False, builder=None, device=CUDA, **kw):
+    """The flagship scene: makeFinalScene (src/main.cpp:132-671).
+
+    An instanced forest (tree prototypes with alpha-cut leaf textures and
+    translucency), flower prototypes, a grass proxy grid, a motion-blurred
+    dispersive glass explosion and textured cannonball, a dirt ground
+    plane, the sky.hdr dome light, an HDR env background and the thin-lens
+    camera with a 0.1 shutter (camera01Settings, src/main.cpp:107-118).
+    The trunks are procedural (`procedural_trunk`, the JAX registry's
+    stand-in for the unshipped Tree0*Body.obj).
+
+    flatten=True bakes every placement into world-space triangles
+    (single-level: the cluster tracer), at the cost of memory in
+    proportion to the flattened triangle count; flatten=False keeps true
+    two-level instancing.
+    """
+    rng = np.random.default_rng(3163513)
+    b = SceneBuilder() if builder is None else builder
+
+    class _Inst:
+        """Prototype/instance shim: flatten=True bakes each placement as
+        world-space geometry, flatten=False adds a prototype instance."""
+        def __init__(self):
+            self.protos = []
+            self.cur = None
+
+        def begin(self):
+            if flatten:
+                self.cur = []
+            else:
+                b.begin_prototype()
+
+        def mesh(self, mesh, mat):
+            if flatten:
+                self.cur.append((mesh, mat))
+            else:
+                b.add_mesh(mesh, mat)
+
+        def end(self):
+            if flatten:
+                self.protos.append(self.cur)
+                self.cur = None
+                return len(self.protos) - 1
+            return b.end_prototype()
+
+        def inst(self, proto, m):
+            if flatten:
+                for mesh, mat in self.protos[proto]:
+                    b.add_mesh(transform_mesh(mesh, m), mat)
+            else:
+                b.add_instance(proto, m)
+
+    I = _Inst()
+
+    # env + dome (src/main.cpp:149-165)
+    env = b.add_texture_file(asset_path(TEXTURES,
+                                        'hdrvfx_nyany_1_n2_v101_Ref.hdr'))
+    sky = b.add_texture_file(asset_path(IMAGES, 'sky.hdr'))
+    b.set_env_map(env, 1.5)
+    b.set_dome_light(sky, gain=0.15, num_samples=kw.pop('dome_samples', 2))
+    b.set_bg_color((0, 0, 0))
+
+    # ground plane with dirt texture (src/main.cpp:185-227)
+    dirt = b.add_texture_file(asset_path(TEXTURES, 'ground-dirt-texture.tga'))
+    dirt_mat = b.add_blinn(kd=(0.1, 0.1, 0.1), spec_exp=30.0, ior=1.8,
+                           tex_color=dirt)
+    b.add_mesh(load_obj(asset_path(MODELS, 'Final', 'groundPlane.obj')),
+               dirt_mat)
+
+    # motion-blurred dispersive glass explosion (src/main.cpp:167-203)
+    glass = b.add_blinn(kd=(0.9, 0.9, 0.9), spec_exp=30.0, spec_amt=0.0,
+                        ior=1.56, reflect_amt=1.0, refract_amt=1.0,
+                        disperse=True)
+    b.add_mesh(load_obj(asset_path(MODELS, 'Final', 'explosion01.obj')),
+               glass,
+               load_obj(asset_path(MODELS, 'Final', 'explosion02.obj')))
+
+    # motion-blurred cannonball (src/main.cpp:205-223)
+    bullet = b.add_texture_file(asset_path(TEXTURES, 'bw2.tga'))
+    cball = b.add_blinn(kd=(0.01, 0.01, 0.01), spec_exp=15.0, spec_amt=0.5,
+                        ior=1.8, spec_gloss=0.9, tex_color=bullet)
+    b.add_mesh(load_obj(asset_path(MODELS, 'Final', 'cannonBallT1.obj')),
+               cball,
+               load_obj(asset_path(MODELS, 'Final', 'cannonBallT2.obj')))
+
+    # ---- tree prototypes (src/main.cpp:230-395): procedural trunk + the
+    # alpha-cut leaves
+    bark2 = b.add_texture_file(asset_path(TEXTURES, 'AL04brk.tga'))
+    leaves2 = b.add_texture_file(asset_path(TEXTURES, 'AL04aut.tga'))
+    bark3 = b.add_texture_file(asset_path(TEXTURES, 'AL17brk.tga'))
+    leaves3 = b.add_texture_file(asset_path(TEXTURES, 'AL17aut.tga'))
+    t2_body_m = b.add_blinn(kd=(0.5, 0.5, 0.5), spec_exp=20.0, spec_amt=0.8,
+                            tex_color=bark2)
+    t2_leaf_m = b.add_blinn(kd=(0.5, 0.5, 0.5), spec_exp=20.0, spec_amt=0.8,
+                            translucency=0.6, tex_color=leaves2,
+                            tex_alpha=leaves2)
+    t3_body_m = b.add_blinn(kd=(0.5, 0.5, 0.5), spec_exp=20.0, spec_amt=0.8,
+                            tex_color=bark3)
+    t3_leaf_m = b.add_blinn(kd=(0.5, 0.5, 0.5), spec_exp=20.0, spec_amt=0.8,
+                            translucency=0.6, tex_color=leaves3,
+                            tex_alpha=leaves3)
+
+    I.begin()
+    I.mesh(procedural_trunk(), t2_body_m)
+    I.mesh(load_obj(asset_path(MODELS, 'Final', 'tree02Leaves.obj')),
+           t2_leaf_m)
+    tree2 = I.end()
+    I.begin()
+    I.mesh(procedural_trunk(1.5, 0.06), t3_body_m)
+    I.mesh(load_obj(asset_path(MODELS, 'Final', 'tree03Leaves.obj')),
+           t3_leaf_m)
+    tree3 = I.end()
+
+    # makeTrees placement (src/main.cpp:54-76): ring outside |x|,|z| < 100
+    placed = 0
+    while placed < n_trees:
+        x, z = rng.random(), rng.random()
+        if x * x + z * z > 1.0:
+            continue
+        tx, tz = x * 800.0, -z * 800.0
+        if tx < 100.0 and tz > -100.0:
+            continue
+        m = tf.translate(tx, rng.random() * 0.5 - 0.5, tz) \
+            @ tf.scale(rng.random() * 0.3 + 0.85, rng.random() * 0.3 + 0.85,
+                       rng.random() * 0.3 + 0.85) \
+            @ tf.rotate_y(rng.random() * 360.0)
+        I.inst(tree2 if placed % 2 == 0 else tree3, m)
+        placed += 1
+    # the four hand-placed near trees (src/main.cpp:231-238, 283-306)
+    I.inst(tree2, tf.translate(62.872, 0, -27.025) @ tf.scale(0.64))
+    I.inst(tree3, tf.translate(0, 0, -21.013))
+    I.inst(tree3, tf.translate(43.078, 0, -9.234) @ tf.rotate_y(-105.05))
+    I.inst(tree2, tf.translate(10.92, 0, -53.16) @ tf.scale(0.71)
+           @ tf.rotate_y(100.0))
+
+    # ---- flower prototypes (src/main.cpp:397-655)
+    fl_bulb = b.add_texture_file(asset_path(TEXTURES, 'bud-yellow-1.tga'))
+    fl_bulb_n = b.add_texture_file(asset_path(TEXTURES,
+                                              'bud-yellow-1-bump_NRM.tga'))
+    fl_body_t = b.add_texture_file(asset_path(TEXTURES, 'grass-color-23.tga'))
+    fl_leaf_t = b.add_texture_file(asset_path(TEXTURES, 'grass-color-18.tga'))
+    fl_petal = b.add_texture_file(asset_path(TEXTURES, 'petal-pink-02.tga'))
+    fl01_lef1 = b.add_texture_file(asset_path(TEXTURES, 'FL30lef1.tga'))
+    fl01_stm1 = b.add_texture_file(asset_path(TEXTURES, 'FL30stm1.tga'))
+    fl01_flo1 = b.add_texture_file(asset_path(TEXTURES, 'FL30flo1.tga'))
+    fl01_pet1 = b.add_texture_file(asset_path(TEXTURES, 'FL30pet1.tga'))
+    fl01_stm2 = b.add_texture_file(asset_path(TEXTURES, 'FL30stm2.tga'))
+    fl01_lef2 = b.add_texture_file(asset_path(TEXTURES, 'FL30lef2.tga'))
+
+    def flower_mat(tex, transl=0.0, alpha=-1, normal=-1):
+        return b.add_blinn(kd=(0.5, 0.5, 0.5), spec_exp=20.0, spec_amt=0.8,
+                           translucency=transl, tex_color=tex,
+                           tex_alpha=alpha, tex_normal=normal)
+
+    def F(name):
+        return load_obj(asset_path(MODELS, 'Final', name))
+
+    I.begin()
+    I.mesh(F('flower02Body.obj'), flower_mat(fl_body_t))
+    I.mesh(F('flower02Bulb.obj'), flower_mat(fl_bulb, normal=fl_bulb_n))
+    I.mesh(F('flower02Leaves.obj'), flower_mat(fl_leaf_t, transl=0.5))
+    I.mesh(F('flower02Petals.obj'), flower_mat(fl_petal, transl=0.6))
+    flower02 = I.end()
+
+    I.begin()
+    I.mesh(F('flower01BigLeaves.obj'),
+           flower_mat(fl01_lef1, transl=0.6, alpha=fl01_lef1))
+    I.mesh(F('flower01Body.obj'), flower_mat(fl01_stm1))
+    I.mesh(F('flower01Bulbs01.obj'), flower_mat(fl01_flo1))
+    I.mesh(F('flower01Bulbs02.obj'), flower_mat(fl01_flo1))
+    I.mesh(F('flower01Bulbs03.obj'), flower_mat(fl01_flo1))
+    I.mesh(F('flower01Petals.obj'), flower_mat(fl01_pet1, transl=0.6))
+    I.mesh(F('flower01Pistils.obj'), flower_mat(fl01_stm2))
+    I.mesh(F('flower01SmallLeaves.obj'),
+           flower_mat(fl01_lef2, transl=0.6, alpha=fl01_lef2))
+    flower01 = I.end()
+
+    cam_eye = np.asarray((-1.277, 0.158, 2.139), np.float32)
+    # makeFlowers placement (src/main.cpp:78-97): a disc around the camera,
+    # the JAX registry's draw order and composition (its scale is a proper
+    # S before the rotations, where the reference scales the diagonal of
+    # the rotated matrix, src/Matrix4x4.h:757-762)
+    for i in range(n_flowers):
+        while True:
+            x, z = rng.random(), rng.random()
+            if x * x + z * z <= 1.0:
+                break
+        trans = tf.translate(cam_eye[0] + x * 10.0,
+                             rng.random() * 0.05 - 0.025,
+                             cam_eye[2] - z * 10.0)
+        sc = tf.scale(rng.random() * 0.2 + 0.9, rng.random() * 0.2 + 0.95,
+                      rng.random() * 0.2 + 0.9)
+        tilt = tf.rotate_x(rng.random() * 20.0 + 10.0)
+        yaw = tf.rotate_y(rng.random() * 360.0)
+        m = trans @ sc @ yaw @ tilt
+        I.inst(flower02 if i % 2 else flower01, m)
+
+    # ---- grass proxy grid (makeProxyGrid, src/main.cpp:38-52)
+    grass_tex = b.add_texture_file(asset_path(TEXTURES, 'grassblade2.tga'))
+    grass_m = b.add_blinn(kd=(0.5, 0.5, 0.5), spec_exp=20.0, spec_amt=0.8,
+                          tex_color=grass_tex)
+    I.begin()
+    I.mesh(load_obj(asset_path(MODELS, 'testGrass.obj')), grass_m)
+    grass = I.end()
+    for i in range(grass_grid):
+        for j in range(grass_grid):
+            m = tf.translate(-2 + i * (rng.random() * 0.2 + 0.2), 0,
+                             3 - j * (rng.random() * 0.2 + 0.2)) \
+                @ tf.scale(rng.random() * 0.3 + 0.85,
+                           rng.random() * 0.3 + 0.7,
+                           rng.random() * 0.3 + 0.85) \
+                @ tf.rotate_y(rng.random() * 360.0)
+            I.inst(grass, m)
 
     scene = _build(b, bvh, device)
     cam = Camera.make(eye=cam_eye, look_at=(0.294, 0.511, 0.503),

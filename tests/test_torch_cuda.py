@@ -395,6 +395,27 @@ def test_forest_render_on_card_matches_cpu(forest_small, dev):
     assert dd.mean() < 1e-3 * np.abs(want).mean()
 
 
+def test_asset_final_forest_on_card_matches_cpu(dev, tmp_path, monkeypatch):
+    """The registry's `final_forest` with three trees, built from the
+    stand-in asset tree (scenes/assets.write_tree): the card's render (the
+    hierarchical instance and cluster kernels) against the CPU's."""
+    from raytracer_tpu_torch.scenes import assets
+    assets.write_tree(str(tmp_path))
+    monkeypatch.setenv('RT_ASSETS', str(tmp_path))
+    s, cam, st = cpu(registry.final_forest, 32, 24, n_trees=3, n_flowers=6,
+                     grass_grid=4, max_bounces=1, dome_samples=1)
+    key = rng.PRNGKey(17)
+    want = rt.render(s, cam, st, key).numpy()
+    n0, c0 = ick.LAUNCHES + ck.LAUNCHES, ict.CALLS + ct.CALLS
+    got = rt.render(s.to(dev), cam.to(dev), st, key)
+    torch.cuda.synchronize()
+    assert ick.LAUNCHES + ck.LAUNCHES > n0 and ict.CALLS + ct.CALLS == c0
+    got = got.cpu().numpy()
+    dd = np.abs(got - want)
+    assert (dd <= 1e-4 + 1e-3 * np.abs(want)).all(-1).mean() >= 0.99
+    assert dd.mean() < 1e-3 * np.abs(want).mean()
+
+
 def _mt_launches(dev, n_rays, T):
     """The device kernels of one MT kernel call on this card."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count

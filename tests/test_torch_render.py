@@ -88,8 +88,9 @@ def test_render_sponza_standin(sponza):
 def test_imports_without_jax(tmp_path):
     """The port builds a scene, renders (uniform and adaptive), takes a
     train step, adds the edge-sampled boundary terms, bakes the stone
-    texture, builds and traces the BVH, runs the CLI and runs two ranks of
-    parallel/worker.py (data-parallel and geometry-sharded) with jax,
+    texture, builds and traces the BVH, runs the CLI, runs two ranks of
+    parallel/worker.py (data-parallel and geometry-sharded), writes the
+    stand-in asset tree and renders `cornell_pt` from it with jax,
     flax, optax and raytracer_tpu unimportable, from a copy of its package
     alone: no file of the JAX package is within reach, and the native
     library builds into the copy's own _build directory."""
@@ -156,6 +157,13 @@ def test_imports_without_jax(tmp_path):
         'assert worker.PKG_ROOT == here',
         "assert res['render/img'].shape == (8, 8, 3)",
         "assert np.array_equal(res['render_geometry/img'], res['render/img'])",
+        'from raytracer_tpu_torch.scenes import assets',
+        "os.environ['RT_ASSETS'] = os.path.join(here, 'assets')",
+        "assert len(assets.write_tree(os.environ['RT_ASSETS'])) == 60",
+        "scene, cam, st = registry.cornell_pt(size=8, max_bounces=2,",
+        "                                     device='cpu')",
+        'img4 = rt.render(scene, cam, st, rng.PRNGKey(0))',
+        'assert bool(img4.isfinite().all()) and float(img4.mean()) > 0',
         "assert not any(m.startswith(('jax', 'flax', 'optax',",
         "                             'raytracer_tpu.'))",
         '               for m in sys.modules if sys.modules[m] is not None)',
