@@ -149,8 +149,8 @@ through `parallel/sharding.loss_and_grads_scanned`, Adam steps through
      single-process step where that step repeats itself bit for bit
      (phase 25 runs it twice), else under phase 15's rule; with two cards
      or more, phases 25-26's frames again with one NCCL rank a card and
-     the rays/s against one rank (with one card the phase says it did not
-     run them);
+     the rays/s against one rank, through raytracer_tpu_torch.scaling
+     (with one card the phase says it did not run them);
  28. graft_entry.dryrun_multichip(2) on the card: two train_step(mesh)
      steps and one loss_and_grads(mesh), finite;
  29. the registry's asset scenes: the stand-in asset tree
@@ -183,13 +183,46 @@ through `parallel/sharding.loss_and_grads_scanned`, Adam steps through
      segment kernel alone;
  32. CPU/GPU parity under phase 6's rule, at 64x48 and 3 bounces, of
      `cornell_pt`, `alpha_leaf`, `dispersion` and `final_forest(n_trees=3)`
-     from the tree.
+     from the tree;
+ 33. intersector 'cluster', the JAX package's XLA tracer
+     (ops/cluster_trace.xla_cluster_trace: near-ordered, alpha inside its
+     sweep; plain PyTorch, not a kernel) on the full `sponza_proxy(hd=True)`
+     at 32,768 coherent and incoherent rays, nearest and any-hit, against
+     the cluster kernel (tri equal except at ties of t, exact or within an
+     ulp where triangles meet, t within rtol 1e-5 and 1e-6 where tri is
+     equal, any-hit alike) and against
+     itself on the CPU on every 8th ray (tri equal, t within rtol 1e-6):
+     ms a case, loop steps, live rays at every tenth step, peak memory;
+ 34. the 10-bounce frame of that scene through 'cluster' at XLA_FRAME:
+     no kernel launched; the wall, the trace calls, the steps of each
+     trace's ray chunks;
+ 35. `final_forest(flatten=True, n_trees=20)` (alpha maps and motion blur
+     in one level) at XLA_FRAME through 'cluster' and through 'auto' (the
+     alpha march): walls and the opaque hits of each rule on the camera
+     rays (printed: the JAX package's two rules differ); then `alpha_leaf`
+     at 64x48 through 'cluster' on the CPU and the card, phase 6's rule;
+ 36. the 1080p `sponza_proxy(hd=True)` frame through 'cluster_pallas':
+     bit for bit with the 'auto' frame of the same key, the same
+     cluster-kernel launches by mode;
+ 37. the alpha ring: two gloo ranks on the one card trace 8,192 rays of
+     `alpha_leaf_standin` through 'ring' (each round the JAX ring's
+     in-sweep sweep), against 'cluster' on the whole table in one process:
+     t equal, tri equal except at exact ties, any-hit alike; no alpha
+     march pass on any rank; the hop ms a trace;
+ 38. the edge gradients against central finite differences on the card
+     (diff/edge_fd: the silhouette, shadow, instanced and GI checks of
+     tests/test_edge_grad.py at their sizes, samples and tolerances):
+     each gradient, finite difference and relative error, held;
+ 39. `python -m raytracer_tpu_torch.scaling --backend gloo --ranks 1,2
+     --size 64` on the one card: its lines, which call themselves no
+     scaling figure (both ranks share the card).
 
 Each path (phases 5, 7, 9, 10, 13, 14, 16-18, 20, 22's frame, the
-motion-blurred prototype's trace, 30 and 31) is driven with every launch
-and plain-version count set to 0 just before and read just after; in
-phases 25-28 each rank does so around each of its tasks, and every rank
-must have launched the cluster kernel and called no plain version.
+motion-blurred prototype's trace, 30, 31, 34-36) is driven with every
+launch and plain-version count set to 0 just before and read just after;
+in phases 25-28 and 37 each rank does so around each of its tasks, and
+every rank of 25-28 must have launched the cluster kernel and called no
+plain version.
 Any failure
 raises. The last two lines are the kernels' JSON record (one entry per
 kernel and mode group, with the least time its work could take on the
@@ -212,9 +245,9 @@ import numpy as np
 import torch
 
 import raytracer_tpu_torch as rt
-from raytracer_tpu_torch import bench, convert, graft_entry, native
+from raytracer_tpu_torch import bench, convert, graft_entry, native, scaling
 from raytracer_tpu_torch.core import rng
-from raytracer_tpu_torch.diff import edges as ed
+from raytracer_tpu_torch.diff import edge_fd, edges as ed
 from raytracer_tpu_torch.io import imageio, objload
 from raytracer_tpu_torch.ops import cluster_trace as ct
 from raytracer_tpu_torch.ops import icluster_trace as ict
@@ -523,7 +556,7 @@ def reset_counts() -> None:
         mod.MODES.clear()
     for mod in PLAINS:
         mod.CALLS = 0
-    ct.MARCH_PASSES = ct.MARCH_SYNCS = 0
+    ct.MARCH_PASSES = ct.MARCH_SYNCS = ct.SWEEPS = 0
 
 
 def check_only(kernel, tag) -> int:
@@ -722,13 +755,13 @@ def forest_cell(dev, key, records, n_trees: int) -> None:
 
 def check_parity(scene, cam, st, key, kernel, dev, tag, hold=True) -> None:
     """The same key rendered on the CPU (plain version) and on the card
-    (kernel): >= 99% of pixels within 1e-4 + 1e-3 |x|, mean relative
-    difference < 1e-3 (with hold=False the figures are printed, not
-    held)."""
+    (kernel; with kernel None, intersector 'cluster' on both): >= 99% of
+    pixels within 1e-4 + 1e-3 |x|, mean relative difference < 1e-3 (with
+    hold=False the figures are printed, not held)."""
     img_cpu = rt.render(scene, cam, st, key).numpy()
-    launches0 = kernel.LAUNCHES
+    launches0 = kernel.LAUNCHES if kernel else ct.SWEEPS
     img_gpu = rt.render(scene.to(dev), cam.to(dev), st, key).cpu()
-    assert kernel.LAUNCHES > launches0
+    assert (kernel.LAUNCHES if kernel else ct.SWEEPS) > launches0
     check_image(img_gpu, (st.height, st.width, 3))
     img_gpu = img_gpu.numpy()
     diff = np.abs(img_gpu - img_cpu)
@@ -1776,18 +1809,23 @@ def nccl_cell(ref) -> None:
 
 
 def scaling_cell(cards) -> None:
-    """Phases 25-26 with one NCCL rank a card: the data-parallel frame's
-    rays/s on `cards` ranks against one."""
-    walls = {}
+    """Phases 25-26 with one NCCL rank a card, through
+    raytracer_tpu_torch.scaling: the data-parallel frame's rays/s on
+    `cards` ranks against one."""
+    rows = []
     for n in (1, cards):
-        res = launch_ranks(n, ['render', 'render_geometry'], 'nccl',
-                           '--repeat', 2)
-        walls[n] = max(s['render']['wall_s'] for s in res['stats'])
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        res = scaling.launch(n, 'sponza_standin', dict(
+            width=WIDTH, height=HEIGHT, max_bounces=BOUNCES),
+            ['render', 'render_geometry'], 1, backend='nccl', seed=KEY,
+            timeout=RANK_TIMEOUT)
+        rows.append(scaling.figures(res, 'render'))
         phase('nccl_ranks', ranks=n, render=rank_fields(res, 'render'),
               ring=rank_fields(res, 'render_geometry'))
     phase('nccl_scaling', cards=cards,
-          rays_per_s={n: WIDTH * HEIGHT / w for n, w in walls.items()},
-          efficiency=walls[1] / (cards * walls[cards]))
+          rays_per_s={r['ranks']: r['rays_per_sec'] for r in rows},
+          efficiency=scaling.efficiency(rows)['scaling_efficiency'])
 
 
 def dryrun_cell() -> None:
@@ -1981,6 +2019,273 @@ def asset_parity_cell(key, dev) -> None:
         check_parity(scene, cam, st, key, kernel, dev, tag)
 
 
+# the last slice's phases (33-39): the size of the XLA cluster tracer's
+# ('cluster') frames, the largest 16:9 size whose atrium frame takes under
+# a minute (27.1 s at 1080p on an H100 80GB HBM3 at 700 W); every
+# CPU_STRIDE-th ray held against the CPU; the alpha ring's rays
+XLA_FRAME = (1920, 1080)
+CPU_STRIDE = 8
+RING_RAYS = 8192
+
+
+def xla_rays_cell(scene, cam, dev) -> None:
+    """Phase 33: intersector 'cluster' (ops/cluster_trace.xla_cluster_trace,
+    plain PyTorch) on the full `sponza_proxy(hd=True)` at N_RAYS coherent
+    and incoherent rays, nearest and any-hit, against the cluster kernel
+    on the same rays (tri equal except at ties of t, t within rtol 1e-5,
+    1e-6 where tri is equal; any-hit: hit or miss alike) and against
+    itself on the CPU on every CPU_STRIDE-th ray; its ms a case (CUDA
+    events, median of 5), loop steps, live rays at every tenth step and
+    peak memory. A tie of t is exact, or within an ulp where two
+    triangles meet at an edge: the near-ordered sweep stops once the next
+    box's key reaches its best t, and may keep the later of the two, as
+    the JAX tracer does."""
+    host = scene.to('cpu')
+    for kind, (o, d, dist) in test_rays(cam, dev).items():
+        tmin = torch.full((N_RAYS,), 1e-3, device=dev)
+        for any_hit in (False, True):
+            tmax = dist if any_hit else torch.full((N_RAYS,), 1e12,
+                                                   device=dev)
+            args = (o, d, 0.0, tmin, tmax, any_hit)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ct.SWEEP_LIVE = []
+            ms, h = cuda_ms(lambda: ct.xla_cluster_trace(scene, *args))
+            live, ct.SWEEP_LIVE = ct.SWEEP_LIVE, None
+            chunks = len(live) // 6
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            k_ms, hk = cuda_ms(lambda: ck.cluster_trace(scene, *args))
+            t, tri = h.t.cpu().numpy(), h.tri.cpu().numpy()
+            t_k, tri_k = hk.t.cpu().numpy(), hk.tri.cpu().numpy()
+            hit = tri_k >= 0
+            assert np.array_equal(tri >= 0, hit), f'{kind}: hits differ'
+            sub = slice(None, None, CPU_STRIDE)
+            t0 = time.perf_counter()
+            hc = ct.xla_cluster_trace(host, *(x[sub].cpu() for x in (o, d)),
+                                      0.0, tmin[sub].cpu(), tmax[sub].cpu(),
+                                      any_hit)
+            cpu_s = time.perf_counter() - t0
+            cpu_tri = int((hc.tri.numpy() != tri[sub]).sum())
+            cpu_dt = float((np.abs(hc.t.numpy() - t[sub])
+                            / np.abs(t[sub])).max())
+            fields = dict(rays=kind, mode='any' if any_hit else 'nearest',
+                          n=N_RAYS, clusters=scene.clusters.num_clusters,
+                          ms=ms, kernel_ms=k_ms, hits=int(hit.sum()),
+                          chunks=chunks, steps=[len(c) for c in
+                                                live[:chunks]],
+                          live_every_10th=live[0][::10], peak_mem_gb=peak,
+                          cpu_rays=N_RAYS // CPU_STRIDE, cpu_s=cpu_s,
+                          cpu_tri_differ=cpu_tri, cpu_max_rel_dt=cpu_dt)
+            if any_hit:
+                phase('xla_cluster_rays', **fields)
+            else:
+                rel = np.abs(t - t_k)[hit] / np.abs(t_k)[hit]
+                same = (tri == tri_k)[hit]
+                ties = np.nonzero(tri != tri_k)[0]
+                phase('xla_cluster_rays', **fields,
+                      tri_ties=len(ties), tie_rays=ties[:32].tolist(),
+                      exact_ties=int((t[ties] == t_k[ties]).sum()),
+                      max_rel_dt=float(rel.max()),
+                      max_rel_dt_same_tri=float(rel[same].max()))
+                # where tri differs, t ties: exactly, or within an ulp where
+                # two triangles meet at an edge (the near-ordered sweep can
+                # stop at the later of the two, as the JAX tracer does)
+                assert (np.abs(t - t_k)[ties] <= 1e-6 * t_k[ties]).all(), \
+                    f'{kind}: tri differs from the kernel off a tie of t'
+                assert len(ties) <= N_RAYS // 1000
+                assert rel.max() <= 1e-5 and rel[same].max() <= 1e-6
+            assert cpu_tri == 0 and cpu_dt <= 1e-6, \
+                f'{kind}: the card and the CPU part'
+    del host
+
+
+def xla_frame_cell(scene, cam, st, key) -> None:
+    """Phase 34: a 10-bounce frame of `sponza_proxy(hd=True)` through
+    'cluster' at XLA_FRAME: no kernel, every trace a call of the XLA
+    tracer; the wall, the trace calls and the loop steps of each trace's
+    ray chunks."""
+    W, H = XLA_FRAME
+    st = dataclasses.replace(st, width=W, height=H, intersector='cluster',
+                             ray_tile=registry.frame_tile(W, H, 'cuda'))
+    reset_counts()
+    ct.SWEEP_LIVE = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    img = rt.render(scene, cam, st, key)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    live, ct.SWEEP_LIVE = ct.SWEEP_LIVE, None
+    assert not any(m.LAUNCHES for m in KERNELS), 'a kernel ran'
+    assert sum(m.CALLS for m in PLAINS) == 0 and ct.SWEEPS > 0
+    check_image(img, (H, W, 3))
+    per = len(live) // ct.SWEEPS     # every trace has the tile's rays
+    phase('xla_cluster_frame', width=W, height=H, bounces=st.max_bounces,
+          wall_s=wall, primary_rays_per_s=W * H / wall,
+          trace_calls=ct.SWEEPS, chunks_per_trace=per,
+          steps_per_trace=[sum(len(c) for c in live[i:i + per])
+                           for i in range(0, len(live), per)],
+          most_steps_in_a_chunk=max(len(c) for c in live),
+          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+          mean_radiance=float(img.mean()))
+
+
+def xla_alpha_cell(dev, key) -> None:
+    """Phase 35: `final_forest(flatten=True, n_trees=FLAT_TREES)` from the
+    tree (single level, alpha maps, motion blur) at XLA_FRAME: a frame
+    through 'cluster' (alpha inside the sweep) and one through 'auto' (the
+    alpha march around the cluster kernel), with the opaque hits of each
+    rule on the centre camera rays (the rules differ: printed, not held);
+    then the CPU/GPU parity of `alpha_leaf` at 64x48 through 'cluster'
+    under phase 6's rule."""
+    W, H = XLA_FRAME
+    scene, cam, st = registry.final_forest(
+        W, H, flatten=True, n_trees=FLAT_TREES, device=dev)
+    assert scene.single_level and scene.has_alpha_maps \
+        and scene.has_motion_blur
+    o, d, tm = cam_mod.center_rays(cam, W, H)
+    fields = {}
+    for mode in ('cluster', 'auto'):
+        s = dataclasses.replace(st, intersector=mode)
+        reset_counts()
+        t0 = time.perf_counter()
+        img = rt.render(scene, cam, s, key)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check_image(img, (H, W, 3))
+        fields[mode] = dict(wall_s=wall, sweeps=ct.SWEEPS,
+                            launches=ck.LAUNCHES,
+                            march_passes=ct.MARCH_PASSES,
+                            mean_radiance=float(img.mean()))
+        h = integrator.trace_fn(scene, s)(o, d, tm, 1e-3, 1e12, False)
+        fields[mode]['camera_opaque_hits'] = int((h.tri >= 0).sum())
+    phase('xla_cluster_alpha', width=W, height=H, triangles=scene.num_tris,
+          camera_rays=W * H, **fields)
+    assert fields['cluster']['launches'] == 0 < fields['cluster']['sweeps']
+    assert fields['auto']['launches'] > 0 == fields['auto']['sweeps']
+    del scene
+    scene, cam, st = registry.alpha_leaf(
+        PARITY['width'], max_bounces=PARITY['max_bounces'], device='cpu',
+        intersector='cluster')
+    st = dataclasses.replace(st, height=PARITY['height'])
+    check_parity(scene, cam, st, key, None, dev,
+                 'cpu_gpu_parity_asset_alpha_leaf_cluster')
+
+
+def cluster_pallas_cell(scene, cam, st, key) -> None:
+    """Phase 36: the 1080p `sponza_proxy(hd=True)` frame through
+    'cluster_pallas' bit for bit with the 'auto' frame of the same key,
+    with the same cluster-kernel launches by mode."""
+    out = {}
+    for mode in ('auto', 'cluster_pallas'):
+        reset_counts()
+        img = rt.render(scene, cam, dataclasses.replace(st, intersector=mode),
+                        key)
+        torch.cuda.synchronize()
+        out[mode] = (img, check_only(ck, mode), dict(ck.MODES))
+    same = bool(torch.equal(out['auto'][0], out['cluster_pallas'][0]))
+    phase('cluster_pallas_route', width=st.width, height=st.height,
+          bit_for_bit=same, launches=out['cluster_pallas'][1],
+          launches_by_mode=out['cluster_pallas'][2],
+          auto_launches=out['auto'][1])
+    assert same and out['auto'][1:] == out['cluster_pallas'][1:], \
+        "'cluster_pallas' is not routed as 'auto'"
+
+
+def ring_alpha_cell(dev) -> None:
+    """Phase 37: two gloo ranks on the one card trace RING_RAYS rays of
+    `alpha_leaf_standin` round the ring ('ring': each round the JAX ring's
+    in-sweep alpha rule), against one rank's 'cluster' on the whole table:
+    tri equal except at exact ties, t equal, any-hit alike; no alpha march
+    pass on any rank; the hop ms a trace."""
+    scene, _, _ = registry.alpha_leaf_standin(64, device=dev)
+    rs = np.random.default_rng(KEY)
+    v = scene.geom.vertices.cpu().numpy()
+    lo, hi = v.min(0), v.max(0)
+    ctr, ext = (lo + hi) / 2, (hi - lo).max()
+    o = (ctr + rs.normal(size=(RING_RAYS, 3)) * ext).astype(np.float32)
+    d = (lo + rs.uniform(size=(RING_RAYS, 3)) * (hi - lo) - o)
+    dist = np.linalg.norm(d, axis=-1).astype(np.float32)
+    d = (d / dist[:, None]).astype(np.float32)
+    rays = dict(o=o, d=d, time=np.zeros(RING_RAYS, np.float32),
+                tmin=np.full(RING_RAYS, 1e-3, np.float32),
+                tmax=np.full(RING_RAYS, 1e12, np.float32), any_tmax=dist)
+    card = {k: torch.from_numpy(x).to(dev) for k, x in rays.items()}
+    want = ct.xla_cluster_trace(scene, card['o'], card['d'], 0.0,
+                                card['tmin'], card['tmax'])
+    want_any = ct.xla_cluster_trace(scene, card['o'], card['d'], 0.0,
+                                    card['tmin'], card['any_tmax'], True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        np.savez(os.path.join(tmp, 'rays.npz'), **rays)
+        res = worker.launch(
+            RANKS, ['--scene', 'alpha_leaf_standin', '--scene-kw',
+                    json.dumps(dict(size=64)), '--tasks', 'ring', '--rays',
+                    os.path.join(tmp, 'rays.npz'), '--repeat', 2],
+            os.path.join(tmp, 'out.npz'), device='cuda', backend='gloo',
+            timeout=RANK_TIMEOUT)
+    stats = [s['ring'] for s in json.loads(str(res['stats']))]
+    t, tri = res['ring/t'], res['ring/tri']
+    t_w, tri_w = want.t.cpu().numpy(), want.tri.cpu().numpy()
+    ties = tri != tri_w
+    any_differ = int(((res['ring/any_tri'] >= 0)
+                      != (want_any.tri.cpu().numpy() >= 0)).sum())
+    phase('ring_alpha', ranks=RANKS, backend='gloo', n=RING_RAYS,
+          launch_s=time.perf_counter() - t0, hits=int((tri_w >= 0).sum()),
+          tri_ties=int(ties.sum()), max_abs_dt=float(np.abs(t - t_w).max()),
+          any_hit_mismatch=any_differ,
+          march_passes=[s['march_passes'] for s in stats],
+          sweeps=[s['sweeps'] for s in stats],
+          ring_rounds=[s['ring_rounds'] for s in stats],
+          launches=[s['launches']['cluster_trace'] for s in stats],
+          walls=[s['walls'] for s in stats],
+          hop_ms_per_trace=[1e3 * s['hop_s'] / max(s['ring_traces'], 1)
+                            for s in stats])
+    assert np.array_equal(t, t_w), 'the alpha ring parts from one rank in t'
+    assert ties.sum() <= RING_RAYS // 100 and any_differ == 0
+    for s in stats:
+        assert s['march_passes'] == 0, 'an alpha march ran under the ring'
+        assert s['sweeps'] == s['ring_rounds'] > 0
+        assert s['plain_calls'] == 0 and s['launches']['cluster_trace'] == 0
+
+
+def edges_fd_cell(dev) -> None:
+    """Phase 38: the edge gradients against finite differences on the card
+    (diff/edge_fd: tests/test_edge_grad.py:73, 147, 219 and 284 at their
+    sizes, samples and tolerances): each estimator, its finite difference
+    and the relative error, held to the test's rule."""
+    for name, check in edge_fd.CHECKS.items():
+        t0 = time.perf_counter()
+        r = check(dev)
+        held = edge_fd.holds(r)
+        phase('edges_fd', check=name, grad=r['grad'], fd=r['fd'],
+              fds=r['fds'], rel_err=abs(r['grad'] - r['fd']) / abs(r['fd']),
+              rtol=r['rtol'], blind=r['blind'], blind_max=r['blind_max'],
+              held=held, wall_s=time.perf_counter() - t0)
+        assert held, f'edges_fd {name}: the estimator parts from the fd'
+
+
+def scaling_plumbing_cell() -> None:
+    """Phase 39: `python -m raytracer_tpu_torch.scaling --backend gloo
+    --ranks 1,2 --size 64` on the one card (cornell_pt from the tree): the
+    module's lines, which must call themselves no scaling figure, since
+    both ranks share the card."""
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, '-m', 'raytracer_tpu_torch.scaling', '--backend',
+         'gloo', '--ranks', '1,2', '--size', '64'], capture_output=True,
+        text=True, timeout=RANK_TIMEOUT, check=True,
+        cwd=os.path.dirname(os.path.abspath(__file__))).stdout
+    lines = [json.loads(x) for x in out.splitlines() if x.startswith('{')]
+    phase('scaling', what='plumbing only: two gloo ranks share one card, '
+          'no scaling figure', wall_s=time.perf_counter() - t0, lines=lines)
+    assert [r.get('ranks') for r in lines[:2]] == [1, 2]
+    assert [r['cards'] for r in lines[:2]] == [1, 1]
+    assert lines[0]['note'] is None and 'no scaling figure' in lines[1]['note']
+    assert not lines[2]['scaling_figure']
+
+
 def check_image(img, shape) -> None:
     assert tuple(img.shape) == shape, img.shape
     assert bool(torch.isfinite(img).all()), 'non-finite pixels'
@@ -2160,10 +2465,23 @@ def main(dev=None) -> int:
     # ------ 29-32. the asset scenes, from the stand-in tree written to disk
     with tempfile.TemporaryDirectory() as tree:
         built = asset_build_cell(dev, tree)
-        sponza_proxy_cell(*built.pop('sponza_proxy'), key)
+        hd = built.pop('sponza_proxy')
+        sponza_proxy_cell(*hd, key)
         flagship_cell(dev, *built.pop('final_forest'), key)
         grid_cell(*built.pop('instanced_grid'), key)
         asset_parity_cell(key, dev)
+
+        # --- 33-36. the XLA cluster tracer ('cluster'), 'cluster_pallas'
+        xla_rays_cell(hd[0], hd[1], dev)
+        xla_frame_cell(*hd, key)
+        cluster_pallas_cell(*hd, key)
+        del hd
+        xla_alpha_cell(dev, key)
+
+        # ------- 37-39. the alpha ring, finite differences, the scaling
+        ring_alpha_cell(dev)
+        edges_fd_cell(dev)
+        scaling_plumbing_cell()
 
     print(json.dumps({'kernels': [
         {k: r[k] for k in ('name', 'route', 'source', 'replaces', 'launches',

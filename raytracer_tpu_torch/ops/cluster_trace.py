@@ -24,8 +24,12 @@ same visiting rule, so the two agree hit for hit:
     keeps the alpha march exact;
   * `mb` lerps the stored basis per component by the ray's time,
     p + time (q - p) with q the t = 1 table (cluster_kernel.py:179-187).
-This is not the JAX package's XLA `ops/cluster_trace.cluster_trace`, which
-visits in near-t order and can break ties differently.
+
+`xla_cluster_trace` is the other tracer of this file: the JAX package's XLA
+`ops/cluster_trace.cluster_trace` (intersector 'cluster'), which visits
+each ray's clusters in near-t order and tests alpha inside its sweep
+(`local_sweep`, also the JAX ring's per-shard sweep). It is plain PyTorch
+on the CPU and the card alike.
 
 `alpha_aware_trace` is the JAX package's alpha march
 (raytracer_tpu/ops/cluster_trace.py:158-257) around any of the tracers.
@@ -70,6 +74,15 @@ MARCH_SYNCS = 0
 # trace's least time on the card
 COUNT_TESTS = False
 TESTS = {'box': 0, 'tri': 0}
+# the near-ordered sweep (xla_cluster_trace, local_sweep): a cull's miss
+# key; the bytes a ray chunk's (rays, clusters) key, order and cull
+# arrays may take; calls of local_sweep (one a 'cluster' trace, one a
+# ring round in a scene with alpha maps), and with SWEEP_LIVE a list,
+# each chunk's count of live rays at each step
+BIG = 3e38
+CHUNK_BYTES = 1 << 30
+SWEEPS = 0
+SWEEP_LIVE = None
 
 
 def modes(scene: Scene, any_hit: bool) -> tuple[bool, bool]:
@@ -322,6 +335,131 @@ def cluster_trace(scene: Scene, o, d, time, tmin, tmax,
     t, tri, a, b = trace_ids(cl, o, d, tmin, tmax, cheap,
                              time if mb else None, need_ab)
     return finish(scene, o, d, time, t, tri, cheap, a, b)
+
+
+# ------------------------------------------- the near-ordered XLA sweep
+# raytracer_tpu/ops/cluster_trace.py:27-155, formula for formula.
+
+
+def cull(cl, o, d, tmin, tmax):
+    """Dense (R, M) slab test (`_cull`) -> entry keys max(near, 0), BIG on
+    a miss; the reciprocal is `rcp` (`_safe_rcp`'s clamp); the near and
+    far planes are taken axis by axis, so that no (R, M, 3) array is
+    built."""
+    inv = rcp(d)
+    near = far = None
+    for ax in range(3):
+        t0 = (cl.bb_min[None, :, ax] - o[:, ax, None]) * inv[:, ax, None]
+        t1 = (cl.bb_max[None, :, ax] - o[:, ax, None]) * inv[:, ax, None]
+        lo, hi = torch.minimum(t0, t1), torch.maximum(t0, t1)
+        near = lo if near is None else torch.maximum(near, lo)
+        far = hi if far is None else torch.minimum(far, hi)
+    hit = (near <= far) & (far >= tmin[:, None]) & (near <= tmax[:, None])
+    return torch.where(hit, torch.clamp(near, min=0.0), BIG)
+
+
+def mt_cluster(cl, m, o, d, time, mb: bool):
+    """Moller-Trumbore of rays (P,) against their clusters m (P,)
+    (`_mt_cluster`) -> (t, a, b, ok, tid), each (P, C); the basis lerped
+    by the ray's time where mb (time may be None otherwise)."""
+    p0, e1, e2 = lerp_basis(cl, m, time if mb else None)
+    tid = cl.tri[m]
+    t, a, b, det = _mt(o[:, :, None], d[:, :, None], p0, e1, e2)
+    ok = (a >= 0.0) & (a <= 1.0) & (b >= 0.0) & (a + b <= 1.0) \
+        & (det != 0.0) & (tid >= 0)
+    return t, a, b, ok, tid
+
+
+def init_best(tmax):
+    """The sweep state before any cluster: (t, tri, a, b, found)."""
+    R, dev = tmax.shape[0], tmax.device
+    return (torch.clamp(tmax, max=MIRO_TMAX),
+            torch.full((R,), -1, dtype=torch.int32, device=dev),
+            torch.zeros(R, device=dev), torch.zeros(R, device=dev),
+            torch.zeros(R, dtype=torch.bool, device=dev))
+
+
+def _sweep_chunk(scene, cl, o, d, time, tmin, best, mb, any_hit):
+    """local_sweep of one ray chunk; best's tensors updated in place."""
+    bt, btri, ba, bb, found = best
+    M = cl.tri.shape[0]
+    keys, order = torch.sort(cull(cl, o, d, tmin, bt), dim=1, stable=True)
+    live = torch.arange(o.shape[0], device=o.device)
+    steps = []
+    for k in range(M):
+        # keys ascend and a ray's best t only falls: a ray whose key no
+        # longer beats its best (any-hit: that has found a hit) is done
+        key = keys[live, k]
+        act = (key < bt[live]) & (key < BIG)
+        if any_hit:
+            act &= ~found[live]
+        live = live[act]
+        steps.append(live.shape[0])
+        if not steps[-1]:
+            break
+        t, a, b, ok, tid = mt_cluster(cl, order[live, k], o[live], d[live],
+                                      time[live] if mb else None, mb)
+        ok &= (t >= tmin[live, None]) & (t < bt[live, None])
+        if scene.has_alpha_maps:
+            r, j = ok.nonzero(as_tuple=True)
+            ok[r, j] = isect.alpha_of(scene, tid[r, j], a[r, j],
+                                      b[r, j]) >= 0.5
+        t = torch.where(ok, t, BIG)
+        j = torch.argmin(t, dim=1, keepdim=True)    # the first minimum
+        tj = t.gather(1, j)[:, 0]
+        got = tj < BIG
+        rows, j = live[got], j[got]
+        bt[rows] = tj[got]
+        btri[rows] = tid[got].gather(1, j)[:, 0]
+        ba[rows] = a[got].gather(1, j)[:, 0]
+        bb[rows] = b[got].gather(1, j)[:, 0]
+        found[rows] = True
+    if SWEEP_LIVE is not None:
+        SWEEP_LIVE.append(steps)
+
+
+@torch.no_grad()
+def local_sweep(scene: Scene, cl, o, d, time, tmin, best, mb: bool,
+                any_hit: bool):
+    """The near-ordered sweep of rays against the table `cl`, from the
+    state best = (t, tri, a, b, found) -> the new state (`_local_sweep`
+    of raytracer_tpu/ops/ring_trace.py:58-112, and the loop of
+    cluster_trace.py:96-155). Each ray culls every box against tmin and
+    its best t, orders the boxes by entry key (a stable sort: an equal
+    key goes to the lower cluster; misses last), then tests one cluster
+    a step while the cluster's key beats its best t (any-hit: until it
+    has found a hit). A lane counts where its triangle is hit in
+    [tmin, best t) and, in a scene with alpha maps, its alpha is >= 0.5;
+    the first lane of the least t wins. Rays run in chunks of CHUNK_BYTES
+    of (ray, cluster) arrays, and a step takes only the rays still live:
+    each ray's walk is its own, so neither changes a result."""
+    global SWEEPS
+    SWEEPS += 1
+    chunk = max(1, CHUNK_BYTES // (16 * cl.tri.shape[0]))
+    best = tuple(x.clone() for x in best)
+    for s in range(0, o.shape[0], chunk):
+        sl = slice(s, s + chunk)
+        _sweep_chunk(scene, cl, o[sl], d[sl], time[sl] if mb else None,
+                     tmin[sl], tuple(x[sl] for x in best), mb, any_hit)
+    return best
+
+
+@torch.no_grad()
+def xla_cluster_trace(scene: Scene, o, d, time, tmin, tmax,
+                      any_hit: bool = False) -> Hit:
+    """The JAX package's XLA cluster tracer (intersector 'cluster') over
+    scene.clusters -> Hit: `local_sweep` from t = min(tmax, MIRO_TMAX),
+    alpha tested inside the sweep (the JAX tracer culls against tmax, its
+    sweep against that t: a box beyond it is never visited either way); a
+    miss has t = MIRO_TMAX and tri = -1. Any-hit returns the first hit
+    accepted in near order, with its own t, a and b."""
+    o, d = o.detach().float().contiguous(), d.detach().float().contiguous()
+    time, tmin, tmax = isect.ray_inputs(o, time, tmin, tmax)
+    t, tri, a, b, _ = local_sweep(scene, scene.clusters, o, d, time, tmin,
+                                  init_best(tmax), scene.has_motion_blur,
+                                  any_hit)
+    t = torch.where(tri >= 0, t, MIRO_TMAX)
+    return Hit(t=t, tri=tri, inst=torch.zeros_like(tri), a=a, b=b)
 
 
 def merge_hits(h1: Hit, h2: Hit) -> Hit:

@@ -9,13 +9,14 @@ state to rank (r + 1) % D while the geometry stays put. After D hops every
 ray is back on its home rank, in its own order, having met every shard.
 
 The JAX ring's local sweep (`_local_sweep`: `_cull` and `_mt_cluster`) is
-XLA, not Pallas. Here a round is one call of the cluster tracer that
-replaces raytracer_tpu/ops/pallas/cluster_kernel.py:pallas_cluster_trace:
-the CUDA kernel (ops/cuda/cluster_kernel.py) for CUDA tensors, its plain
-version (ops/cluster_trace.trace_ids) for CPU ones, in the modes the scene
-needs (nearest, `cheap_any`, `need_ab`, `mb`). The round's tmax is the
-ray's best t so far, so the tracer's strict t < best_t is the JAX sweep's
-rule. A miss returns t = MIRO_TMAX and tri = -1; the Hit's inst is 0.
+XLA, not Pallas. In a scene without alpha maps a round here is one call of
+the cluster tracer that replaces
+raytracer_tpu/ops/pallas/cluster_kernel.py:pallas_cluster_trace: the CUDA
+kernel (ops/cuda/cluster_kernel.py) for CUDA tensors, its plain version
+(ops/cluster_trace.trace_ids) for CPU ones, in the modes the scene needs
+(nearest, `cheap_any`, `mb`). The round's tmax is the ray's best t so
+far, so the tracer's strict t < best_t is the JAX sweep's rule. A miss
+returns t = MIRO_TMAX and tri = -1; the Hit's inst is 0.
 
 Tie rule: within a shard, table order wins an exact tie in t (the
 cluster tracer's rule); across shards, the first shard visited wins, which
@@ -23,17 +24,21 @@ is the ray's home rank's, then the next ones in ring order. The JAX sweep
 takes near order within a shard, so `tri` may differ from the JAX
 package's only at an exact tie in t.
 
-Any-hit rays (`cheap_any`, scenes without alpha maps) that have found a
-hit trace the later rounds with tmax = -1 and come home with tri = 1 and
-t = min(tmax, MIRO_TMAX), as the cluster tracer returns them. In a scene
-with alpha maps every trace is nearest with the winning lane's a and b
-(`need_ab`); the alpha test is not in the rounds (the JAX sweep filters
-alpha inside its sweep): integrator.trace_fn wraps the whole ring in
-ops/cluster_trace.alpha_aware_trace, one ring trace a pass.
+Any-hit rays (`cheap_any`) that have found a hit trace the later rounds
+with tmax = -1 and come home with tri = 1 and t = min(tmax, MIRO_TMAX), as
+the cluster tracer returns them.
 
-What goes round: o, d, tmin, the best t and tri, and a, b (need_ab) and
-the ray time (mb), as 4-byte words; the last hop carries only the
-results, since the home rank still holds its rays.
+In a scene with alpha maps a round is the JAX ring's own:
+ops/cluster_trace.local_sweep (plain PyTorch on either device), the
+near-ordered sweep with the alpha test inside it, from the best state
+(t, tri, a, b, found) that came round with the rays and culling against
+its t; the whole state goes round (raytracer_tpu/ops/ring_trace.py:
+150-159). No alpha march runs around the ring; any-hit returns the first
+hit accepted, with its t, a and b, as the JAX ring does.
+
+What goes round: o, d, tmin, the best t and tri, and a, b and found
+(alpha maps) and the ray time (mb), as 4-byte words; the last hop carries
+only the results, since the home rank still holds its rays.
 """
 from __future__ import annotations
 
@@ -130,52 +135,57 @@ def ring_trace(scene: Scene, o, d, time, tmin, tmax, any_hit: bool = False,
     o, d = o.detach().float().contiguous(), d.detach().float().contiguous()
     time, tmin, tmax = isect.ray_inputs(o, time, tmin, tmax)
     R = o.shape[0]
-    t = torch.clamp(tmax, max=MIRO_TMAX)
-    tri = torch.full((R,), -1, dtype=torch.int32, device=o.device)
-    a = b = None
-    if need_ab:
-        a, b = torch.zeros_like(t), torch.zeros_like(t)
+    D = mesh.size
     # the ray state that goes round, and the results that come home
     rays = [o, d, tmin] + ([time] if mb else [])
-    D = mesh.size
+    if need_ab:
+        res = list(plain.init_best(tmax))
+    else:
+        res = [torch.clamp(tmax, max=MIRO_TMAX),
+               torch.full((R,), -1, dtype=torch.int32, device=o.device)]
     for r in range(D):
         o_r, d_r, tmin_r = rays[:3]
-        bound = torch.where(tri >= 0, -1.0, t) if cheap else t
-        t_r, tri_r, a_r, b_r = ck.trace_ids(
-            cl, o_r, d_r, tmin_r, bound.contiguous(), cheap,
-            rays[3] if mb else None, mb, need_ab, mode)
-        got = tri_r >= 0
-        if not cheap:
-            t = torch.where(got, t_r, t)
-        tri = torch.where(got, tri_r, tri)
-        if need_ab:
-            a, b = torch.where(got, a_r, a), torch.where(got, b_r, b)
-        res = [t, tri] + ([a, b] if need_ab else [])
+        time_r = rays[3] if mb else None
+        if need_ab:     # the JAX ring's round, alpha inside the sweep
+            res = list(plain.local_sweep(scene, cl, o_r, d_r, time_r,
+                                         tmin_r, res, mb, any_hit))
+            res[4] = res[4].to(torch.int32)
+        else:
+            t, tri = res
+            bound = torch.where(tri >= 0, -1.0, t) if cheap else t
+            t_r, tri_r, _, _ = ck.trace_ids(
+                cl, o_r, d_r, tmin_r, bound.contiguous(), cheap, time_r,
+                mb, False, mode)
+            got = tri_r >= 0
+            res = [t if cheap else torch.where(got, t_r, t),
+                   torch.where(got, tri_r, tri)]
         if r + 1 < D:
             moved = distributed.ring_shift(rays + res, mesh)
             rays, res = moved[:len(rays)], moved[len(rays):]
         else:
             res = distributed.ring_shift(res, mesh)
-        t, tri = res[0], res[1]
         if need_ab:
-            a, b = res[2], res[3]
+            res[4] = res[4].bool()
         ROUNDS += 1
     TRACES += 1
+    t, tri = res[0], res[1]
     got = tri >= 0
     t = torch.where(got, t, MIRO_TMAX)
+    if need_ab:
+        return Hit(t=t, tri=tri, inst=torch.zeros_like(tri), a=res[2],
+                   b=res[3])
     if cheap:       # the cluster tracer's any-hit result
         t = torch.where(got, torch.clamp(tmax, max=MIRO_TMAX), t)
         tri = torch.where(got, 1, -1).to(torch.int32)
-    return plain.finish(scene, o, d, time, t, tri, cheap, a, b)
+    return plain.finish(scene, o, d, time, t, tri, cheap)
 
 
 class RingTracer:
     """integrator.trace_fn's tracer for intersector 'ring':
     tracer(o, d, time, tmin, tmax, any_hit) -> Hit through ring_trace over
-    the scene's shard, inside the alpha march in a scene with alpha maps.
-    The ranks of the shard's mesh must trace alike, so `any_live` is the
-    test that ends a loop over traces (radiance's bounces, the alpha
-    march's passes): one decision that all ranks share."""
+    the scene's shard. The ranks of the shard's mesh must trace alike, so
+    `any_live` is the test that ends radiance's loop over bounces: one
+    decision that all ranks share."""
 
     def __init__(self, scene: Scene):
         if not scene.single_level or scene.clusters is None:
@@ -188,13 +198,6 @@ class RingTracer:
         """flag.any() over every rank of the ring (one all_reduce MAX)."""
         return distributed.any_true(flag, self.mesh)
 
-    def once(self, o, d, time, tmin, tmax, any_hit):
+    def __call__(self, o, d, time, tmin, tmax, any_hit):
         return ring_trace(self.scene, o, d, time, tmin, tmax, any_hit,
                           self.mesh)
-
-    def __call__(self, o, d, time, tmin, tmax, any_hit):
-        if not self.scene.has_alpha_maps:
-            return self.once(o, d, time, tmin, tmax, any_hit)
-        return plain.alpha_aware_trace(self.scene, self.once, o, d, time,
-                                       tmin, tmax, any_hit,
-                                       any_live=self.any_live)

@@ -22,19 +22,21 @@ and runs --tasks in order over the mesh of every rank:
                   any_tmax for the any-hit pass, tmax if absent; the
                   ranks split them) through intersector 'ring'
                   (ops/ring_trace.RingTracer: ring_trace over the table's
-                  shards, inside the alpha march in a scene with alpha
-                  maps), nearest (t, tri, a, b) and any-hit (any_t,
+                  shards, alpha tested inside its sweep in a scene with
+                  alpha maps), nearest (t, tri, a, b) and any-hit (any_t,
                   any_tri)
 
 A task named `<task>@nosort` runs with the wavefront sort off; --repeat
 runs each task that many times (the first run of a task in a process
 pays its warm-up), its stats the last run's with every run's wall. The
 parameters are the scene's, with --shift added to the vertices; the target
-is black (bench.py's), with one sample a pixel. Every loss, gradient and
-image must be finite. Rank 0 writes RT_OUT (.npz): `<task>/<name>`
-arrays, and `stats`, the JSON list of each rank's per-task wall, peak
-memory, kernel launches by mode, plain-version calls, ring rounds and
-collective counters. CPU ranks share the host's cores evenly.
+is black (bench.py's), with --spp samples a pixel (1) in the render and
+step tasks. Every loss, gradient and image must be finite. Rank 0 writes
+RT_OUT (.npz): `<task>/<name>` arrays, and `stats`, the JSON list of each
+rank's per-task wall, peak memory, kernel launches by mode, plain-version
+calls, ring rounds and collective counters, with the frame's pixels and
+the rank's device (`card`: the card's UUID, or 'cpu'). CPU ranks share
+the host's cores evenly.
 
 `launch` starts the ranks as subprocesses, each with a deadline.
 """
@@ -136,14 +138,18 @@ PLAINS = (ct, ist, ict, tmt, ttr)
 
 
 def _counts() -> dict:
-    """Every kernel's launches by mode, the plain versions' calls and the
-    ring's traces, rounds and collectives since the last reset."""
+    """Every kernel's launches by mode, the plain versions' calls, the
+    alpha march's passes, the near-ordered sweeps (ops/cluster_trace.
+    local_sweep: intersector 'cluster', the ring's rounds in a scene with
+    alpha maps) and the ring's traces, rounds and collectives since the
+    last reset."""
     return dict(
         launches={k: m.LAUNCHES for k, m in KERNELS.items()},
         modes={k: dict(m.MODES) for k, m in KERNELS.items() if m.LAUNCHES},
         plain_calls=sum(m.CALLS for m in PLAINS),
         ring_traces=ring.TRACES, ring_rounds=ring.ROUNDS,
-        march_passes=ct.MARCH_PASSES, **distributed.STATS)
+        march_passes=ct.MARCH_PASSES, sweeps=ct.SWEEPS,
+        **distributed.STATS)
 
 
 def _reset() -> None:
@@ -152,8 +158,18 @@ def _reset() -> None:
         m.MODES.clear()
     for m in PLAINS:
         m.CALLS = 0
-    ring.TRACES = ring.ROUNDS = ct.MARCH_PASSES = 0
+    ring.TRACES = ring.ROUNDS = ct.MARCH_PASSES = ct.SWEEPS = 0
     distributed.reset_stats()
+
+
+def card_of(dev: torch.device) -> str:
+    """Which card a rank runs on: its UUID (the PCI address where torch
+    gives none), or 'cpu'."""
+    if dev.type != 'cuda':
+        return 'cpu'
+    p = torch.cuda.get_device_properties(dev)
+    return str(getattr(p, 'uuid', '') or '') or \
+        f'{p.pci_domain_id}:{p.pci_bus_id}:{p.pci_device_id}'
 
 
 def _finite(name: str, x) -> np.ndarray:
@@ -206,18 +222,18 @@ def run_task(a, task: str, scene, cam, st, mesh, out: dict) -> dict:
     if name in ('render', 'render_geometry'):
         fn = sharding.render_sharded if name == 'render' else \
             sharding.render_geometry_sharded
-        img = fn(scene, cam, st, key, mesh)
+        img = fn(scene, cam, st, key, mesh, spp=a.spp)
         out[f'{task}/img'] = _finite(f'{task} image', img)
     elif name == 'loss':
         _loss_out(out, task, *sharding.loss_and_grads(
             params, scene, cam, st, target, key, mesh))
     elif name == 'step':
         _loss_out(out, task, *sharding.loss_and_grads_scanned(
-            params, scene, cam, st, target, key, tile=a.tile,
+            params, scene, cam, st, target, key, spp=a.spp, tile=a.tile,
             mesh=mesh))
     elif name == 'step_geometry':
         _loss_out(out, task, *sharding.loss_and_grads_geometry_sharded(
-            params, scene, cam, st, target, key, mesh))
+            params, scene, cam, st, target, key, mesh, spp=a.spp))
     elif name == 'edges':
         _loss_out(out, task, *edges.loss_and_grads_with_edges(
             params, scene, cam, st, target, key, tile=a.tile,
@@ -255,6 +271,7 @@ def main(argv=None) -> int:
     p.add_argument('--tasks', default='render,step')
     p.add_argument('--seed', type=int, default=7)
     p.add_argument('--tile', type=int, default=None)
+    p.add_argument('--spp', type=int, default=1)
     p.add_argument('--shift', type=lambda s: [float(x) for x in s.split(',')],
                    default=[0.0, 0.0, 0.0])
     p.add_argument('--rays', default=None)
@@ -290,6 +307,7 @@ def main(argv=None) -> int:
                 torch.cuda.synchronize(dev)
             walls.append(time.perf_counter() - t0)
         stats[task] = dict(wall_s=walls[-1], walls=walls, **_counts(),
+                           pixels=st.width * st.height, card=card_of(dev),
                            **extra)
         if dev.type == 'cuda':
             stats[task]['peak_mem_gb'] = \

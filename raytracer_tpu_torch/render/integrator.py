@@ -149,20 +149,26 @@ def sort_key(state: dict, segment=None) -> torch.Tensor:
 
 def trace_fn(scene: Scene, settings: RenderSettings):
     """Select the intersector -> tracer(o, d, time, tmin, tmax, any_hit),
-    routed as raytracer_tpu/render/integrator.py:283-364 routes
-    'cluster_pallas' and 'cluster2'.
+    routed as raytracer_tpu/render/integrator.py:252-376 routes it.
 
-    'auto' traces a single-level scene through scene.clusters (lerping the
-    basis by ray time when the scene is motion-blurred), and a two-level
-    one as 'cluster2' does: shallow prototypes (at most 16 clusters)
-    through the flat segment tracer, deep ones through the hierarchical
-    instance tracer, plus the motion-blurred world partition
-    (scene.mb_clusters) through the cluster tracer in `mb` mode, merged by
-    nearest t. Scenes with alpha maps wrap that in the alpha march; an
-    opaque motion-blurred partition is traced once outside it and bounds
-    the march by its t. Each tracer is the CUDA kernel for CUDA tensors
-    and its plain PyTorch version for CPU tensors; a table is one launch
-    (the JAX package's VMEM chunks of `_mb_chunks` are not needed).
+    'auto' and 'cluster_pallas' trace a single-level scene through
+    scene.clusters with the cluster tracer (lerping the basis by ray time
+    when the scene is motion-blurred), wrapped in the alpha march when
+    the scene has alpha maps. 'auto' traces a two-level scene as
+    'cluster2' does: shallow prototypes (at most 16 clusters) through the
+    flat segment tracer, deep ones through the hierarchical instance
+    tracer, plus the motion-blurred world partition (scene.mb_clusters)
+    through the cluster tracer in `mb` mode, merged by nearest t. Scenes
+    with alpha maps wrap that in the alpha march; an opaque
+    motion-blurred partition is traced once outside it and bounds the
+    march by its t. Each of these tracers is the CUDA kernel for CUDA
+    tensors and its plain PyTorch version for CPU tensors; a table is one
+    launch (the JAX package's VMEM chunks of `_mb_chunks` are not
+    needed). 'cluster' is the JAX package's XLA tracer of single-level
+    scenes (ops/cluster_trace.xla_cluster_trace, plain PyTorch on either
+    device): near-ordered, alpha tested inside its sweep, no march.
+    'cluster' and 'cluster_pallas' on a two-level scene, which carries no
+    scene.clusters, raise and name 'cluster2'.
     'brute' is the brute-force oracle of single-level scenes, and
     'pallas' the brute-force Moller-Trumbore sweep (the JAX package's
     Pallas MT kernel; here mt_kernel.brute_trace: the CUDA kernel for
@@ -175,12 +181,16 @@ def trace_fn(scene: Scene, settings: RenderSettings):
     'auto' takes 'bvh' off the TPU. 'ring' traces a single-level scene
     whose scene.clusters is this rank's shard (ops/ring_trace.RingTracer,
     as raytracer_tpu/render/integrator.py:365-371): every rank of the
-    shard's mesh must trace alike, so radiance and the alpha march take
-    their host decisions through the tracer's `any_live`; for a table
-    that is not a shard it raises."""
+    shard's mesh must trace alike, so radiance takes its host decisions
+    through the tracer's `any_live`; for a table that is not a shard it
+    raises."""
     mode = settings.intersector
     if mode == 'ring':
         return ring.RingTracer(scene)
+    if mode in ('cluster', 'cluster_pallas') and not scene.single_level:
+        raise ValueError(
+            f"intersector {mode!r} traces scene.clusters, which a two-level "
+            f"scene does not carry: trace it with 'cluster2' (or 'auto')")
     if mode == 'auto' and not scene.single_level \
             and scene.iclusters is None and scene.mb_clusters is None:
         mode = 'bvh'            # a motion-blurred prototype
@@ -191,9 +201,12 @@ def trace_fn(scene: Scene, settings: RenderSettings):
                              f'with bvh=True')
         return lambda o, d, time, tmin, tmax, any_hit: bvk.bvh_trace(
             scene, o, d, time, tmin, tmax, any_hit)
-    if mode == 'auto' and scene.single_level:
+    if mode in ('auto', 'cluster', 'cluster_pallas') and scene.single_level:
         if scene.clusters is None:
             raise ValueError('the scene carries no cluster table')
+        if mode == 'cluster':
+            return lambda o, d, time, tmin, tmax, any_hit: \
+                ct.xla_cluster_trace(scene, o, d, time, tmin, tmax, any_hit)
 
         def base(o, d, time, tmin, tmax, any_hit):
             return ck.cluster_trace(scene, o, d, time, tmin, tmax, any_hit)
@@ -211,9 +224,8 @@ def trace_fn(scene: Scene, settings: RenderSettings):
         raise NotImplementedError(
             f"intersector {mode!r} on a "
             f"{'single' if scene.single_level else 'two'}-level scene: "
-            f"'brute' and 'pallas' trace single-level scenes and "
-            f"'cluster2' two-level ones only (the JAX package's XLA "
-            f"'cluster' tracer is not ported)")
+            f"'brute' and 'pallas' trace single-level scenes only, and "
+            f"'cluster2' two-level ones only")
 
     icl = scene.iclusters
     if icl is None:

@@ -7,9 +7,9 @@ raytracer_tpu/scenes/registry.py. Two kinds:
   `sponza_proxy`, `final_forest`, ...), line for line: the same
   parameters and defaults, seeds, draw order, cameras and settings. They
   read the reference checkout's Models/, Textures/ and Images/ under the
-  tree that RT_ASSETS names (default ~/reference). One difference: the
-  JAX registry reads RT_ASSETS when it is imported, this one when a scene
-  is built (`asset_root`). A missing file raises FileNotFoundError
+  tree that RT_ASSETS names (default REFERENCE, the JAX registry's). One
+  difference: the JAX registry reads RT_ASSETS when it is imported, this
+  one when a scene is built (`asset_root`). A missing file raises FileNotFoundError
   (`asset_path`); no builder puts a stand-in in its place.
   `scenes/assets.write_tree` writes a stand-in tree of every file they
   read;
@@ -701,13 +701,15 @@ def final_forest_standin(width=1920, height=1080, n_trees=200, n_flowers=100,
 # for line: the same parameters, seeds, draw order, cameras and settings.
 
 MODELS, TEXTURES, IMAGES = 'Models', 'Textures', 'Images'
+# the reference checkout, where the JAX registry looks when RT_ASSETS is
+# unset (raytracer_tpu/scenes/registry.py:24)
+REFERENCE = '/root/reference'
 
 
 def asset_root() -> str:
     """The asset tree: RT_ASSETS, read when a scene is built, or the
-    reference checkout at ~/reference."""
-    return os.environ.get('RT_ASSETS',
-                          os.path.join(os.path.expanduser('~'), 'reference'))
+    reference checkout at REFERENCE."""
+    return os.environ.get('RT_ASSETS', REFERENCE)
 
 
 def asset_path(*parts: str) -> str:

@@ -933,3 +933,40 @@ def test_nccl_one_rank_step_matches_meshless(dev, tmp_path):
                                    grads[k].cpu().numpy(), rtol=1e-5,
                                    atol=1e-8, err_msg=k)
     assert json.loads(str(res['stats']))[0]['step']['reduces'] == 1
+
+
+XLA_SCENES = {
+    'sponza_12': (registry.sponza_standin, dict(width=32, height=24,
+                                                n_spheres=12)),
+    'mb_bullet': (registry.mb_bullet_standin, dict(size=8)),
+    'alpha_leaf': (registry.alpha_leaf_standin, dict(size=8)),
+}
+
+
+@pytest.mark.parametrize('name', sorted(XLA_SCENES))
+def test_xla_cluster_on_card_matches_cpu(dev, name, monkeypatch):
+    """intersector 'cluster' (ops/cluster_trace.xla_cluster_trace, plain
+    PyTorch on either device; motion blur and alpha inside the sweep) on
+    the card against the CPU on the same rays, the CPU's in two ray
+    chunks: the same float32 operations in the same order, so t, tri, a
+    and b bit for bit, nearest and any-hit, and no kernel launched."""
+    from raytracer_tpu_torch import RenderSettings
+    from raytracer_tpu_torch.render import integrator
+    make, kw = XLA_SCENES[name]
+    host, _, _ = cpu(make, **kw)
+    card = host.to(dev)
+    o, d, tm, dist = scene_rays(host, R, 12)
+    for any_hit in (False, True):
+        rays = [torch.from_numpy(x) for x in (o, d, tm,
+                                             *ray_bounds(dist, any_hit))]
+        with monkeypatch.context() as m:
+            m.setattr(ct, 'CHUNK_BYTES', 16 * host.clusters.num_clusters
+                      * (R // 2))
+            want = ct.xla_cluster_trace(host, *rays, any_hit)
+        n0 = ck.LAUNCHES
+        got = integrator.trace_fn(card, RenderSettings(
+            intersector='cluster'))(*(x.to(dev) for x in rays), any_hit)
+        assert ck.LAUNCHES == n0
+        for f in ('t', 'tri', 'a', 'b'):
+            assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+        assert int((want.tri >= 0).sum()) > R // 20

@@ -7,22 +7,25 @@ port's own.
 * Intersector 'ring' on 2 and 3 ranks (parallel/worker.py's `ring` task,
   rays from a seed with numpy, every 4th starting at half its distance,
   every 16th dead) against the JAX package's XLA `cluster_trace` on the
-  whole table (with alpha maps, its alpha march around the Pallas cluster
-  kernel) and the port's plain tracer: `tri` equal except at exact
-  ties in t, which are counted and must be few; t within rtol 1e-5 of
-  JAX's (the rule of tests/test_sharding.py:225-261) and bit for bit with
-  the port's (the same float32 arithmetic: shards change only which rows
-  a ray meets first); any-hit rays agree on whether there is a hit. One
+  whole table (the JAX ring on one shard: the same near-ordered sweep,
+  alpha tested inside it) and the port's replicated tracer of the same
+  rule ('auto' where the scene has no alpha maps, 'cluster' where it
+  has): `tri` equal except at exact ties in t, which are counted and must
+  be few; t within rtol 1e-5 of JAX's (the rule of
+  tests/test_sharding.py:225-261) and bit for bit with the port's (the
+  same float32 arithmetic: shards change only which rows a ray meets
+  first); any-hit rays agree on whether there is a hit. One
   motion-blurred scene (`mb_bullet_standin`) and one with alpha maps
-  (`alpha_leaf_standin`: the ring inside the alpha march).
+  (`alpha_leaf_standin`: each round the JAX ring's sweep, no alpha march).
 * No deadlock: `alpha_leaf_standin` at 8x8 on 4 ranks, where the bottom
   and top ranks' camera rays all see the sky while the middle ranks'
-  paths go on and need more alpha passes; render_geometry_sharded
-  finishes and equals render_sharded of the same run.
+  paths go on and take more traces; render_geometry_sharded finishes,
+  every rank traces as often as the others, and the frame equals
+  render_sharded's ('cluster', the same alpha rule) of the same run.
 """
+import dataclasses
 import json
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -31,7 +34,6 @@ import torch
 import raytracer_tpu as rj
 from raytracer_tpu.ops import cluster_trace as jct
 from raytracer_tpu.ops import ring_trace as jring
-from raytracer_tpu.render import integrator as jint
 from raytracer_tpu_torch.core import rng
 from raytracer_tpu_torch.ops import cluster_trace as ct
 from raytracer_tpu_torch.ops import ring_trace as ring
@@ -41,7 +43,7 @@ from raytracer_tpu_torch.render.renderer import render_pixels
 from raytracer_tpu_torch.scenes import registry
 
 from .test_torch_sharding import TIMEOUT, _chunks
-from .torch_port_util import cpu, jax_settings, ray_bounds, scene_rays
+from .torch_port_util import cpu, ray_bounds, scene_rays
 
 # not a multiple of 2 or 3: the worker pads the ranks' shares
 R = 385
@@ -117,15 +119,12 @@ def _check_ties(t, tri, t_ref, tri_ref, rtol):
     return ties
 
 
-def _jax_trace(sj, st, any_hit):
-    """The JAX package's replicated tracer: the XLA `cluster_trace`; in a
-    scene with alpha maps its alpha march around the Pallas cluster kernel
-    (intersector 'cluster_pallas'), which the port's march follows. (The
-    XLA tracer's own alpha test, inside its sweep, finds 123 opaque hits
-    where the march finds 94 on 384 rays of alpha_leaf_standin.)"""
-    if sj.has_alpha_maps:
-        trace = jint.trace_fn(sj, jax_settings(st, intersector='cluster_pallas'))
-        return jax.jit(lambda *a: trace(*a, any_hit))
+def _jax_trace(sj, any_hit):
+    """What the JAX ring computes, replicated: the XLA `cluster_trace`
+    on the whole table, alpha tested inside its sweep, as the JAX ring's
+    `_local_sweep` tests it on each shard (on 384 rays of
+    alpha_leaf_standin that rule finds 123 opaque hits, the alpha march
+    of 'cluster_pallas' 94)."""
     return lambda *a: jct.cluster_trace(sj, *a, any_hit)
 
 
@@ -134,9 +133,11 @@ def _jax_trace(sj, st, any_hit):
 def test_ring_matches_replicated(name, D, tmp_path):
     sj, sp, st = _scenes(name)
     near, anyr, res = _ring_run(name, D, tmp_path)
-    port = integrator.trace_fn(sp, st)
+    alpha = sp.has_alpha_maps
+    port = integrator.trace_fn(sp, dataclasses.replace(
+        st, intersector='cluster' if alpha else 'auto'))
     for rays, any_hit in ((near, False), (anyr, True)):
-        want_j = _jax_trace(sj, st, any_hit)(*(jnp.asarray(rays[k]) for k in (
+        want_j = _jax_trace(sj, any_hit)(*(jnp.asarray(rays[k]) for k in (
             'o', 'd', 'time', 'tmin', 'tmax')))
         want_p = port(*(torch.from_numpy(rays[k]) for k in (
             'o', 'd', 'time', 'tmin', 'tmax')), any_hit)
@@ -154,11 +155,15 @@ def test_ring_matches_replicated(name, D, tmp_path):
         np.testing.assert_allclose(res['a'][same], want_p.a.numpy()[same],
                                    rtol=0, atol=1e-6)
         assert (res['tri'] >= 0).sum() > R // 10, 'too few hits'
-    # every rank ran D rounds a ring trace and D hops
+    # every rank ran D rounds a ring trace and D hops; a round is the
+    # cluster tracer's call, or with alpha maps the JAX ring's sweep
     for s in res['stats']:
         g = s['ring']
         assert g['ring_rounds'] == D * g['ring_traces'] > 0
-        assert g['hops'] == g['ring_rounds'] and g['plain_calls'] > 0
+        assert g['hops'] == g['ring_rounds'] and g['march_passes'] == 0
+        rounds = g['sweeps'] if alpha else g['plain_calls']
+        assert rounds == g['ring_rounds']
+        assert (g['plain_calls'] if alpha else g['sweeps']) == 0
 
 
 def test_ring_needs_a_single_level_table():
@@ -170,21 +175,22 @@ def test_ring_needs_a_single_level_table():
 def test_no_deadlock_when_ranks_part(tmp_path):
     """Four ranks over alpha_leaf_standin at 8x8: alone, their chunks would
     trace different counts of times (a chunk of sky stops after its
-    first trace; the leaves take alpha passes). Under 'ring' every rank
-    takes the shared decisions, traces as often as the others, and the
-    frame equals the data-parallel one."""
+    first trace; the leaves' paths go on). Under 'ring' every rank takes
+    the shared decisions, traces as often as the others, and the frame
+    equals the data-parallel one under 'cluster', the same alpha rule."""
     make, kw = SCENES['alpha_leaf']
+    kw = dict(kw, intersector='cluster')
     sp, cam, st = cpu(make, **kw)
-    passes = []
+    traces = []
     for i, (px, py) in enumerate(_chunks(st, 4)):
-        n0 = ct.MARCH_PASSES
+        n0 = ct.SWEEPS
         render_pixels(sp, cam, st, 1, torch.from_numpy(px),
                       torch.from_numpy(py),
                       rng.fold_in(rng.PRNGKey(7), i))
-        passes.append(ct.MARCH_PASSES - n0)
-    # the bottom rank: one pass of camera rays that all miss, one of dead
+        traces.append(ct.SWEEPS - n0)
+    # the bottom rank: one trace of camera rays that all miss, one of dead
     # shadow rays, then its loop would stop; the leaves' ranks go on
-    assert passes[0] == 2 and max(passes) > 2, passes
+    assert traces[0] == 2 and max(traces) > 2, traces
     res = worker.launch(
         4, ['--scene', make.__name__, '--scene-kw', json.dumps(kw),
             '--tasks', 'render_geometry,render'],
@@ -194,5 +200,7 @@ def test_no_deadlock_when_ranks_part(tmp_path):
     stats = [s['render_geometry'] for s in json.loads(str(res['stats']))]
     assert len({(s['ring_traces'], s['march_passes'], s['flags'])
                 for s in stats}) == 1, stats
-    # each ring trace is one pass of the alpha march
-    assert stats[0]['march_passes'] == stats[0]['ring_traces'] > 0
+    # no alpha march under 'ring': each round is one sweep of the JAX ring
+    assert stats[0]['march_passes'] == 0 and stats[0]['ring_traces'] > 0
+    assert stats[0]['sweeps'] == stats[0]['ring_rounds'] \
+        == 4 * stats[0]['ring_traces']
