@@ -215,10 +215,17 @@ through `parallel/sharding.loss_and_grads_scanned`, Adam steps through
      each gradient, finite difference and relative error, held;
  39. `python -m raytracer_tpu_torch.scaling --backend gloo --ranks 1,2
      --size 64` on the one card: its lines, which call themselves no
-     scaling figure (both ranks share the card).
+     scaling figure (both ranks share the card);
+ 40. RenderSettings.remat: phase 13's 1080p step with remat off and on,
+     the same key (median wall of 3 after a warm-up, peak memory, the
+     cluster kernel's launches in the forward pass and in the backward
+     pass's replays apart): the remat step under phase 15's rule against
+     the plain one, at a lower peak; then the 4-spp 1080p step in one
+     2^21-pixel tile with remat on (wall, peak memory, a finite loss,
+     nonzero grads).
 
 Each path (phases 5, 7, 9, 10, 13, 14, 16-18, 20, 22's frame, the
-motion-blurred prototype's trace, 30, 31, 34-36) is driven with every
+motion-blurred prototype's trace, 30, 31, 34-36, 40) is driven with every
 launch and plain-version count set to 0 just before and read just after;
 in phases 25-28 and 37 each rank does so around each of its tasks, and
 every rank of 25-28 must have launched the cluster kernel and called no
@@ -265,7 +272,7 @@ from raytracer_tpu_torch.render import integrator
 from raytracer_tpu_torch.render.renderer import render_pixels
 from raytracer_tpu_torch.scenes import assets, registry
 from raytracer_tpu_torch.shading import procedural
-from raytracer_tpu_torch.utils import profiling
+from raytracer_tpu_torch.utils import counters, profiling
 
 WIDTH, HEIGHT, BOUNCES = 1920, 1080, 10
 N_RAYS = 32_768
@@ -284,8 +291,8 @@ INSTANCED = (
      INSTANCED_REPLACES[1][1]))
 # the reduced final forest of the CPU/GPU parity check (phase 11)
 FOREST_PARITY = dict(n_trees=4, n_flowers=20, grass_grid=8, max_bounces=1)
-KERNELS = (ck, isk, ick, mtk, bvk)
-PLAINS = (ct, ist, ict, tmt, ttr)
+KERNELS = tuple(counters.KERNELS.values())
+PLAINS = counters.PLAINS
 # the 'pallas' cells: sponza_standin cut to 12 spheres (8,836 triangles)
 MT_SPHERES = 12
 MT_REPLACES = 'raytracer_tpu/ops/pallas/mt_kernel.py:122'
@@ -299,6 +306,8 @@ EDGE_SAMPLES = 4096
 RANKS = 2
 RANK_TILE = 1 << 20
 RANK_TIMEOUT = 400
+# the remat phase's (40) samples a pixel in its one 2^21-pixel tile
+REMAT_SPP = 4
 # render_adaptive's cells: levels 1-3, convergence from level 2
 ADAPTIVE = dict(min_subdivs=2, max_subdivs=3, noise_threshold=0.05)
 
@@ -548,17 +557,6 @@ def compare_instanced(scene, cam, kernel, plain, dev):
     return max_err, ms_k, ms_p, work.bound()
 
 
-def reset_counts() -> None:
-    """Every kernel's launch counts and every plain version's call count
-    to 0, just before a path is driven."""
-    for mod in KERNELS:
-        mod.LAUNCHES = 0
-        mod.MODES.clear()
-    for mod in PLAINS:
-        mod.CALLS = 0
-    ct.MARCH_PASSES = ct.MARCH_SYNCS = ct.SWEEPS = 0
-
-
 def check_only(kernel, tag) -> int:
     """After a driven path: `kernel` launched, no other kernel, no plain
     version -> its launch count."""
@@ -577,7 +575,7 @@ def render_cell(scene, cam, st, key, kernel, tag, also=(), **fields):
     (the kernel's launch count, {kernel module: launches by mode}, both
     read right after that first render, and its image)."""
     torch.cuda.reset_peak_memory_stats()
-    reset_counts()
+    counters.reset()
     t0 = time.perf_counter()
     img = rt.render(scene, cam, st, key)
     torch.cuda.synchronize()
@@ -907,7 +905,7 @@ def train_cell(scene, cam, st, key) -> None:
     the vertex step reshuffles them between rays and the fixed-key noise
     of target and render no longer cancels (the loss rose, 0.53 -> 0.79,
     with the sort on)."""
-    reset_counts()
+    counters.reset()
     torch.cuda.reset_peak_memory_stats()
     res = bench.run(WIDTH, HEIGHT, BOUNCES, tile=bench.TRAIN_TILE,
                     built=(scene, cam, st))
@@ -955,7 +953,7 @@ def pallas_cell(dev, key) -> int:
         ray_tile=bench.TRAIN_TILE, intersector='pallas', device=dev)
     target = torch.zeros((HEIGHT, WIDTH, 3), device=dev)
     torch.cuda.reset_peak_memory_stats()
-    reset_counts()
+    counters.reset()
     t0 = time.perf_counter()
     loss, grads = ts.loss_and_grads_scanned(ts.get_params(scene), scene, cam,
                                             st, target, key,
@@ -1025,7 +1023,7 @@ def edges_cell(dev, key) -> None:
     kw = dict(tile=bench.TRAIN_TILE, edge_samples=EDGE_SAMPLES,
               gi_edges=True)
     torch.cuda.reset_peak_memory_stats()
-    reset_counts()
+    counters.reset()
     (loss, grads), first_s = synced(lambda: ed.loss_and_grads_with_edges(
         params, scene, cam, st, target, key, **kw))
     launches = check_only(ck, 'train_edges_1080p')
@@ -1079,7 +1077,7 @@ def shadow_edges_cell(dev, key) -> None:
     """Phase 17: the shadow boundary term on `triangle_sphere`, 1080^2."""
     scene, cam, st = registry.triangle_sphere(size=HEIGHT, device=dev)
     dL = adjoint_of(scene, cam, st, key)
-    reset_counts()
+    counters.reset()
     g, wall = synced(lambda: ed.shadow_edge_vertex_grad(
         scene, cam, st, dL, key, n_samples=EDGE_SAMPLES))
     launches = check_only(ck, 'shadow_edges_1080p')
@@ -1097,7 +1095,7 @@ def instanced_edges_cell(dev, key) -> None:
         WIDTH, HEIGHT, device=dev)
     assert scene.edges is not None and scene.edges.pair_inst is not None
     dL = adjoint_of(scene, cam, st, key)
-    reset_counts()
+    counters.reset()
     g, wall = synced(lambda: ed.edge_sampling_vertex_grad(
         scene, cam, st, dL, key, n_samples=EDGE_SAMPLES))
     used = [m for m in KERNELS if m.LAUNCHES]
@@ -1195,7 +1193,7 @@ def adaptive_cell(dev, key) -> None:
         WIDTH, HEIGHT, max_bounces=BOUNCES, **ADAPTIVE,
         device=dev)
     torch.cuda.reset_peak_memory_stats()
-    reset_counts()
+    counters.reset()
     (img, cnt), first_s = synced(lambda: rt.render_adaptive(
         scene, cam, st, key, with_counts=True))
     launches = check_only(ck, 'adaptive_1080p')
@@ -1438,7 +1436,7 @@ def bvh_cell(dev, key, records, frame_auto) -> None:
                     fan=True)[0]
     record['max_abs_err'] = max(record['max_abs_err'], e)
     o, d, _ = cam_mod.center_rays(cam_p, 256, 128)
-    reset_counts()
+    counters.reset()
     h = integrator.trace_fn(proto, rt.RenderSettings())(
         o, d, 0.5, 1e-3, 1e12, False)
     check_only(bvk, 'mb_prototype_auto')
@@ -1547,7 +1545,7 @@ def loaders_cell(dev, key, frame_auto) -> None:
     assert static == want_static and arrays.keys() == want_arrays.keys()
     differ = [k for k in arrays if arrays[k].dtype != want_arrays[k].dtype
               or arrays[k].tobytes() != want_arrays[k].tobytes()]
-    reset_counts()
+    counters.reset()
     img = rt.render(scene, cam, st, key)
     torch.cuda.synchronize()
     check_only(ck, 'render_1080p_from_obj')
@@ -1939,7 +1937,7 @@ def sponza_proxy_cell(scene, cam, st, key) -> None:
                   clusters=scene.clusters.num_clusters)
     render_cell(scene, cam, st, key, ck, 'render_1080p_sponza_proxy_hd',
                 **fields)
-    reset_counts()
+    counters.reset()
     res = bench.run(WIDTH, HEIGHT, BOUNCES, tile=bench.TRAIN_TILE, iters=3,
                     built=(scene, cam, st))
     launches = check_only(ck, 'train_1080p_sponza_proxy_hd')
@@ -2107,7 +2105,7 @@ def xla_frame_cell(scene, cam, st, key) -> None:
     W, H = XLA_FRAME
     st = dataclasses.replace(st, width=W, height=H, intersector='cluster',
                              ray_tile=registry.frame_tile(W, H, 'cuda'))
-    reset_counts()
+    counters.reset()
     ct.SWEEP_LIVE = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2147,7 +2145,7 @@ def xla_alpha_cell(dev, key) -> None:
     fields = {}
     for mode in ('cluster', 'auto'):
         s = dataclasses.replace(st, intersector=mode)
-        reset_counts()
+        counters.reset()
         t0 = time.perf_counter()
         img = rt.render(scene, cam, s, key)
         torch.cuda.synchronize()
@@ -2178,7 +2176,7 @@ def cluster_pallas_cell(scene, cam, st, key) -> None:
     with the same cluster-kernel launches by mode."""
     out = {}
     for mode in ('auto', 'cluster_pallas'):
-        reset_counts()
+        counters.reset()
         img = rt.render(scene, cam, dataclasses.replace(st, intersector=mode),
                         key)
         torch.cuda.synchronize()
@@ -2284,6 +2282,72 @@ def scaling_plumbing_cell() -> None:
     assert [r['cards'] for r in lines[:2]] == [1, 1]
     assert lines[0]['note'] is None and 'no scaling figure' in lines[1]['note']
     assert not lines[2]['scaling_figure']
+
+
+def remat_cell(dev, key) -> None:
+    """Phase 40: RenderSettings.remat (each bounce step replayed in the
+    backward pass, render/integrator._remat_step). bench.py's 1080p 1-spp
+    step in one 2^21-ray tile, with remat off and on, the same key: each
+    after a warm-up step, the median wall of 3, the peak memory, and the
+    cluster kernel's launches in the forward pass and in the backward
+    pass's replays (utils/counters.RECOMPUTE) apart, counted in the first
+    timed step; the remat step against the plain one under phase 15's
+    rule, at a lower peak. Then the 4-spp step in one 2^21-pixel tile
+    (8,294,400 rays) with remat on: its wall, peak memory, a finite loss
+    and nonzero grads."""
+    scene, cam, st = registry.sponza_standin(
+        WIDTH, HEIGHT, max_bounces=BOUNCES, ray_tile=bench.TRAIN_TILE,
+        device=dev)
+    target = torch.zeros((HEIGHT, WIDTH, 3), device=dev)
+    params = ts.get_params(scene)
+
+    def step(remat, spp=1):
+        return ts.loss_and_grads_scanned(
+            params, scene, cam, dataclasses.replace(st, remat=remat),
+            target, key, spp=spp, tile=bench.TRAIN_TILE)
+
+    out = {}
+    for remat in (False, True):
+        tag = f'remat_{"on" if remat else "off"}_1080p'
+        synced(lambda: step(remat))
+        torch.cuda.reset_peak_memory_stats()
+        counters.reset()
+        walls = []
+        for i in range(3):
+            (loss, grads), wall = synced(lambda: step(remat))
+            walls.append(wall)
+            if i == 0:
+                launches = check_only(ck, tag)
+                replay = dict(counters.RECOMPUTE)
+        loss, peak = float(loss), torch.cuda.max_memory_allocated()
+        assert np.isfinite(loss), f'{tag}: non-finite loss'
+        check_grads(grads, tag)
+        out[remat] = loss, {k: g.cpu() for k, g in grads.items()}, peak
+        del grads
+        phase(tag, wall_s=walls, median_s=statistics.median(walls),
+              peak_mem_gb=peak / 1e9, forward_launches=launches,
+              recompute_launches=replay.get('launches.cluster_trace', 0),
+              recomputed_steps=replay.get('steps', 0), loss=loss)
+        assert (replay.get('steps', 0) > 0) == remat, f'{tag}: replays'
+    rel, worst = grads_rule(*out[True][:2], *out[False][:2])
+    phase('remat_parity', loss_rel_diff=rel, grad_excess_over_tol=worst,
+          peak_ratio=out[True][2] / out[False][2])
+    assert rel <= 1e-4 and max(worst.values()) <= 0.0, 'remat: grads differ'
+    assert out[True][2] < out[False][2], 'remat: no lower peak'
+    del out
+    torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    (loss, grads), wall = synced(lambda: step(True, REMAT_SPP))
+    launches = check_only(ck, 'remat_4spp_1080p')
+    assert bool(torch.isfinite(loss)), 'remat 4 spp: non-finite loss'
+    check_grads(grads, 'remat_4spp_1080p')
+    phase('remat_4spp_1080p', spp=REMAT_SPP, tile_pixels=bench.TRAIN_TILE,
+          rays=WIDTH * HEIGHT * REMAT_SPP, wall_s=wall,
+          primary_rays_per_s=WIDTH * HEIGHT * REMAT_SPP / wall,
+          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+          forward_launches=launches,
+          recompute_launches=counters.RECOMPUTE['launches.cluster_trace'],
+          loss=float(loss))
 
 
 def check_image(img, shape) -> None:
@@ -2482,6 +2546,9 @@ def main(dev=None) -> int:
         ring_alpha_cell(dev)
         edges_fd_cell(dev)
         scaling_plumbing_cell()
+
+    # --------------------------------------------------------- 40. remat
+    remat_cell(dev, key)
 
     print(json.dumps({'kernels': [
         {k: r[k] for k in ('name', 'route', 'source', 'replaces', 'launches',

@@ -2,7 +2,7 @@
 
     python -m raytracer_tpu_torch.bench [--width 1920] [--height 1080]
                                         [--bounces 10] [--spp 1]
-                                        [--tile N] [--iters 5]
+                                        [--tile PIXELS] [--iters 5]
 
 bench.py's configuration on the port: `sponza_standin` (the asset-free
 stand-in of bench.py's `sponza_proxy(hd=True)`, 174,724 triangles) at
@@ -14,7 +14,8 @@ takes its own key and ends in torch.cuda.synchronize(). Prints ONE JSON
 line with bench.py's keys (metric, value, unit, vs_baseline, wall median
 and spread, iters) under the metric name
 `primary_rays_per_sec_fwd_bwd_sponza_standin_1080p`, plus the peak device
-memory, the ray tile and the card's `nvidia-smi` name and power limit.
+memory, the tile (`ray_tile`, in pixels of `spp` rays each) and the
+card's `nvidia-smi` name and power limit.
 vs_baseline divides by bench.py's estimate of the reference's CPU rate
 (15,000 primary rays/s, forward only). Raises without a card.
 """
@@ -37,8 +38,10 @@ from .scenes import registry
 METRIC = 'primary_rays_per_sec_fwd_bwd_sponza_standin_1080p'
 REF_RAYS_PER_SEC = 15_000.0     # bench.py's estimate of the reference
 # rays per tile of the training step: one tile holds the whole 1080p frame
-# (the largest power of two that fits the 80 GB card with room to spare;
-# PERF.md section 5 lists the peak at each size tried)
+# at 1 spp (the largest power of two that fits the 80 GB card with room to
+# spare; PERF.md section 5 lists the peak at each size tried). A tile
+# counts pixels, each of `spp` rays, so the default tile is
+# TRAIN_TILE // spp pixels
 TRAIN_TILE = 1 << 21
 
 
@@ -51,13 +54,15 @@ def card() -> str:
 
 
 def run(width: int = 1920, height: int = 1080, bounces: int = 10,
-        spp: int = 1, tile: int = TRAIN_TILE, iters: int = 5,
+        spp: int = 1, tile: int | None = None, iters: int = 5,
         built=None) -> dict:
     """Build the scene (or take `built`, its (scene, camera, settings) on
-    the card), warm up, time `iters` steps -> the result line as a dict,
-    with the last step's loss and grads under '_loss' and '_grads'."""
+    the card), warm up, time `iters` steps of `tile` pixels a tile
+    (TRAIN_TILE // spp by default) -> the result line as a dict, with the
+    last step's loss and grads under '_loss' and '_grads'."""
     if not torch.cuda.is_available():
         raise RuntimeError('the benchmark needs a CUDA device')
+    tile = tile or TRAIN_TILE // spp
     cluster_kernel.build()
     scene, cam, st = built or registry.sponza_standin(
         width, height, max_bounces=bounces, ray_tile=tile)
@@ -88,8 +93,9 @@ def run(width: int = 1920, height: int = 1080, bounces: int = 10,
         'wall_spread_s': [min(walls), max(walls)], 'iters': iters,
         'warmup_s': warm_s,
         'peak_mem_gb': torch.cuda.max_memory_allocated() / 1e9,
-        'ray_tile': tile, 'bounces': bounces, 'triangles': scene.num_tris,
-        'device': card(), '_loss': loss, '_grads': grads}
+        'ray_tile': tile, 'spp': spp, 'bounces': bounces,
+        'triangles': scene.num_tris, 'device': card(), '_loss': loss,
+        '_grads': grads}
 
 
 def main(argv=None) -> int:
@@ -98,7 +104,8 @@ def main(argv=None) -> int:
     ap.add_argument('--height', type=int, default=1080)
     ap.add_argument('--bounces', type=int, default=10)
     ap.add_argument('--spp', type=int, default=1)
-    ap.add_argument('--tile', type=int, default=TRAIN_TILE)
+    ap.add_argument('--tile', type=int, default=None,
+                    help='pixels a tile (default TRAIN_TILE // spp)')
     ap.add_argument('--iters', type=int, default=5)
     a = ap.parse_args(argv)
     res = run(a.width, a.height, a.bounces, a.spp, a.tile, a.iters)

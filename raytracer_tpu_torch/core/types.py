@@ -278,6 +278,12 @@ class RenderSettings:
     # secondary (non-primary) rays draw one sample of the dome light
     # (src/DomeLight.cpp:89)
     light_secondary_single: bool = True
+    # recompute each bounce step in the backward pass instead of keeping
+    # its intermediates (the JAX field's jax.checkpoint of the scan body;
+    # here torch.utils.checkpoint, render/integrator.radiance): autograd
+    # keeps only each step's ray state, about 125 bytes a ray, and the
+    # backward pass runs every step's forward once more
+    remat: bool = False
 
 
 @dataclass

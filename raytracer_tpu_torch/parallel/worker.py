@@ -26,9 +26,11 @@ and runs --tasks in order over the mesh of every rank:
                   alpha maps), nearest (t, tri, a, b) and any-hit (any_t,
                   any_tri)
 
-A task named `<task>@nosort` runs with the wavefront sort off; --repeat
-runs each task that many times (the first run of a task in a process
-pays its warm-up), its stats the last run's with every run's wall. The
+A task named `<task>@nosort` runs with the wavefront sort off, and
+`<task>@remat` with RenderSettings.remat on (the stats' `recompute`:
+what the backward pass's replays counted); --repeat runs each task
+that many times (the first run of a task in a process pays its
+warm-up), its stats the last run's with every run's wall. The
 parameters are the scene's, with --shift added to the vertices; the target
 is black (bench.py's), with --spp samples a pixel (1) in the render and
 step tasks. Every loss, gradient and image must be finite. Rank 0 writes
@@ -55,13 +57,9 @@ import torch
 
 from ..core import rng
 from ..diff import edges
-from ..ops import cluster_trace as ct, icluster_trace as ict
-from ..ops import iseg_trace as ist, mt_trace as tmt, ring_trace as ring
-from ..ops import traverse as ttr
-from ..ops.cuda import bvh_kernel as bvk, cluster_kernel as ck
-from ..ops.cuda import icluster_kernel as ick, iseg_kernel as isk
-from ..ops.cuda import mt_kernel as mtk
+from ..ops import cluster_trace as ct, ring_trace as ring
 from ..scenes import registry
+from ..utils import counters
 from . import distributed, sharding
 
 # the train task's Adam steps and rate (the JAX dry run's two steps), and
@@ -132,34 +130,21 @@ def launch(n: int, args: list, out: str, device: str = 'cuda',
     return res
 
 
-KERNELS = dict(cluster_trace=ck, iseg_trace=isk, icluster_trace=ick,
-               mt_trace=mtk, bvh_trace=bvk)
-PLAINS = (ct, ist, ict, tmt, ttr)
-
-
 def _counts() -> dict:
     """Every kernel's launches by mode, the plain versions' calls, the
     alpha march's passes, the near-ordered sweeps (ops/cluster_trace.
     local_sweep: intersector 'cluster', the ring's rounds in a scene with
-    alpha maps) and the ring's traces, rounds and collectives since the
-    last reset."""
+    alpha maps), the ring's traces, rounds and collectives since the
+    last reset, and under remat what the backward pass's replays counted
+    (utils/counters.RECOMPUTE)."""
+    kernels = counters.KERNELS.items()
     return dict(
-        launches={k: m.LAUNCHES for k, m in KERNELS.items()},
-        modes={k: dict(m.MODES) for k, m in KERNELS.items() if m.LAUNCHES},
-        plain_calls=sum(m.CALLS for m in PLAINS),
+        launches={k: m.LAUNCHES for k, m in kernels},
+        modes={k: dict(m.MODES) for k, m in kernels if m.LAUNCHES},
+        plain_calls=sum(m.CALLS for m in counters.PLAINS),
         ring_traces=ring.TRACES, ring_rounds=ring.ROUNDS,
         march_passes=ct.MARCH_PASSES, sweeps=ct.SWEEPS,
-        **distributed.STATS)
-
-
-def _reset() -> None:
-    for m in KERNELS.values():
-        m.LAUNCHES = 0
-        m.MODES.clear()
-    for m in PLAINS:
-        m.CALLS = 0
-    ring.TRACES = ring.ROUNDS = ct.MARCH_PASSES = ct.SWEEPS = 0
-    distributed.reset_stats()
+        recompute=dict(counters.RECOMPUTE), **distributed.STATS)
 
 
 def card_of(dev: torch.device) -> str:
@@ -209,10 +194,12 @@ def run_task(a, task: str, scene, cam, st, mesh, out: dict) -> dict:
     """One task of the module docstring, its outputs into `out` -> what
     the task adds to its rank's stats."""
     name, _, flag = task.partition('@')
-    if flag not in ('', 'nosort'):
-        raise ValueError(f'task {task!r}: the one flag is @nosort')
-    if flag:
+    if flag not in ('', 'nosort', 'remat'):
+        raise ValueError(f'task {task!r}: the flags are @nosort and @remat')
+    if flag == 'nosort':
         st = dataclasses.replace(st, sort_rays=False)
+    elif flag == 'remat':
+        st = dataclasses.replace(st, remat=True)
     dev = scene.geom.vertices.device
     key = rng.PRNGKey(a.seed)
     params = sharding.get_params(scene)
@@ -297,7 +284,7 @@ def main(argv=None) -> int:
     for task in a.tasks.split(','):
         walls = []
         for _ in range(a.repeat):
-            _reset()
+            counters.reset()
             if dev.type == 'cuda':
                 torch.cuda.synchronize(dev)
                 torch.cuda.reset_peak_memory_stats(dev)

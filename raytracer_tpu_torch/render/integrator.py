@@ -8,11 +8,14 @@ one continuation ray (diffuse GI, reflection or refraction) is spawned per
 step. The RNG keys, splits and draws are the JAX package's, so one key
 renders the same image on both. The loop stops early once every ray has
 terminated (the JAX package's lax.cond step skip); under 'ring', once
-every ray of every rank has.
+every ray of every rank has. With RenderSettings.remat, each step runs
+under torch.utils.checkpoint and the backward pass recomputes it (the
+JAX package's jax.checkpoint of its scan body; `_remat_step`).
 """
 from __future__ import annotations
 
 import torch
+from torch.utils import checkpoint
 
 from ..core import rng
 from ..core import vecmath as vm
@@ -28,6 +31,7 @@ from ..ops.cuda import iseg_kernel as isk
 from ..ops.cuda import mt_kernel as mtk
 from ..shading import textures as tex
 from ..shading import lights as lt
+from ..utils import counters
 
 IOR_STACK = 12  # the reference's IORList depth (src/Ray.h:151-178)
 KIND_PRIMARY, KIND_GI, KIND_REFLECT, KIND_REFRACT = 0, 1, 2, 3
@@ -318,17 +322,66 @@ def radiance(scene: Scene, settings: RenderSettings, o, d, time,
     # a ring's ranks stop together (ops/ring_trace.py)
     any_live = tracer.any_live if isinstance(tracer, ring.RingTracer) \
         else lambda flag: bool(flag.any())
+    step = _remat_step if settings.remat and torch.is_grad_enabled() \
+        else _step
     for step_idx in range(settings.max_wavefront_steps):
         if not any_live(state['alive']):
             break
-        state = _step(scene, settings, tracer, state, step_idx, base_key,
-                      segment)
+        state = step(scene, settings, tracer, state, step_idx, base_key,
+                     segment)
     if settings.sort_rays:
         # scatter radiance back to the original ray order
         out = torch.zeros_like(state['L'])
         out[state['pix'].long()] = state['L']
         return out
     return state['L']
+
+
+def _remat_step(scene: Scene, settings: RenderSettings, tracer, state,
+                step_idx, base_key, segment=None):
+    """_step under torch.utils.checkpoint (RenderSettings.remat, the JAX
+    package's jax.checkpoint of its scan body): autograd keeps the step's
+    incoming state and nothing of its inside, and the backward pass
+    replays the step to get its intermediates back. The replay is the
+    forward pass again, exactly:
+      * random numbers come from the explicit threefry keys of core/rng
+        (base_key, step_idx); nothing on the path draws from torch's
+        global generators, so preserve_rng_state=False skips saving and
+        restoring them for nothing;
+      * the wavefront sort is a stable argsort of keys computed from the
+        state, and each host decision inside the step (the alpha
+        march's `(~done).any()`, the plain tracers' loops and masked
+        selections) reads the same values; the determinism check stays
+        on and refuses a replay whose intermediates change shape;
+      * the state's tensors go in as the checkpoint's own inputs, so
+        autograd's version counters refuse a backward pass after an
+        in-place write to one of them (the step, the tracers and the
+        march write only into tensors they made);
+      * early stop is off: every replay runs the whole step, so each rank
+        of a ring replays every collective of its step. The ranks' backward
+        passes replay the same steps in the same order, as their graphs
+        are alike.
+    The replay runs inside utils/counters.recomputing: the launch, march,
+    ring and collective counters keep the forward pass's counts, and
+    counters.RECOMPUTE gets the replay's."""
+    keys = tuple(state)
+    replay = False
+
+    def run(*tensors):
+        nonlocal replay
+        args = (scene, settings, tracer, dict(zip(keys, tensors)), step_idx,
+                base_key, segment)
+        if not replay:
+            replay = True
+            return _step(*args)
+        counters.RECOMPUTE['steps'] += 1
+        with counters.recomputing():
+            return _step(*args)
+
+    with checkpoint.set_checkpoint_early_stop(False):
+        return checkpoint.checkpoint(run, *state.values(),
+                                     use_reentrant=False,
+                                     preserve_rng_state=False)
 
 
 def _step(scene: Scene, settings: RenderSettings, tracer, state, step_idx,

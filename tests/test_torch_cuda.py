@@ -15,6 +15,8 @@ exactly, and `inst` too for the instanced kernels. Renders compare to the CPU re
 tolerance of tests/test_torch_render.py (elementwise transcendental
 functions differ between the CPU and CUDA libraries by an ulp or two).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -35,6 +37,7 @@ from raytracer_tpu_torch.ops.cuda import mt_kernel as mtk
 from raytracer_tpu_torch.parallel import sharding as ts
 from raytracer_tpu_torch.render import camera as cam_mod
 from raytracer_tpu_torch.scenes import registry
+from raytracer_tpu_torch.utils import counters
 
 from .torch_port_util import (box_rays, cluster_table, cpu,
                               edge_sample_parity, filled_scene, grazing_rays,
@@ -510,6 +513,38 @@ def test_loss_and_grads_on_card_match_cpu(dev, intersector):
                                  card, cam_d, st, target.to(dev), key)
     assert bool(torch.isfinite(loss)) and not torch.equal(
         params['vertices'], v0)
+
+
+def test_remat_step_on_card_matches_plain(dev):
+    """RenderSettings.remat on the card: one fwd+bwd step of the
+    12-sphere sponza_standin at 256x192, 3 bounces, in one tile, against
+    the plain step of the same key under _assert_grads_close's rule (the
+    backward's atomic scatter sums differ between runs); the forward
+    pass launches as without remat and the replay as much again; the
+    peak memory above the step's start is lower."""
+    scene, cam, st = registry.sponza_standin(256, 192, max_bounces=3,
+                                             n_spheres=12, device=dev)
+    assert st.ray_tile >= 256 * 192
+    target = torch.zeros((192, 256, 3), device=dev)
+    out = {}
+    for remat in (False, True):
+        counters.reset()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        loss, grads = ts.loss_and_grads_scanned(
+            ts.get_params(scene), scene, cam,
+            dataclasses.replace(st, remat=remat), target, rng.PRNGKey(5))
+        torch.cuda.synchronize()
+        out[remat] = ((loss.cpu(), {k: g.cpu() for k, g in grads.items()}),
+                      torch.cuda.max_memory_allocated(dev) - base,
+                      counters.read(), dict(counters.RECOMPUTE))
+    (got, peak, fwd, replay), (want, peak0, fwd0, _) = out[True], out[False]
+    _assert_grads_close(got, want)
+    assert fwd == fwd0 and fwd['launches.cluster_trace'] > 0
+    assert replay['launches.cluster_trace'] == fwd['launches.cluster_trace']
+    assert replay['steps'] > 0 and fwd['calls.cluster_trace'] == 0
+    assert peak < peak0
 
 
 # ------------------------------------------------ the group walk's edges

@@ -67,7 +67,7 @@ RUNS = dict(
                            ['render_geometry', 'step_geometry'],
                            ['--shift', ','.join(map(str, SHIFT))]),
     sponza_12=('sponza_12', ['render', 'render_geometry', 'loss',
-                             'step_geometry'],
+                             'step_geometry', 'step_geometry@remat'],
                ['--shift', ','.join(map(str, SHIFT))]),
     instanced_teapots=('instanced_teapots', ['render'], []),
     triangle_sphere_3=('triangle_sphere', ['render', 'loss',
@@ -319,6 +319,26 @@ def test_geometry_sharded_matches_data_parallel(run):
     for s in res['stats']:
         g = s['render_geometry']
         assert g['hops'] == 2 * g['ring_traces'] > 0 and g['flags'] > 0
+
+
+def test_geometry_sharded_remat_matches_plain(run):
+    """The atrium's geometry-sharded step with RenderSettings.remat
+    against the same step without it, in the same run: each rank replays
+    every step in its backward pass, the ring's hops with it, and its
+    forward pass counts as without remat."""
+    res = run('sponza_12')
+    np.testing.assert_allclose(res['step_geometry@remat/loss'],
+                               res['step_geometry/loss'], rtol=1e-5)
+    for k in ts.PARAM_KEYS:
+        np.testing.assert_allclose(res[f'step_geometry@remat/grad/{k}'],
+                                   res[f'step_geometry/grad/{k}'],
+                                   rtol=2e-4, atol=3e-5, err_msg=k)
+    for s in res['stats']:
+        plain, remat = s['step_geometry'], s['step_geometry@remat']
+        replay = remat['recompute']
+        assert not plain['recompute'] and replay['steps'] > 0
+        for k in ('hops', 'ring_traces', 'ring_rounds'):
+            assert remat[k] == plain[k] == replay[k] > 0, k
 
 
 def test_three_ranks_pad_the_pixels(run):
