@@ -6,11 +6,12 @@ through `parallel/sharding.loss_and_grads_scanned`, Adam steps through
 `train_step`) at 1920x1080, 1 spp, in phases:
 
   1. device: the card's name and power limit; TF32 off;
-  2. build: the five CUDA kernels (cluster, segment and hierarchical
-     instance trace, the brute-force MT sweep, the wide-BVH walk; one nvcc
-     each, all started together, each with csrc/trace_common.cuh) and the
-     native host library, all compiled from this checkout; each kernel's
-     registers, spills and shared memory (ptxas -v);
+  2. build: the six CUDA kernels (cluster, segment and hierarchical
+     instance trace, the brute-force MT sweep, the wide-BVH walk, each
+     with csrc/trace_common.cuh; core/rng's threefry; one nvcc each, all
+     started together) and the native host library, all compiled from
+     this checkout; each kernel's registers, spills and shared memory
+     (ptxas -v);
   3. scene: the 174,724-triangle `sponza_standin` atrium, built on the
      card;
   4. the cluster kernel against its plain PyTorch version, both on the
@@ -22,7 +23,8 @@ through `parallel/sharding.loss_and_grads_scanned`, Adam steps through
      sorted bounce from their hits (any-hit), bit for bit;
   5. the full 1080p, 10-bounce path-traced render with intersector 'auto':
      the kernel must carry every trace (launch count > 0, plain-version
-     calls 0); then the median wall time of 3 renders;
+     calls 0) and the threefry kernel every draw (as in every render
+     phase); then the median wall time of 3 renders;
   6. the same key rendered at 64x48, 3 bounces, on the CPU (plain version)
      and on the card (kernel): the images must agree;
   7. two-level instancing, for `instanced_grid_standin` (100,000
@@ -222,10 +224,21 @@ through `parallel/sharding.loss_and_grads_scanned`, Adam steps through
      pass's replays apart): the remat step under phase 15's rule against
      the plain one, at a lower peak; then the 4-spp 1080p step in one
      2^21-pixel tile with remat on (wall, peak memory, a finite loss,
-     nonzero grads).
+     nonzero grads);
+ 41. the threefry kernel (csrc/threefry.cu, core/rng on the card): one
+     1080p 10-bounce fwd+bwd step of `sponza_standin` (bench.py's step),
+     whose every draw it makes (its launches, the cluster kernel's, no
+     plain version); then at that step's shapes (R = 2,073,600 rays: the
+     bounce loop's (R, 3), the lights' (1, R, 2) along axis 1, the
+     camera's (R, 5)) against the plain int64 version on the card, bit
+     for bit, with CUDA-event times (median of 5) and its bound (the
+     larger of the bytes written over 3.35 TB/s and its integer
+     operations over 33.5e12 int32 operations/s); bit for bit also in its
+     other modes and layouts (segmented along both axes, random_bits,
+     fold_in of a tensor and draws from that batch of keys).
 
 Each path (phases 5, 7, 9, 10, 13, 14, 16-18, 20, 22's frame, the
-motion-blurred prototype's trace, 30, 31, 34-36, 40) is driven with every
+motion-blurred prototype's trace, 30, 31, 34-36, 40, 41) is driven with every
 launch and plain-version count set to 0 just before and read just after;
 in phases 25-28 and 37 each rank does so around each of its tasks, and
 every rank of 25-28 must have launched the cluster kernel and called no
@@ -266,6 +279,7 @@ from raytracer_tpu_torch.ops.cuda import cluster_kernel as ck
 from raytracer_tpu_torch.ops.cuda import icluster_kernel as ick
 from raytracer_tpu_torch.ops.cuda import iseg_kernel as isk
 from raytracer_tpu_torch.ops.cuda import mt_kernel as mtk
+from raytracer_tpu_torch.ops.cuda import rng_kernel as rk
 from raytracer_tpu_torch.parallel import sharding as ts, worker
 from raytracer_tpu_torch.render import camera as cam_mod
 from raytracer_tpu_torch.render import integrator
@@ -316,6 +330,22 @@ ADAPTIVE = dict(min_subdivs=2, max_subdivs=3, noise_threshold=0.05)
 # float32 outside the tensor cores and HBM3
 PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# H100 SXM peak INT32 rate (the Hopper architecture white paper, 33.5
+# TOPS: the INT32 lanes and the integer adds of the FMA pipe together),
+# for the threefry kernel (phase 41)
+PEAK_INT_OPS = 33.5e12
+# launches a CUDA-event time of the threefry kernel spans (a draw takes
+# tens of microseconds, near the events' own resolution)
+THREEFRY_REPS = 20
+# integer operations of one threefry2x32 block: the key's third word (2),
+# the first injection (2), 20 rounds of add, rotate and xor (60), five
+# injections of three adds (15); then the output: the words' xor, and for
+# a float32 uniform the shift, the or and the subtraction
+THREEFRY_OPS = dict(uniform=2 + 2 + 60 + 15 + 4, bits=2 + 2 + 60 + 15 + 1)
+THREEFRY_SOURCE = 'raytracer_tpu_torch/csrc/threefry.cu'
+# not a TPU kernel: on the card it takes the place of the plain int64
+# block, which the JAX package does not have (it draws with jax.random)
+THREEFRY_REPLACES = 'raytracer_tpu_torch/core/rng.py:43'
 # float32 operations of one (ray, box) slab test (6 subtractions, 6
 # multiplies, 10 min/max, 2 compares), one Moller-Trumbore test
 # (ops/mt_trace._mt_block: 45 multiplies, adds and the divide) and the
@@ -326,8 +356,8 @@ BOX_OPS, MT_OPS, LERP_OPS = 24, 45, 27
 
 class Work:
     """Operations and bytes of a kernel's cases, summed: the bound_ms of
-    the kernels line is the larger of ops / PEAK_FLOPS and bytes /
-    PEAK_BYTES."""
+    the kernels line is the larger of ops / PEAK_FLOPS (PEAK_INT_OPS for
+    the threefry kernel's integer work) and bytes / PEAK_BYTES."""
 
     def __init__(self):
         self.ops = 0.0
@@ -356,8 +386,8 @@ class Work:
         return dict(box_tests_per_ray=ct.TESTS['box'] / rays,
                     tri_tests_per_ray=ct.TESTS['tri'] / rays)
 
-    def bound(self) -> dict:
-        f = self.ops / PEAK_FLOPS * 1e3
+    def bound(self, peak_ops: float = PEAK_FLOPS) -> dict:
+        f = self.ops / peak_ops * 1e3
         b = self.nbytes / PEAK_BYTES * 1e3
         return dict(bound_ms=max(f, b),
                     bound_by='operations' if f >= b else 'bytes',
@@ -583,7 +613,7 @@ def render_cell(scene, cam, st, key, kernel, tag, also=(), **fields):
     launches = kernel.LAUNCHES
     plain_calls = sum(m.CALLS for m in PLAINS)
     march = dict(passes=ct.MARCH_PASSES, syncs=ct.MARCH_SYNCS)
-    modes = {m: dict(m.MODES) for m in KERNELS if m.LAUNCHES}
+    modes = {m: dict(m.MODES) for m in (*KERNELS, rk) if m.LAUNCHES}
     others = [m.LAUNCHES for m in KERNELS
               if m is not kernel and m not in also]
     assert launches > 0, f'{tag}: the render never launched the kernel'
@@ -591,6 +621,7 @@ def render_cell(scene, cam, st, key, kernel, tag, also=(), **fields):
         assert m.LAUNCHES > 0, f'{tag}: the render never launched {m}'
     assert plain_calls == 0, f'{tag}: the render called a plain tracer'
     assert not any(others), f'{tag}: the render launched another kernel'
+    assert rk.LAUNCHES > 0, f'{tag}: the render drew without the kernel'
     check_image(img, (st.height, st.width, 3))
     walls = []
     for _ in range(3):
@@ -2350,6 +2381,97 @@ def remat_cell(dev, key) -> None:
           loss=float(loss))
 
 
+def threefry_case(tag, kernel, plain, nbytes, ops):
+    """One draw by the kernel and by the plain version on the same card:
+    bit for bit, both CUDA-event times (median of 5; the kernel's over
+    THREEFRY_REPS launches in a row, divided) and the draw's bytes and
+    operations -> (ms, plain ms, Work)."""
+    got = kernel()
+    ms_k = cuda_ms(lambda: [kernel() for _ in range(THREEFRY_REPS)])[0] \
+        / THREEFRY_REPS
+    ms_p, want = cuda_ms(plain)
+    got, want = (got,) if torch.is_tensor(got) else got, \
+        (want,) if torch.is_tensor(want) else want
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, tag
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w), f'threefry {tag}: the kernel differs'
+    work = Work()
+    work.add(ops, nbytes)
+    phase('threefry_kernel_vs_plain', case=tag, shape=list(got[0].shape),
+          ms=ms_k, plain_ms=ms_p, equal=True, **work.bound(PEAK_INT_OPS))
+    return ms_k, ms_p, work
+
+
+def threefry_cell(dev, key) -> dict:
+    """Phase 41: the threefry kernel on the main path, then against its
+    plain version (core/rng.plain_*) at that path's shapes and in its
+    other modes and layouts -> its record for the kernels line (ms,
+    plain_ms and bound_ms over the three main-path draws, one each;
+    launches in the driven step)."""
+    scene, cam, st = registry.sponza_standin(
+        WIDTH, HEIGHT, max_bounces=BOUNCES, ray_tile=bench.TRAIN_TILE,
+        device=dev)
+    target = torch.zeros((HEIGHT, WIDTH, 3), device=dev)
+    step = lambda: ts.loss_and_grads_scanned(
+        ts.get_params(scene), scene, cam, st, target, key,
+        tile=bench.TRAIN_TILE)
+    synced(step)
+    counters.reset()
+    (loss, grads), wall = synced(step)
+    check_only(ck, 'threefry_train_1080p')
+    launches, modes = rk.LAUNCHES, dict(rk.MODES)
+    assert launches > 0, 'the step drew without the threefry kernel'
+    assert bool(torch.isfinite(loss)), 'threefry step: non-finite loss'
+    check_grads(grads, 'threefry_train_1080p')
+    phase('threefry_train_1080p', wall_s=wall, launches=launches,
+          launches_by_mode=modes, cluster_launches=ck.LAUNCHES,
+          loss=float(loss))
+    del grads, scene
+    R = WIDTH * HEIGHT
+    k = rng.fold_in(key, 41)
+    total = [0.0, 0.0, Work()]
+    # the main path's draws: the bounce loop's, the lights', the camera's
+    for tag, shape, axis in (('bounce', (R, 3), 0),
+                             ('lights', (1, R, 2), 1),
+                             ('camera', (R, 5), 0)):
+        n = int(np.prod(shape))
+        ms_k, ms_p, work = threefry_case(
+            tag, lambda: rng.uniform_segmented(k, shape, None, axis, dev),
+            lambda: rng.plain_uniform(k, shape, dev, None, axis),
+            4 * n, THREEFRY_OPS['uniform'] * n)
+        total[0] += ms_k
+        total[1] += ms_p
+        total[2].add(work.ops, work.nbytes)
+    # the other modes and layouts, bit for bit (render_adaptive's segments
+    # and per-pixel keys, the edge trainer's random_bits)
+    for tag, shape, seg, axis in (('bounce_segmented', (R, 3), 1024, 0),
+                                  ('lights_segmented', (1, R, 2), 1024, 1)):
+        n = int(np.prod(shape))
+        threefry_case(
+            tag, lambda: rng.uniform_segmented(k, shape, seg, axis, dev),
+            lambda: rng.plain_uniform(k, shape, dev, seg, axis),
+            4 * n, THREEFRY_OPS['uniform'] * n)
+    threefry_case('bits', lambda: rng.random_bits(k, (R,), dev),
+                  lambda: rng.plain_bits(k, (R,), dev),
+                  8 * R, THREEFRY_OPS['bits'] * R)
+    ids = torch.arange(R, dtype=torch.int32, device=dev)
+    words = lambda kk: (kk.k1, kk.k2)
+    threefry_case('fold_in', lambda: words(rng.fold_in(k, ids)),
+                  lambda: words(rng.plain_fold_in(k, ids)),
+                  4 * R + 16 * R, (THREEFRY_OPS['bits'] - 1) * R)
+    keys = rng.fold_in(k, ids[:R // 8])
+    threefry_case('batch_keys', lambda: rng.uniform(keys, (5,)),
+                  lambda: rng.plain_uniform(keys, (5,), dev),
+                  16 * (R // 8) + 20 * (R // 8),
+                  THREEFRY_OPS['uniform'] * 5 * (R // 8))
+    return dict(name='threefry', route='cuda', source=THREEFRY_SOURCE,
+                replaces=THREEFRY_REPLACES, launches=launches,
+                max_abs_err=0.0, ms=total[0], plain_ms=total[1],
+                **total[2].bound(PEAK_INT_OPS))
+
+
 def check_image(img, shape) -> None:
     assert tuple(img.shape) == shape, img.shape
     assert bool(torch.isfinite(img).all()), 'non-finite pixels'
@@ -2377,11 +2499,12 @@ def main(dev=None) -> int:
         return time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(6) as pool:
+    with ThreadPoolExecutor(7) as pool:
         jobs = {name: pool.submit(timed, fn) for name, fn in (
             ('cluster_trace_s', ck.build), ('iseg_trace_s', isk.build),
             ('icluster_trace_s', ick.build), ('mt_trace_s', mtk.build),
-            ('bvh_trace_s', bvk.build), ('native_host_s', native.get_lib))}
+            ('bvh_trace_s', bvk.build), ('threefry_s', rk.build),
+            ('native_host_s', native.get_lib))}
         built = {name: job.result() for name, job in jobs.items()}
     phase('build', wall_s=time.perf_counter() - t0, **built)
     # registers, spills and shared memory of every kernel instantiation
@@ -2391,7 +2514,7 @@ def main(dev=None) -> int:
                              or 'Used' in line]
                       for name in ('cluster_trace', 'iseg_trace',
                                    'icluster_trace', 'mt_trace',
-                                   'bvh_trace')})
+                                   'bvh_trace', 'threefry')})
 
     # ----------------------------------------------------------- 3. scene
     t0 = time.perf_counter()
@@ -2549,6 +2672,9 @@ def main(dev=None) -> int:
 
     # --------------------------------------------------------- 40. remat
     remat_cell(dev, key)
+
+    # ------------------------------------------------ 41. the threefry kernel
+    records.append(threefry_cell(dev, key))
 
     print(json.dumps({'kernels': [
         {k: r[k] for k in ('name', 'route', 'source', 'replaces', 'launches',

@@ -7,14 +7,22 @@ words held as Python ints, and key derivation runs on the host. A batch
 of keys holds its words as int64 tensors of one shape: `fold_in` of a key
 with a tensor of data makes one (jax.vmap(fold_in, (None, 0))), and
 `uniform` / `random_bits` of such keys draw `shape` numbers per key, into
-a tensor of shape keys + shape. Tensor arithmetic is int64 masked to 32
-bits, because torch's uint32 support is incomplete (on CUDA especially).
+a tensor of shape keys + shape.
+
+On the card every draw, and fold_in of a tensor, is one launch of the
+threefry kernel (ops/cuda/rng_kernel, csrc/threefry.cu), which raises
+rather than fall back. On the CPU the plain version runs: the block as
+int64 tensor arithmetic masked to 32 bits (torch's uint32 support is
+incomplete), which is the kernel's reference. Other devices raise.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
+
+from ..ops.cuda import rng_kernel
 
 _M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -55,9 +63,22 @@ def PRNGKey(seed: int) -> Key:
                int(seed) & _M32)
 
 
-def fold_in(key: Key, data) -> Key:
-    """jax.random.fold_in: threefry of the counter pair (0, data). A tensor
-    of data gives a batch of keys of its shape."""
+def _on_card(device) -> bool:
+    """True for a CUDA device (the kernel), False for the CPU (the plain
+    version; None is the CPU, torch's default); other devices raise."""
+    kind = torch.device('cpu' if device is None else device).type
+    if kind not in ('cuda', 'cpu'):
+        raise ValueError(f'core/rng: unsupported device {device}')
+    return kind == 'cuda'
+
+
+def _key_device(key: Key, device):
+    """A batch of keys draws on its own device, a host key on `device`."""
+    return key.k1.device if isinstance(key.k1, torch.Tensor) else device
+
+
+def plain_fold_in(key: Key, data) -> Key:
+    """The plain version of fold_in, on any device."""
     if isinstance(data, torch.Tensor):
         data = data.to(torch.int64) & _M32
     else:
@@ -65,34 +86,74 @@ def fold_in(key: Key, data) -> Key:
     return Key(*_threefry2x32(key.k1, key.k2, 0, data))
 
 
+def fold_in(key: Key, data) -> Key:
+    """jax.random.fold_in: threefry of the counter pair (0, data). A tensor
+    of data gives a batch of keys of its shape."""
+    if isinstance(data, torch.Tensor) and _on_card(data.device):
+        return Key(*rng_kernel.pair(key.k1, key.k2, data))
+    if isinstance(key.k1, torch.Tensor) and _on_card(key.k1.device):
+        return Key(*rng_kernel.pair(key.k1, key.k2, torch.full_like(
+            key.k1, int(data) & _M32)))
+    return plain_fold_in(key, data)
+
+
 def split(key: Key, num: int = 2) -> tuple[Key, ...]:
     """jax.random.split: key i is threefry of the counter pair (0, i)."""
-    return tuple(Key(*_threefry2x32(key.k1, key.k2, 0, i))
-                 for i in range(num))
+    return tuple(fold_in(key, i) for i in range(num))
+
+
+def _counters(shape, segment, axis: int, device) -> torch.Tensor:
+    """Each output's counter, int64 (the plain version's): its flat index,
+    or with `segment` the index it has in a draw of `segment` along `axis`
+    (uniform_segmented), (outer * segment + r % segment) * inner + i for
+    the output (outer, r, i) with `inner` elements after the axis. The
+    kernel computes the same from the output index."""
+    idx = torch.arange(math.prod(shape), dtype=torch.int64, device=device)
+    if segment is None:
+        return idx
+    inner = math.prod(shape[axis + 1:])
+    q = idx // inner
+    return ((q // shape[axis]) * segment + (q % shape[axis]) % segment) \
+        * inner + idx % inner
+
+
+def plain_bits(key: Key, shape, device=None, segment=None,
+               axis: int = 0) -> torch.Tensor:
+    """The plain version of a draw on any device: uint32 bits as int64,
+    keys' shape + shape, with uniform_segmented's `segment` along
+    `axis`."""
+    k1, k2 = key.k1, key.k2
+    batch = ()
+    if isinstance(k1, torch.Tensor):
+        batch = tuple(k1.shape)
+        k1, k2 = k1[..., None], k2[..., None]
+    c = _counters(shape, segment, axis, _key_device(key, device))
+    b1, b2 = _threefry2x32(k1, k2, torch.zeros_like(c), c)
+    return (b1 ^ b2).reshape(batch + tuple(shape))
+
+
+def plain_uniform(key: Key, shape, device=None, segment=None,
+                  axis: int = 0) -> torch.Tensor:
+    """The plain version of uniform_segmented: the top 23 bits as a
+    mantissa in [1, 2), minus one."""
+    bits = (plain_bits(key, shape, device, segment, axis) >> 9) | 0x3F800000
+    return bits.to(torch.int32).view(torch.float32) - 1.0
 
 
 def random_bits(key: Key, shape, device=None) -> torch.Tensor:
     """uint32 bits as int64, one threefry block per flat index: the two
     output words XORed (jax's partitionable random_bits). A batch of keys
     draws `shape` per key (on the keys' device) -> keys' shape + shape."""
-    n = 1
-    for s in shape:
-        n *= int(s)
-    k1, k2 = key.k1, key.k2
-    batch = ()
-    if isinstance(k1, torch.Tensor):
-        batch, device = tuple(k1.shape), k1.device
-        k1, k2 = k1[..., None], k2[..., None]
-    idx = torch.arange(n, dtype=torch.int64, device=device)
-    b1, b2 = _threefry2x32(k1, k2, torch.zeros_like(idx), idx)
-    return (b1 ^ b2).reshape(batch + tuple(shape))
+    device = _key_device(key, device)
+    if _on_card(device):
+        return rng_kernel.draw(key.k1, key.k2, shape, device, 'bits')
+    return plain_bits(key, shape, device)
 
 
 def uniform(key: Key, shape, device=None) -> torch.Tensor:
     """float32 uniforms in [0, 1): the top 23 bits as a mantissa in [1, 2),
     minus one (jax.random.uniform's construction)."""
-    bits = (random_bits(key, shape, device) >> 9) | 0x3F800000
-    return bits.to(torch.int32).view(torch.float32) - 1.0
+    return uniform_segmented(key, shape, None, 0, device)
 
 
 def uniform_segmented(key: Key, shape, segment=None, axis: int = 0,
@@ -100,14 +161,16 @@ def uniform_segmented(key: Key, shape, segment=None, axis: int = 0,
     """uniform(key, shape) for a batch of wavefronts of `segment` rays laid
     end to end along `axis`: each run of `segment` rows draws what
     uniform(key, shape) with `segment` there draws, as that wavefront would
-    alone. segment None: one wavefront, uniform(key, shape)."""
-    if segment is None:
-        return uniform(key, shape, device)
-    one = list(shape)
-    one[axis] = segment
-    reps = [1] * len(shape)
-    reps[axis] = shape[axis] // segment
-    return uniform(key, tuple(one), device).repeat(*reps)
+    alone (each output's counter is its index within its run). segment
+    None: one wavefront, uniform(key, shape)."""
+    if segment is not None and shape[axis] % segment:
+        raise ValueError(f'uniform_segmented: {shape[axis]} rows along axis '
+                         f'{axis} are not runs of {segment}')
+    device = _key_device(key, device)
+    if _on_card(device):
+        return rng_kernel.draw(key.k1, key.k2, shape, device, 'uniform',
+                               segment, axis)
+    return plain_uniform(key, shape, device, segment, axis)
 
 
 def randint(key: Key, shape, minval: int, maxval: int,

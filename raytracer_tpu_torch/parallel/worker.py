@@ -131,7 +131,7 @@ def launch(n: int, args: list, out: str, device: str = 'cuda',
 
 
 def _counts() -> dict:
-    """Every kernel's launches by mode, the plain versions' calls, the
+    """Every trace kernel's launches by mode, the plain versions' calls, the
     alpha march's passes, the near-ordered sweeps (ops/cluster_trace.
     local_sweep: intersector 'cluster', the ring's rounds in a scene with
     alpha maps), the ring's traces, rounds and collectives since the

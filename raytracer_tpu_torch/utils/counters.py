@@ -1,7 +1,9 @@
 """The run counters of the port, in one place.
 
 Each counter lives in its module: a CUDA kernel wrapper's `LAUNCHES` and
-`MODES` (ops/cuda/*_kernel.py), a plain tracer's `CALLS`, the alpha
+`MODES` (ops/cuda/*_kernel.py: the trace kernels of `KERNELS`, and the
+threefry kernel of core/rng, `RNG`, which every path on the card
+launches), a plain tracer's `CALLS`, the alpha
 march's `MARCH_PASSES` and `MARCH_SYNCS`, the near-ordered sweep's
 `SWEEPS` and `SWEEP_LIVE` and the plain walks' `TESTS`
 (ops/cluster_trace.py), the ring's `TRACES` and `ROUNDS`
@@ -26,11 +28,12 @@ from ..ops import iseg_trace as ist, mt_trace as tmt, ring_trace as ring
 from ..ops import traverse as ttr
 from ..ops.cuda import bvh_kernel as bvk, cluster_kernel as ck
 from ..ops.cuda import icluster_kernel as ick, iseg_kernel as isk
-from ..ops.cuda import mt_kernel as mtk
+from ..ops.cuda import mt_kernel as mtk, rng_kernel as rk
 from ..parallel import distributed
 
 KERNELS = dict(cluster_trace=ck, iseg_trace=isk, icluster_trace=ick,
                mt_trace=mtk, bvh_trace=bvk)
+RNG = dict(threefry=rk)
 PLAINS = (ct, ist, ict, tmt, ttr)
 # what the backward pass's replays of bounce steps counted
 RECOMPUTE: collections.Counter = collections.Counter()
@@ -39,7 +42,8 @@ RECOMPUTE: collections.Counter = collections.Counter()
 def _scalars() -> list:
     """(name, module, attribute) of every counter held in a module
     attribute."""
-    return ([(f'launches.{k}', m, 'LAUNCHES') for k, m in KERNELS.items()]
+    return ([(f'launches.{k}', m, 'LAUNCHES')
+             for k, m in {**KERNELS, **RNG}.items()]
             + [(f'calls.{m.__name__.rsplit(".", 1)[-1]}', m, 'CALLS')
                for m in PLAINS]
             + [('march_passes', ct, 'MARCH_PASSES'),
@@ -50,7 +54,7 @@ def _scalars() -> list:
 
 def _tables() -> list:
     """(name prefix, dict) of every counter held in a dict."""
-    return ([(f'modes.{k}.', m.MODES) for k, m in KERNELS.items()]
+    return ([(f'modes.{k}.', m.MODES) for k, m in {**KERNELS, **RNG}.items()]
             + [('tests.', ct.TESTS), ('', distributed.STATS)])
 
 
@@ -66,13 +70,15 @@ def read() -> dict:
 
 
 def reset() -> None:
-    """The kernels' launches and modes, the plain versions' calls, the
-    march's, the sweeps' and the ring's counts, the collectives' STATS and
-    RECOMPUTE to 0 (TESTS and SWEEP_LIVE stay with their callers)."""
+    """Every counter `read` gives to 0: the kernels' launches and modes,
+    the plain versions' calls, the march's, the sweeps' and the ring's
+    counts, the plain walks' TESTS, the collectives' STATS, and RECOMPUTE
+    (SWEEP_LIVE stays with its caller)."""
     for _, m, a in _scalars():
         setattr(m, a, 0)
-    for m in KERNELS.values():
+    for m in (*KERNELS.values(), *RNG.values()):
         m.MODES.clear()
+    ct.TESTS.update(box=0, tri=0)
     distributed.reset_stats()
     RECOMPUTE.clear()
 

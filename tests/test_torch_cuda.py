@@ -1,6 +1,6 @@
 """The CUDA trace kernels (cluster, segment and hierarchical instance trace,
-the brute-force Moller-Trumbore sweep and the wide-BVH walk) against their
-plain PyTorch versions, and the trainer's loss and gradients, the edge-sampled boundary
+the brute-force Moller-Trumbore sweep and the wide-BVH walk) and the
+threefry random-number kernel against their plain PyTorch versions, and the trainer's loss and gradients, the edge-sampled boundary
 terms, adaptive renders and the baked stone texture against the CPU's, on
 the card. Every test here needs an
 NVIDIA GPU and nvcc, and skips elsewhere.
@@ -34,6 +34,7 @@ from raytracer_tpu_torch.ops.cuda import cluster_kernel as ck
 from raytracer_tpu_torch.ops.cuda import icluster_kernel as ick
 from raytracer_tpu_torch.ops.cuda import iseg_kernel as isk
 from raytracer_tpu_torch.ops.cuda import mt_kernel as mtk
+from raytracer_tpu_torch.ops.cuda import rng_kernel as rk
 from raytracer_tpu_torch.parallel import sharding as ts
 from raytracer_tpu_torch.render import camera as cam_mod
 from raytracer_tpu_torch.scenes import registry
@@ -543,6 +544,9 @@ def test_remat_step_on_card_matches_plain(dev):
     _assert_grads_close(got, want)
     assert fwd == fwd0 and fwd['launches.cluster_trace'] > 0
     assert replay['launches.cluster_trace'] == fwd['launches.cluster_trace']
+    # the replay redraws each bounce step's numbers with the kernel: all
+    # the forward pass's draws but the camera's one, made before the steps
+    assert replay['launches.threefry'] == fwd['launches.threefry'] - 1 > 0
     assert replay['steps'] > 0 and fwd['calls.cluster_trace'] == 0
     assert peak < peak0
 
@@ -1005,3 +1009,93 @@ def test_xla_cluster_on_card_matches_cpu(dev, name, monkeypatch):
         for f in ('t', 'tri', 'a', 'b'):
             assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
         assert int((want.tri >= 0).sum()) > R // 20
+
+
+# ------------------------------------------------ the threefry kernel
+# sizes from one output to the bounce loop's (2^21, 3) draw, none of the
+# odd ones a whole number of the kernel's four outputs a thread
+THREEFRY_SHAPES = [(1,), (3,), (5,), (1023,), (4097,), (1 << 21, 3)]
+# uniform_segmented's layouts: (R, k) in runs along axis 0 (the bounce
+# loop) and (num_samples, R, 2) along axis 1 (the lights' NEE)
+THREEFRY_SEGMENTED = [((4096, 3), 1024, 0), ((1 << 21, 2), 1 << 19, 0),
+                      ((1, 4096, 2), 1024, 1), ((3, 1 << 21, 2), 1 << 19, 1),
+                      ((2, 96, 5), 32, 1)]
+THREEFRY_KEYS = [rng.PRNGKey(0), rng.fold_in(rng.PRNGKey(-3), 77)]
+
+
+def _same_bits(got, want):
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if got.dtype == torch.float32:
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize('shape', THREEFRY_SHAPES)
+def test_threefry_kernel_matches_plain(dev, shape):
+    """uniform and random_bits of a host key on the card: one launch each,
+    bit for bit with the plain int64 version on the same card."""
+    for key in THREEFRY_KEYS:
+        n0 = rk.LAUNCHES
+        _same_bits(rng.uniform(key, shape, dev),
+                   rng.plain_uniform(key, shape, dev))
+        _same_bits(rng.random_bits(key, shape, dev),
+                   rng.plain_bits(key, shape, dev))
+        assert rk.LAUNCHES == n0 + 2
+
+
+@pytest.mark.parametrize('shape,segment,axis', THREEFRY_SEGMENTED)
+def test_threefry_kernel_segmented_matches_plain(dev, shape, segment, axis):
+    for key in THREEFRY_KEYS:
+        _same_bits(rng.uniform_segmented(key, shape, segment, axis, dev),
+                   rng.plain_uniform(key, shape, dev, segment, axis))
+
+
+def test_threefry_kernel_batch_keys_match_plain(dev):
+    """fold_in of a tensor (a batch of keys, render_adaptive's per-pixel
+    keys), split and fold_in of such a batch, and uniform and random_bits
+    per key, against the plain version on the same card."""
+    base = rng.fold_in(rng.PRNGKey(9), 4)
+    for ids in (torch.arange(0, 3001, 3, dtype=torch.int32, device=dev),
+                torch.tensor([0, 1, 2 ** 31 - 1, -1, -7], device=dev)):
+        keys, want = rng.fold_in(base, ids), rng.plain_fold_in(base, ids)
+        _same_bits(keys.k1, want.k1)
+        _same_bits(keys.k2, want.k2)
+        for got, ref in zip(rng.split(keys, 3) + (rng.fold_in(keys, 7),),
+                            [rng.plain_fold_in(want, i) for i in range(3)]
+                            + [rng.plain_fold_in(want, 7)]):
+            _same_bits(got.k1, ref.k1)
+            _same_bits(got.k2, ref.k2)
+        for shape in ((5,), (1,), (2, 3)):
+            _same_bits(rng.uniform(keys, shape), rng.plain_uniform(want, shape,
+                                                                   dev))
+            _same_bits(rng.random_bits(keys, shape),
+                       rng.plain_bits(want, shape, dev))
+
+
+def test_no_card_draw_reaches_the_int64_version(dev, monkeypatch):
+    """On the card every draw and fold_in of a tensor is the kernel's: the
+    int64 block is never called, in a render or in randint; a refused
+    launch and a key of the wrong type raise."""
+    def int64_block(k1, k2, x1, x2):
+        if any(isinstance(v, torch.Tensor) for v in (k1, k2, x1, x2)):
+            raise AssertionError('the int64 threefry ran on tensors')
+        return block(k1, k2, x1, x2)
+    block = rng._threefry2x32
+    monkeypatch.setattr(rng, '_threefry2x32', int64_block)
+    scene, cam, st = registry.sponza_standin(32, 24, max_bounces=2,
+                                             n_spheres=12, device=dev)
+    counters.reset()
+    img = rt.render(scene, cam, st, rng.PRNGKey(1))
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(img).all()) and rk.LAUNCHES > 0
+    assert rk.MODES['uniform'] == rk.LAUNCHES
+    rng.randint(rng.PRNGKey(2), (1001,), 0, 777, dev)
+    rng.uniform(rng.fold_in(rng.PRNGKey(3), torch.arange(9, device=dev)),
+                (5,))
+    torch.cuda.synchronize()
+    with pytest.raises(RuntimeError, match='CUDA error'):
+        rk._launch('uniform', (0, 0, None, None), 10, 3, dev,
+                   torch.empty(10, device=dev))
+    with pytest.raises(ValueError, match='int64'):
+        rk.draw(torch.zeros(3, dtype=torch.int32, device=dev),
+                torch.zeros(3, dtype=torch.int32, device=dev), (2,), dev)

@@ -16,6 +16,10 @@ on the CPU.
 * `render` with remat on: the same image and the same launch counts as
   with it off, and no replay, with grad mode on (nothing requires grad)
   and off.
+* `counters.reset` clears every counter `read` gives, the plain walks'
+  box and triangle tests too, so that what an earlier module counted in
+  the same process (tests/test_torch_group_walk.py) is not taken for the
+  step's own counts.
 
 The two-rank ring step with remat is a task of
 tests/test_torch_sharding.py's `run` fixture.
@@ -33,6 +37,7 @@ import raytracer_tpu_torch as rt
 from raytracer_tpu.parallel import sharding as js
 from raytracer_tpu_torch import convert
 from raytracer_tpu_torch.core import rng
+from raytracer_tpu_torch.ops import cluster_trace as ct
 from raytracer_tpu_torch.parallel import sharding as ts
 from raytracer_tpu_torch.scenes import registry
 from raytracer_tpu_torch.utils import counters
@@ -121,3 +126,15 @@ def test_render_with_remat_is_the_plain_render(grad_mode):
     assert out[True][1] == out[False][1]
     assert out[True][1]['calls.cluster_trace'] > 0
     assert not out[True][2] and not out[True][0].requires_grad
+
+
+def test_reset_clears_an_earlier_walks_tests():
+    scene, cam, st = SCENES['sponza_12']()
+    ct.COUNT_TESTS = True
+    try:
+        rt.render(scene, cam, st, rng.PRNGKey(KEY))
+    finally:
+        ct.COUNT_TESTS = False
+    assert ct.TESTS['box'] > 0 and ct.TESTS['tri'] > 0
+    counters.reset()
+    assert not any(counters.read().values())

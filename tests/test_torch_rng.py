@@ -2,7 +2,9 @@
 
 The port's renders draw the JAX package's samples only if fold_in, split,
 uniform and randint agree exactly, with single keys and with batches of
-keys, so the tolerance is zero (compared as bits).
+keys, so the tolerance is zero (compared as bits). These run the plain
+version (the CPU's); tests/test_torch_cuda.py holds the card's threefry
+kernel to it bit for bit.
 """
 import jax
 import jax.numpy as jnp
@@ -11,6 +13,7 @@ import pytest
 import torch
 
 from raytracer_tpu_torch.core import rng
+from raytracer_tpu_torch.ops.cuda import rng_kernel
 
 SEEDS = [0, 1, 7, 123456789, -3]
 
@@ -90,3 +93,91 @@ def test_tensor_keys_fold_in_and_uniform():
     # the int path is the tensor path at one key
     one = rng.fold_in(rng.fold_in(rng.PRNGKey(9), 4), int(ids[7]))
     np.testing.assert_array_equal(rng.uniform(one, (5,)).numpy(), u[7])
+
+
+# the wavefront draws of render/integrator._step ((R, k) in runs along
+# axis 0) and of the lights' NEE ((num_samples, R, 2) along axis 1), and
+# a segment that is the whole axis
+SEGMENTED = [((12, 3), 4, 0), ((1024, 2), 256, 0), ((12, 3), 12, 0),
+             ((1, 40, 2), 8, 1), ((2, 96, 2), 32, 1), ((3, 21, 5), 7, 1)]
+
+
+@pytest.mark.parametrize('shape,segment,axis', SEGMENTED)
+def test_uniform_segmented_is_one_segment_tiled(shape, segment, axis,
+                                                monkeypatch):
+    """Each run of `segment` rows draws what jax.random.uniform of one
+    segment draws, from counters computed from each output's index (no
+    copy: Tensor.repeat is not called)."""
+    one = list(shape)
+    one[axis] = segment
+    reps = [1] * len(shape)
+    reps[axis] = shape[axis] // segment
+    kj = jax.random.fold_in(jax.random.PRNGKey(5), 2)
+    want = np.tile(np.asarray(jax.random.uniform(kj, tuple(one))), reps)
+
+    def no_repeat(*a, **k):
+        raise AssertionError('uniform_segmented copied with repeat')
+    monkeypatch.setattr(torch.Tensor, 'repeat', no_repeat)
+    got = rng.uniform_segmented(rng.fold_in(rng.PRNGKey(5), 2), shape,
+                                segment, axis).numpy()
+    assert got.shape == want.shape and got.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def test_uniform_segmented_refuses_a_partial_run():
+    with pytest.raises(ValueError, match='runs of 4'):
+        rng.uniform_segmented(rng.PRNGKey(0), (10, 3), 4, 0)
+
+
+@pytest.mark.parametrize('n', [1, 3, 5, 17, 1025])
+def test_random_bits_and_randint_odd_sizes(n):
+    """jax.random.bits and randint at sizes that fill no whole vector of
+    the kernel's four outputs a thread (1, 3, 2^k + 1)."""
+    for seed in (0, -3):
+        kj = jax.random.fold_in(jax.random.PRNGKey(seed), 9)
+        kt = rng.fold_in(rng.PRNGKey(seed), 9)
+        want = np.asarray(jax.random.bits(kj, (n,))).astype(np.int64)
+        got = rng.random_bits(kt, (n,))
+        assert got.dtype == torch.int64
+        np.testing.assert_array_equal(got.numpy(), want)
+        want = np.asarray(jax.random.randint(kj, (n,), -5, 1000))
+        np.testing.assert_array_equal(rng.randint(kt, (n,), -5, 1000).numpy(),
+                                      want)
+
+
+def test_tensor_keys_split_fold_in_and_bits():
+    """A batch of keys, as jax.vmap sees it: split, fold_in of an int and
+    random_bits per key; fold_in of int32 data with negative words."""
+    ids = np.array([0, 1, 2, 5, 2 ** 31 - 1, -1, -7], dtype=np.int32)
+    kj = jax.random.PRNGKey(11)
+    keys_j = jax.vmap(jax.random.fold_in, (None, 0))(kj, jnp.asarray(ids))
+    keys = rng.fold_in(rng.PRNGKey(11), torch.from_numpy(ids))
+
+    def words(k):
+        return np.stack([k.k1.numpy(), k.k2.numpy()], -1)
+    np.testing.assert_array_equal(words(keys),
+                                  np.asarray(keys_j).astype(np.int64))
+    split_j = np.asarray(jax.vmap(lambda k: jax.random.split(k, 3))(keys_j))
+    for i, k in enumerate(rng.split(keys, 3)):
+        np.testing.assert_array_equal(words(k), split_j[:, i].astype(np.int64))
+    folded_j = jax.vmap(lambda k: jax.random.fold_in(k, 7))(keys_j)
+    np.testing.assert_array_equal(words(rng.fold_in(keys, 7)),
+                                  np.asarray(folded_j).astype(np.int64))
+    bits_j = jax.vmap(lambda k: jax.random.bits(k, (3,)))(keys_j)
+    np.testing.assert_array_equal(rng.random_bits(keys, (3,)).numpy(),
+                                  np.asarray(bits_j).astype(np.int64))
+
+
+def test_kernel_wrapper_takes_only_the_card():
+    """The CPU runs the plain version; the kernel's wrapper refuses any
+    device but a CUDA one, and core/rng refuses devices it has no version
+    for."""
+    with pytest.raises(ValueError, match='not a CUDA device'):
+        rng_kernel.draw(1, 2, (3,), 'cpu')
+    with pytest.raises(ValueError, match='not a CUDA device'):
+        rng_kernel.pair(1, 2, torch.arange(3))
+    with pytest.raises(ValueError, match='unsupported device'):
+        rng.uniform(rng.PRNGKey(0), (3,), 'meta')
+    before = rng_kernel.LAUNCHES
+    rng.uniform(rng.PRNGKey(0), (3,), 'cpu')
+    assert rng_kernel.LAUNCHES == before
