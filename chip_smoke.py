@@ -6,10 +6,11 @@ through `parallel/sharding.loss_and_grads_scanned`, Adam steps through
 `train_step`) at 1920x1080, 1 spp, in phases:
 
   1. device: the card's name and power limit; TF32 off;
-  2. build: the six CUDA kernels (cluster, segment and hierarchical
+  2. build: the seven CUDA kernels (cluster, segment and hierarchical
      instance trace, the brute-force MT sweep, the wide-BVH walk, each
-     with csrc/trace_common.cuh; core/rng's threefry; one nvcc each, all
-     started together) and the native host library, all compiled from
+     with csrc/trace_common.cuh; core/rng's threefry; the take-scatter
+     kernel of core/vecmath.take's backward; one nvcc each, all started
+     together) and the native host library, all compiled from
      this checkout; each kernel's registers, spills and shared memory
      (ptxas -v);
   3. scene: the 174,724-triangle `sponza_standin` atrium, built on the
@@ -235,10 +236,22 @@ through `parallel/sharding.loss_and_grads_scanned`, Adam steps through
      larger of the bytes written over 3.35 TB/s and its integer
      operations over 33.5e12 int32 operations/s); bit for bit also in its
      other modes and layouts (segmented along both axes, random_bits,
-     fold_in of a tensor and draws from that batch of keys).
+     fold_in of a tensor and draws from that batch of keys);
+ 42. the take-scatter kernel (csrc/grad/take_scatter.cu, the backward of
+     core/vecmath.take on the card): one 1080p 10-bounce fwd+bwd step of
+     `sponza_standin` (bench.py's step), in which every take gradient
+     launches it, in both modes, and index_add_ (its plain version) never
+     runs on the card; then, on that step's own gradients and indices of
+     its first bounce (the triangle corners (R, 3) into the vertices, `kd`
+     and `spec_exp` by material) and on the wavefront sort's permutation of an (R, 3)
+     state tensor, the kernel against index_add_ on the card within 1e-5
+     x the sum of |contributions| at each entry, with CUDA-event times
+     (median of 5) of the kernel, the plain version and index_add_ alone,
+     and its bound (bytes over 3.35 TB/s); the sort's backward, the
+     gather by the inverse permutation, equal to index_add_, timed.
 
 Each path (phases 5, 7, 9, 10, 13, 14, 16-18, 20, 22's frame, the
-motion-blurred prototype's trace, 30, 31, 34-36, 40, 41) is driven with every
+motion-blurred prototype's trace, 30, 31, 34-36, 40-42) is driven with every
 launch and plain-version count set to 0 just before and read just after;
 in phases 25-28 and 37 each rank does so around each of its tasks, and
 every rank of 25-28 must have launched the cluster kernel and called no
@@ -252,7 +265,9 @@ CPU mode.
 from __future__ import annotations
 
 import dataclasses
+import glob
 import json
+import math
 import os
 import statistics
 from concurrent.futures import ThreadPoolExecutor
@@ -267,6 +282,7 @@ import torch
 import raytracer_tpu_torch as rt
 from raytracer_tpu_torch import bench, convert, graft_entry, native, scaling
 from raytracer_tpu_torch.core import rng
+from raytracer_tpu_torch.core import vecmath as vm
 from raytracer_tpu_torch.diff import edge_fd, edges as ed
 from raytracer_tpu_torch.io import imageio, objload
 from raytracer_tpu_torch.ops import cluster_trace as ct
@@ -280,6 +296,7 @@ from raytracer_tpu_torch.ops.cuda import icluster_kernel as ick
 from raytracer_tpu_torch.ops.cuda import iseg_kernel as isk
 from raytracer_tpu_torch.ops.cuda import mt_kernel as mtk
 from raytracer_tpu_torch.ops.cuda import rng_kernel as rk
+from raytracer_tpu_torch.ops.cuda import take_kernel as tk
 from raytracer_tpu_torch.parallel import sharding as ts, worker
 from raytracer_tpu_torch.render import camera as cam_mod
 from raytracer_tpu_torch.render import integrator
@@ -346,6 +363,12 @@ THREEFRY_SOURCE = 'raytracer_tpu_torch/csrc/threefry.cu'
 # not a TPU kernel: on the card it takes the place of the plain int64
 # block, which the JAX package does not have (it draws with jax.random)
 THREEFRY_REPLACES = 'raytracer_tpu_torch/core/rng.py:43'
+TAKE_SOURCE = 'raytracer_tpu_torch/csrc/grad/take_scatter.cu'
+# not a TPU kernel: on the card it takes the place of index_add_, the plain
+# version (core/vecmath.scatter_rows on the CPU) and autograd's backward of
+# index_select, which the JAX package does not have (XLA transposes its
+# gathers)
+TAKE_REPLACES = 'raytracer_tpu_torch/core/vecmath.py:45'
 # float32 operations of one (ray, box) slab test (6 subtractions, 6
 # multiplies, 10 min/max, 2 compares), one Moller-Trumbore test
 # (ops/mt_trace._mt_block: 45 multiplies, adds and the divide) and the
@@ -1892,16 +1915,21 @@ ASSET_PARITY = (('cornell_pt', {}, ck), ('alpha_leaf', {}, ck),
 UNSORTED_PARITY = ('cornell_pt',)
 
 
-# the __global__ functions of csrc/*.cu
-TRACE_KERNELS = ('cluster_trace_kernel', 'iseg_trace_kernel',
-                 'icluster_trace_kernel', 'mt_prep_kernel', 'mt_sweep_kernel',
-                 'mt_resolve_kernel', 'bvh_kernel')
+# the __global__ functions of the port's CUDA sources, read from them as
+# the benchmark reads them, each kind apart: the trace kernels (csrc/*.cu
+# but threefry.cu), the draws' (csrc/threefry.cu) and the gradients'
+# (csrc/grad/*.cu)
+TRACE_KERNELS = bench.TRACE_KERNELS
+RNG_KERNELS = bench.RNG_KERNELS
+GRAD_KERNELS = bench._kernel_names(
+    sorted(glob.glob(os.path.join(bench.CSRC, 'grad', '*.cu'))))
 
 
 def busy(fn) -> dict:
     """One run of fn() unprofiled, then one profiled (torch.profiler, CPU
     and CUDA): both walls, the device kernels' time, the device busy share
-    (kernel time over each wall) and the trace kernels' time."""
+    (kernel time over each wall), the trace kernels' time and the draw
+    and gradient kernels' time."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
@@ -1914,17 +1942,20 @@ def busy(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    dev_us = trace_us = 0.0
+    dev_us = trace_us = rng_us = grad_us = 0.0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            dev_us += e.device_time_total
-            if any(k in e.name for k in TRACE_KERNELS):
-                trace_us += e.device_time_total
+            us = e.device_time_total
+            dev_us += us
+            trace_us += us * any(k in e.name for k in TRACE_KERNELS)
+            rng_us += us * any(k in e.name for k in RNG_KERNELS)
+            grad_us += us * any(k in e.name for k in GRAD_KERNELS)
     return dict(wall_s=plain_wall, profiled_wall_s=wall,
                 device_kernel_s=dev_us / 1e6,
                 busy_share=dev_us / 1e6 / plain_wall,
                 busy_share_profiled=dev_us / 1e6 / wall,
-                trace_kernel_s=trace_us / 1e6)
+                trace_kernel_s=trace_us / 1e6, rng_kernel_s=rng_us / 1e6,
+                grad_kernel_s=grad_us / 1e6)
 
 
 def asset_build_cell(dev, tree: str) -> dict:
@@ -2472,6 +2503,142 @@ def threefry_cell(dev, key) -> dict:
                 **total[2].bound(PEAK_INT_OPS))
 
 
+def take_case(tag, g, idx, shape) -> dict:
+    """One take gradient (g, the output's gradient, for a table of `shape`
+    read at idx) by the kernel and by index_add_ on the same card: the
+    kernel within 1e-5 x the sum of |contributions| of the exact sum
+    (float64) at each entry, and of index_add_'s within that and
+    index_add_'s own error (the sums run in other orders, index_add_'s as
+    one float32 atomic a contribution, in an order that changes from run
+    to run: 2 M of them into one material row stray from the exact sum by
+    more than 1e-5 of the magnitudes); CUDA-event times (median of 5) of
+    the kernel (its wrapper, with the zeroed table), the plain version
+    (scatter_rows' CPU branch: zeros, the index as int64, index_add_) and
+    index_add_ alone (one torch.index_add into zeros made before); the
+    bound, the bytes of the gradient, the index and the table written
+    once over 3.35 TB/s."""
+    rows = shape[0]
+    K = idx.shape[-1] if idx.dim() >= 2 else 1
+    C = math.prod(shape[1:])
+    idx2 = idx.reshape(-1, K).contiguous()
+    g3 = g.reshape(idx2.shape[0], K, C).contiguous()
+    flat, g2 = idx.reshape(-1).long(), g3.reshape(-1, C)
+    zeros = torch.zeros((rows, C), device=g.device)
+    ms, got = cuda_ms(lambda: tk.scatter(g3, idx2, rows))
+    plain_ms, want = cuda_ms(lambda: g.new_zeros((rows, C)).index_add_(
+        0, idx.reshape(-1).long(), g2))
+    library_ms, _ = cuda_ms(lambda: torch.index_add(zeros, 0, flat, g2))
+    zeros64 = torch.zeros((rows, C), dtype=torch.float64, device=g.device)
+    mag = zeros64.index_add(0, flat, g2.abs().double())
+    exact = zeros64.index_add(0, flat, g2.double())
+    err = (got.double() - want.double()).abs()
+    err_exact = (got.double() - exact).abs()
+    plain_err = (want.double() - exact).abs()
+    excess = float((err_exact - 1e-5 * mag).max())
+    excess_plain = float((err - 1e-5 * mag - plain_err).max())
+    nbytes = 4 * g3.numel() + idx2.element_size() * idx2.numel() \
+        + 4 * rows * C
+    rec = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by='bytes',
+               max_abs_err=float(err.max()))
+    phase('take_scatter_vs_index_add', case=tag, table=list(shape),
+          index=list(idx.shape), index_dtype=str(idx.dtype).split('.')[-1],
+          mode=tk.mode(rows, C), excess_over_tol=excess,
+          excess_over_tol_vs_index_add=excess_plain,
+          max_err_vs_exact=float(err_exact.max()),
+          index_add_max_err_vs_exact=float(plain_err.max()),
+          excess_of_1e5_rule_vs_index_add=float((err - 1e-5 * mag).max()),
+          **rec)
+    assert excess <= 0.0 and excess_plain <= 0.0, \
+        f'take-scatter {tag}: the kernel differs'
+    return rec
+
+
+def take_cell(dev, key) -> dict:
+    """Phase 42: the take-scatter kernel on the main path, then against
+    index_add_ at that path's shapes -> its record for the kernels line
+    (ms, plain_ms, library_ms and bound_ms of one bounce's four take
+    gradients: the corners twice, kd, spec_exp; launches in the driven
+    step)."""
+    scene, cam, st = registry.sponza_standin(
+        WIDTH, HEIGHT, max_bounces=BOUNCES, ray_tile=bench.TRAIN_TILE,
+        device=dev)
+    target = torch.zeros((HEIGHT, WIDTH, 3), device=dev)
+    step = lambda: ts.loss_and_grads_scanned(
+        ts.get_params(scene), scene, cam, st, target, key,
+        tile=bench.TRAIN_TILE)
+    synced(step)
+    # the step's take gradients (of each table and index shape the last
+    # the backward pass makes: the first bounce's, where every ray is
+    # alive), its sort's permutation, and every index_add_ on the card
+    seen, calls, perms, plain = {}, [0], [], [0]
+    scatter_rows, permute = vm.scatter_rows, vm.permute
+    index_add = torch.Tensor.index_add_
+
+    def watched_scatter(g, idx, shape):
+        calls[0] += 1
+        sig = (tuple(shape), tuple(idx.shape), idx.dtype)
+        seen[sig] = (g.detach().clone(), idx.clone())
+        return scatter_rows(g, idx, shape)
+
+    def watched_permute(x, perm, inv):
+        if not perms and inv is not None and x.dim() == 2:
+            perms.append((perm.clone(), inv.clone(), tuple(x.shape)))
+        return permute(x, perm, inv)
+
+    def watched_index_add(self, *args, **kw):
+        plain[0] += self.is_cuda
+        return index_add(self, *args, **kw)
+
+    counters.reset()
+    vm.scatter_rows, vm.permute = watched_scatter, watched_permute
+    torch.Tensor.index_add_ = watched_index_add
+    try:
+        (loss, grads), wall = synced(step)
+    finally:
+        vm.scatter_rows, vm.permute = scatter_rows, permute
+        torch.Tensor.index_add_ = index_add
+    check_only(ck, 'take_train_1080p')
+    launches, modes = tk.LAUNCHES, dict(tk.MODES)
+    assert launches > 0 and launches == calls[0], \
+        f'take gradients {calls[0]}, kernel launches {launches}'
+    assert modes.get('table_shared') and modes.get('table_global'), modes
+    assert plain[0] == 0, 'index_add_ ran on the card'
+    assert bool(torch.isfinite(loss)), 'take step: non-finite loss'
+    check_grads(grads, 'take_train_1080p')
+    phase('take_train_1080p', wall_s=wall, launches=launches,
+          launches_by_mode=modes, take_gradients=calls[0],
+          index_add_on_card=plain[0], loss=float(loss))
+    del grads
+    geom, mats = scene.geom, scene.materials
+    cases = {'corners': (geom.vertices, 2), 'kd': (mats.kd, 1),
+             'spec_exp': (mats.spec_exp, 1)}
+    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    err = 0.0
+    for tag, (table, times) in cases.items():
+        (g, idx), = [v for (shape, _, _), v in seen.items()
+                     if shape == tuple(table.shape)]
+        rec = take_case(tag, g, idx, tuple(table.shape))
+        for k in total:
+            total[k] += times * rec[k]
+        err = max(err, rec['max_abs_err'])
+    del seen
+    # the sort: its permutation through the kernel, then its backward (the
+    # gather by the inverse permutation) against index_add_, exact
+    perm, inv, shape = perms[0]
+    g = torch.randn(shape, device=dev)
+    take_case('sort_permutation', g, perm, shape)
+    ms_inv, got = cuda_ms(lambda: torch.index_select(g, 0, inv))
+    ms_add, want = cuda_ms(lambda: torch.zeros_like(g).index_add_(0, perm, g))
+    assert torch.equal(got, want), 'the sort: the inverse gather differs'
+    phase('sort_inverse_gather', shape=list(shape), ms=ms_inv,
+          index_add_ms=ms_add, equal=True,
+          bound_ms=(8 * shape[0] + 8 * math.prod(shape)) / PEAK_BYTES * 1e3)
+    return dict(name='take_scatter', route='cuda', source=TAKE_SOURCE,
+                replaces=TAKE_REPLACES, launches=launches, max_abs_err=err,
+                bound_by='bytes', **total)
+
+
 def check_image(img, shape) -> None:
     assert tuple(img.shape) == shape, img.shape
     assert bool(torch.isfinite(img).all()), 'non-finite pixels'
@@ -2499,12 +2666,12 @@ def main(dev=None) -> int:
         return time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(7) as pool:
+    with ThreadPoolExecutor(8) as pool:
         jobs = {name: pool.submit(timed, fn) for name, fn in (
             ('cluster_trace_s', ck.build), ('iseg_trace_s', isk.build),
             ('icluster_trace_s', ick.build), ('mt_trace_s', mtk.build),
             ('bvh_trace_s', bvk.build), ('threefry_s', rk.build),
-            ('native_host_s', native.get_lib))}
+            ('take_scatter_s', tk.build), ('native_host_s', native.get_lib))}
         built = {name: job.result() for name, job in jobs.items()}
     phase('build', wall_s=time.perf_counter() - t0, **built)
     # registers, spills and shared memory of every kernel instantiation
@@ -2514,7 +2681,7 @@ def main(dev=None) -> int:
                              or 'Used' in line]
                       for name in ('cluster_trace', 'iseg_trace',
                                    'icluster_trace', 'mt_trace',
-                                   'bvh_trace', 'threefry')})
+                                   'bvh_trace', 'threefry', 'take_scatter')})
 
     # ----------------------------------------------------------- 3. scene
     t0 = time.perf_counter()
@@ -2675,6 +2842,9 @@ def main(dev=None) -> int:
 
     # ------------------------------------------------ 41. the threefry kernel
     records.append(threefry_cell(dev, key))
+
+    # ------------------------------------------- 42. the take-scatter kernel
+    records.append(take_cell(dev, key))
 
     print(json.dumps({'kernels': [
         {k: r[k] for k in ('name', 'route', 'source', 'replaces', 'launches',

@@ -6,7 +6,12 @@ component by component, so the sum order is fixed on every device.
 """
 from __future__ import annotations
 
+import contextlib
+import math
+
 import torch
+
+from ..ops.cuda import take_kernel
 
 # Reference constants (src/Miro.h:35-68)
 MIRO_TMAX = 1e12
@@ -16,15 +21,106 @@ INV_PI = 1.0 / PI
 INV_4PI = 0.25 / PI
 TWO_PI_SQ = 2.0 * PI * PI
 GAMMA = 2.2               # src/Image.cpp:14
+# When set, the backward of each take and permute runs in a profiler range
+# named by its call site (scripts/torch_frame_profile.py --train sets it).
+# Off by default: a range also shows on the device's timeline, as an
+# annotation spanning its kernels, which a profile that sums every device
+# event (the benchmark's) would count twice.
+PROFILE_SITES = False
 
 
-def take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """x[idx] along the first axis, as index_select: its backward is an
-    index_add (atomic adds on the card), where advanced indexing's sorts
-    the indices and sums each run of duplicates serially, which is slow
-    when millions of rays read a few rows (a material table)."""
+def _gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     out = torch.index_select(x, 0, idx.reshape(-1).long())
     return out.reshape(tuple(idx.shape) + tuple(x.shape[1:]))
+
+
+def scatter_rows(g: torch.Tensor, idx: torch.Tensor, shape) -> torch.Tensor:
+    """The gradient of _gather(x, idx) for x of `shape`, given the output's
+    gradient g: g's rows added into zeros at the rows idx names. On the
+    CPU the plain version, zeros.index_add_, which is autograd's backward of
+    index_select (so CPU gradients are those of index_select to the bit);
+    on the card the take-scatter kernel (ops/cuda/take_kernel), which sums
+    each index column's runs of equal indices before it adds, or raises."""
+    if g.device.type == 'cpu':
+        return g.new_zeros(shape).index_add_(
+            0, idx.reshape(-1).long(), g.reshape((-1,) + tuple(shape[1:])))
+    K = idx.shape[-1] if idx.dim() >= 2 else 1
+    idx = idx.reshape(-1, K).contiguous()
+    C = math.prod(shape[1:])
+    out = take_kernel.scatter(g.reshape(idx.shape[0], K, C).contiguous(),
+                              idx, shape[0])
+    return out.reshape(shape)
+
+
+def _site(name: str):
+    return torch.profiler.record_function(name) if PROFILE_SITES \
+        else contextlib.nullcontext()
+
+
+class _Take(torch.autograd.Function):
+    """_gather with scatter_rows as its backward, in a profiler range named
+    by the call site under PROFILE_SITES."""
+
+    @staticmethod
+    def forward(ctx, x, idx, site):
+        ctx.save_for_backward(idx)
+        ctx.shape, ctx.site = tuple(x.shape), site
+        return _gather(x, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        with _site(ctx.site):
+            return scatter_rows(g, idx, ctx.shape), None, None
+
+
+class _Permute(torch.autograd.Function):
+    """x[perm] for a permutation perm, whose backward is the gather of the
+    gradient by the inverse permutation `inv`."""
+
+    @staticmethod
+    def forward(ctx, x, perm, inv):
+        ctx.save_for_backward(inv)
+        return torch.index_select(x, 0, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        inv, = ctx.saved_tensors
+        with _site('sort'):
+            return torch.index_select(g, 0, inv), None, None
+
+
+def take(x: torch.Tensor, idx: torch.Tensor, site: str = 'take'
+         ) -> torch.Tensor:
+    """x[idx] along the first axis, as index_select, for an index of any
+    shape (the result has idx's shape, then x's trailing axes).
+
+    Its backward is scatter_rows: on the card the take-scatter kernel sees
+    the index as (N, K), its last axis (K = 1 for a flat index) being the
+    columns along which it finds runs of equal rows, such as a triangle's
+    three corners. Advanced indexing's backward would sort the indices and
+    sum each run of duplicates serially, which is slow when millions of
+    rays read a few rows (a material table). `site` names the backward's
+    profiler range under PROFILE_SITES (a plain label, as
+    `corners_refine` or `kd`). Tables that are not floating point, or
+    need no gradient, take index_select and keep no graph."""
+    if x.is_floating_point() and x.requires_grad and torch.is_grad_enabled():
+        return _Take.apply(x, idx, site)
+    return _gather(x, idx)
+
+
+def permute(x: torch.Tensor, perm: torch.Tensor, inv) -> torch.Tensor:
+    """x[perm] for a permutation perm of x's rows (int64, as argsort
+    gives), whose backward gathers the gradient by `inv`, the inverse
+    permutation: exact and without atomics on either device (its values
+    are index_add's over the permutation, except that a -0.0 gradient
+    stays -0.0 where index_add's zeros + -0.0 gives +0.0). `inv` may be
+    None where x needs no gradient."""
+    if x.requires_grad and torch.is_grad_enabled():
+        if inv is None:
+            raise ValueError('permute: x needs a gradient, which needs inv')
+        return _Permute.apply(x, perm, inv)
+    return torch.index_select(x, 0, perm)
 
 
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

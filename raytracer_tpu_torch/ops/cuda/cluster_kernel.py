@@ -31,7 +31,7 @@ from .. import bundle
 from .. import cluster_trace as plain
 from .. import intersect as isect
 from ..intersect import Hit
-from . import rng_kernel
+from . import rng_kernel, take_kernel
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), 'csrc')
@@ -42,6 +42,12 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-fmad=false', '-shared', '-Xcompiler', '-fPIC',
               '-I', CSRC, '-Xptxas', '-v']
+
+# kernel libraries whose source is not csrc/<name>.cu: the gradients'
+# kernels sit under csrc/grad/, apart from the trace kernels of csrc/*.cu
+# (the benchmark's profile counts every __global__ of csrc/*.cu as a trace
+# or draw kernel)
+SOURCES = dict(take_scatter='grad/take_scatter.cu')
 
 LAUNCHES = 0
 MODES: collections.Counter = collections.Counter()
@@ -68,13 +74,18 @@ def headers() -> tuple[str, ...]:
     return tuple(sorted(glob.glob(os.path.join(CSRC, '*.cuh'))))
 
 
+def source(name: str) -> str:
+    """The CUDA source of the kernel library `name`: csrc/<name>.cu, or
+    the path SOURCES gives under csrc/."""
+    return os.path.join(CSRC, SOURCES.get(name, f'{name}.cu'))
+
+
 def load(name: str, argtypes: list) -> ctypes.CDLL:
-    """Compile csrc/<name>.cu (once per hash of the source, the headers
-    and the flags) into a shared library, load it and declare its C entry
+    """Compile source(name) (once per hash of the source, the headers and
+    the flags) into a shared library, load it and declare its C entry
     point rt_<name>, which returns the launch's CUDA error code."""
     lib = ctypes.CDLL(native.build_shared(
-        [nvcc()], os.path.join(CSRC, f'{name}.cu'), NVCC_FLAGS, name,
-        headers()))
+        [nvcc()], source(name), NVCC_FLAGS, name, headers()))
     fn = getattr(lib, f'rt_{name}')
     fn.restype = ctypes.c_int
     fn.argtypes = argtypes
@@ -82,25 +93,27 @@ def load(name: str, argtypes: list) -> ctypes.CDLL:
 
 
 def build_log(name: str) -> str:
-    """What nvcc printed building csrc/<name>.cu (-Xptxas -v: registers,
+    """What nvcc printed building source(name) (-Xptxas -v: registers,
     spills and shared memory of each kernel); build it first."""
-    lib = native.library_path(os.path.join(CSRC, f'{name}.cu'), NVCC_FLAGS,
-                              name, headers())
+    lib = native.library_path(source(name), NVCC_FLAGS, name, headers())
     with open(lib[:-3] + '.log') as f:
         return f.read()
 
 
 def build() -> ctypes.CDLL:
-    """Compile (once per source hash) and load the kernel library, and the
-    threefry kernel's (rng_kernel.build): every traced path on the card
-    draws its random numbers with it, so whatever builds this kernel
-    before a clock starts (bench.build_kernels) builds that one too."""
+    """Compile (once per source hash) and load the kernel library, the
+    threefry kernel's (rng_kernel.build) and the take-scatter kernel's
+    (take_kernel.build): every traced path on the card draws its random
+    numbers with the one, and every training step on the card scatters
+    its gathers' gradients with the other, so whatever builds this kernel
+    before a clock starts (bench.build_kernels) builds those too."""
     global _lib
     if _lib is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         _lib = load('cluster_trace', [vp] * 4 + [ci] * 3 + [vp] * 7
                     + [ci, ci] + [vp] * 5 + [ci, ci, ci] + [vp] * 5)
         rng_kernel.build()
+        take_kernel.build()
     return _lib
 
 

@@ -51,11 +51,13 @@ def mt_intersect(o, d, p0, p1, p2):
 def gather_tri_verts(scene: Scene, tri, time):
     """Triangle corners -> (..., 3, 3) [corner, xyz]. A motion-blurred
     scene lerps them by ray time, v0 + time (v1 - v0) (MBObject::intersect,
-    src/MBObject.cpp:26-107); static triangles have v1 == v0."""
+    src/MBObject.cpp:26-107); static triangles have v1 == v0. The corner
+    index (..., 3) goes to take whole, so that the gradient's scatter
+    finds each corner's runs of equal vertices."""
     f = vm.take(scene.geom.face_v, tri)
-    v0 = vm.take(scene.geom.vertices, f)
+    v0 = vm.take(scene.geom.vertices, f, 'corners_refine')
     if scene.has_motion_blur:
-        v1 = vm.take(scene.geom.vertices_t1, f)
+        v1 = vm.take(scene.geom.vertices_t1, f, 'corners_refine')
         w = torch.as_tensor(time, dtype=v0.dtype, device=v0.device)
         w = w.expand(tri.shape)[..., None, None]
         return v0 + w * (v1 - v0)

@@ -61,7 +61,7 @@ def hit_attributes(scene: Scene, tri, inst, a, b):
     c = 1.0 - a - b
     fn = _take(g.face_n, tri).long()
     N = vm.normalize(_bary(g.normals[fn], c, a, b))
-    p = _take(g.vertices, _take(g.face_v, tri))             # (R,3,3)
+    p = _take(g.vertices, _take(g.face_v, tri), 'corners_geoN')  # (R,3,3)
     geoN = vm.normalize(vm.cross(p[..., 1, :] - p[..., 0, :],
                                  p[..., 2, :] - p[..., 0, :]))
     has_uv = _take(g.face_has_uv, tri)
@@ -121,9 +121,17 @@ def _ior_push(stack, sp, value):
 def _sort_wavefront(state: dict, segment=None) -> dict:
     """Permute the wavefront so ray blocks stay coherent: a stable sort
     (as jnp.argsort) of `sort_key`. The permutation decides which RNG slot
-    each ray draws from."""
+    each ray draws from. The float state moves through vm.permute, whose
+    backward gathers by the inverse permutation (made here, once a sort,
+    when a gradient will need it), the rest through take."""
     perm = torch.argsort(sort_key(state, segment), stable=True)
-    return {k: _take(v, perm) for k, v in state.items()}
+    inv = None
+    if torch.is_grad_enabled() and any(v.requires_grad
+                                       for v in state.values()):
+        inv = torch.empty_like(perm).scatter_(
+            0, perm, torch.arange(perm.shape[0], device=perm.device))
+    return {k: vm.permute(v, perm, inv) if v.is_floating_point()
+            else _take(v, perm) for k, v in state.items()}
 
 
 def sort_key(state: dict, segment=None) -> torch.Tensor:
@@ -451,11 +459,11 @@ def _step(scene: Scene, settings: RenderSettings, tracer, state, step_idx,
     L = L + torch.where(add_env[:, None], tp * env_out, 0.0)
 
     # ----------------------------------------------------------- hit shading
-    kd = _take(mats.kd, mat)
+    kd = _take(mats.kd, mat, 'kd')
     ka = mats.ka[mat]
     ks = mats.ks[mat]
     le = mats.le[mat]
-    spec_exp = _take(mats.spec_exp, mat)
+    spec_exp = _take(mats.spec_exp, mat, 'spec_exp')
     spec_amt = mats.spec_amt[mat]
     reflect_amt0 = mats.reflect_amt[mat]
     refract_amt0 = mats.refract_amt[mat]

@@ -1,9 +1,11 @@
 """The run counters of the port, in one place.
 
 Each counter lives in its module: a CUDA kernel wrapper's `LAUNCHES` and
-`MODES` (ops/cuda/*_kernel.py: the trace kernels of `KERNELS`, and the
+`MODES` (ops/cuda/*_kernel.py: the trace kernels of `KERNELS`, the
 threefry kernel of core/rng, `RNG`, which every path on the card
-launches), a plain tracer's `CALLS`, the alpha
+launches, and the take-scatter kernel of core/vecmath.take's backward,
+`GRADS`, which every training step on the card launches), a plain
+tracer's `CALLS`, the alpha
 march's `MARCH_PASSES` and `MARCH_SYNCS`, the near-ordered sweep's
 `SWEEPS` and `SWEEP_LIVE` and the plain walks' `TESTS`
 (ops/cluster_trace.py), the ring's `TRACES` and `ROUNDS`
@@ -29,11 +31,13 @@ from ..ops import traverse as ttr
 from ..ops.cuda import bvh_kernel as bvk, cluster_kernel as ck
 from ..ops.cuda import icluster_kernel as ick, iseg_kernel as isk
 from ..ops.cuda import mt_kernel as mtk, rng_kernel as rk
+from ..ops.cuda import take_kernel as tk
 from ..parallel import distributed
 
 KERNELS = dict(cluster_trace=ck, iseg_trace=isk, icluster_trace=ick,
                mt_trace=mtk, bvh_trace=bvk)
 RNG = dict(threefry=rk)
+GRADS = dict(take_scatter=tk)
 PLAINS = (ct, ist, ict, tmt, ttr)
 # what the backward pass's replays of bounce steps counted
 RECOMPUTE: collections.Counter = collections.Counter()
@@ -43,7 +47,7 @@ def _scalars() -> list:
     """(name, module, attribute) of every counter held in a module
     attribute."""
     return ([(f'launches.{k}', m, 'LAUNCHES')
-             for k, m in {**KERNELS, **RNG}.items()]
+             for k, m in {**KERNELS, **RNG, **GRADS}.items()]
             + [(f'calls.{m.__name__.rsplit(".", 1)[-1]}', m, 'CALLS')
                for m in PLAINS]
             + [('march_passes', ct, 'MARCH_PASSES'),
@@ -54,7 +58,8 @@ def _scalars() -> list:
 
 def _tables() -> list:
     """(name prefix, dict) of every counter held in a dict."""
-    return ([(f'modes.{k}.', m.MODES) for k, m in {**KERNELS, **RNG}.items()]
+    return ([(f'modes.{k}.', m.MODES)
+             for k, m in {**KERNELS, **RNG, **GRADS}.items()]
             + [('tests.', ct.TESTS), ('', distributed.STATS)])
 
 
@@ -76,7 +81,7 @@ def reset() -> None:
     (SWEEP_LIVE stays with its caller)."""
     for _, m, a in _scalars():
         setattr(m, a, 0)
-    for m in (*KERNELS.values(), *RNG.values()):
+    for m in (*KERNELS.values(), *RNG.values(), *GRADS.values()):
         m.MODES.clear()
     ct.TESTS.update(box=0, tri=0)
     distributed.reset_stats()

@@ -21,7 +21,18 @@ against a zero target): per tile the median wall of 3 steps and the peak
 memory (or "oom"); then one profiled step at the largest tile that fits,
 split into forward and backward device time with the top kernels of each
 and the trace kernels' time; then the backward device time of each leaf
-alone (a profiled step whose only leaf that requires grad is that one).
+alone (a profiled step whose only leaf that requires grad is that one);
+then the backward's gathers by call site: one profiled step with each
+take gradient's backward (core/vecmath.take and permute) in a profiler
+range named by its site (`sort`, `corners_refine`, `corners_geoN`, `kd`,
+`spec_exp`, `tex`), and per site the device ms, the kernels launched and
+the ms by kernel name. On a tree whose take has no sites (before the
+take-scatter kernel), the script wraps its take calls itself, named by
+their caller, with the backward autograd gives index_select (zeros and
+index_add_), so that both trees are split alike. --scene
+sponza_proxy_hd takes the benchmark's training cell's scene,
+`sponza_proxy(hd=True)` on the stand-in asset tree (written into a
+temporary directory).
 --pallas takes the 'pallas' cell instead: `sponza_standin` cut to 12
 spheres (8,836 triangles), intersector 'pallas' (the MT kernel). --bvh
 builds the scene with its BVH and traces it with intersector 'bvh' (the
@@ -38,6 +49,8 @@ kernels. Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import bisect
+import contextlib
 import json
 import os
 import re
@@ -52,18 +65,132 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import raytracer_tpu_torch as rt  # noqa: E402
+from raytracer_tpu_torch import bench  # noqa: E402
 from raytracer_tpu_torch.core import rng  # noqa: E402
+from raytracer_tpu_torch.core import vecmath as vm  # noqa: E402
 from raytracer_tpu_torch.diff import edges  # noqa: E402
 from raytracer_tpu_torch.ops import cluster_trace as ct  # noqa: E402
 from raytracer_tpu_torch.parallel import sharding  # noqa: E402
+from raytracer_tpu_torch.render import integrator  # noqa: E402
 from raytracer_tpu_torch.render import camera as cam_mod  # noqa: E402
 from raytracer_tpu_torch.scenes import registry  # noqa: E402
+from raytracer_tpu_torch.shading import textures  # noqa: E402
 
 DEFAULT_TILE = 1 << 21      # chip_smoke.py's tile: the whole 1080p frame
 # the port's CUDA trace kernels, by the names of their __global__ functions
 # (mt_trace_kernel: the MT sweep before it was split in three)
 TRACE_KERNEL = re.compile(r'(cluster_trace|iseg_trace|icluster_trace|'
                           r'mt_trace|mt_prep|mt_sweep|mt_resolve|bvh)_kernel')
+
+
+# the take gradients' call sites, and the functions that call take there
+SITES = ('sort', 'corners_refine', 'corners_geoN', 'kd', 'spec_exp', 'tex')
+CALLERS = dict(_sort_wavefront='sort', gather_tri_verts='corners_refine',
+               hit_attributes='corners_geoN', tex_lookup='tex',
+               tex_lookup_batch='tex')
+
+
+class _RangedTake(torch.autograd.Function):
+    """index_select with autograd's own backward of it (index_add_ into
+    zeros), in a profiler range named by the call site: a tree's take
+    before it named its sites."""
+
+    @staticmethod
+    def forward(ctx, x, idx, site):
+        ctx.save_for_backward(idx)
+        ctx.shape, ctx.site = tuple(x.shape), site
+        out = torch.index_select(x, 0, idx.reshape(-1).long())
+        return out.reshape(tuple(idx.shape) + tuple(x.shape[1:]))
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        with torch.profiler.record_function(ctx.site):
+            return g.new_zeros(ctx.shape).index_add_(
+                0, idx.reshape(-1).long(),
+                g.reshape((-1,) + ctx.shape[1:])), None, None
+
+
+@contextlib.contextmanager
+def site_ranges():
+    """Each take gradient's backward in a profiler range named by its call
+    site, for the length of the block."""
+    if hasattr(vm, 'PROFILE_SITES'):
+        vm.PROFILE_SITES = True
+        try:
+            yield
+        finally:
+            vm.PROFILE_SITES = False
+        return
+    take = vm.take
+
+    def ranged(x, idx, *_):
+        if not (x.is_floating_point() and x.requires_grad
+                and torch.is_grad_enabled()):
+            return take(x, idx)
+        f = sys._getframe(1)
+        while f is not None and f.f_code.co_name not in CALLERS \
+                and f.f_code.co_name != '_step':
+            f = f.f_back        # out of a comprehension's frame
+        name = f.f_code.co_name if f is not None else 'take'
+        site = CALLERS.get(name) or (
+            ('kd' if x.dim() == 2 else 'spec_exp') if name == '_step'
+            else name)
+        return _RangedTake.apply(x, idx, site)
+    old = vm.take, integrator._take, textures.take
+    vm.take = integrator._take = textures.take = ranged
+    try:
+        yield
+    finally:
+        vm.take, integrator._take, textures.take = old
+
+
+def by_site(prof) -> dict:
+    """Device ms, kernels and ms by kernel name of each site's ranges: the
+    device kernels inside the spans that the ranges' annotations take on
+    the device's timeline (one stream, so those are the kernels launched
+    in the range)."""
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = [(e.time_range.start, e.time_range.end, e.name) for e in dev
+             if e.name in SITES]
+    out = {s: dict(device_ms=0.0, kernels=0, ranges=0, by_kernel={})
+           for s in SITES}
+    for _, _, name in spans:
+        out[name]['ranges'] += 1
+    spans.sort()
+    starts = [a for a, _, _ in spans]
+    if not spans:
+        # no annotations on the device's timeline: the kernels each
+        # range's host operations launched
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CPU \
+                    and e.name in SITES:
+                rec = out[e.name]
+                rec['ranges'] += 1
+                todo = [e]
+                while todo:
+                    h = todo.pop()
+                    todo += h.cpu_children
+                    for k in h.kernels:
+                        rec['device_ms'] += k.duration / 1e3
+                        rec['kernels'] += 1
+                        rec['by_kernel'][k.name[:60]] = rec['by_kernel'].get(
+                            k.name[:60], 0.0) + k.duration / 1e3
+        return out
+    for e in dev:
+        if e.name in SITES or e.name in ('forward', 'backward'):
+            continue
+        i = bisect.bisect_right(starts, e.time_range.start) - 1
+        if i < 0 or e.time_range.start > spans[i][1]:
+            continue
+        rec = out[spans[i][2]]
+        ms = e.device_time_total / 1e3
+        rec['device_ms'] += ms
+        rec['kernels'] += 1
+        k = e.name[:60]
+        rec['by_kernel'][k] = rec['by_kernel'].get(k, 0.0) + ms
+    return out
 
 
 def wall(fn, reps=3):
@@ -197,6 +324,14 @@ def main_train(args, scene, cam, st) -> int:
             e.device_time_total for e in device_events(prof)
             if starts and e.time_range.start >= min(starts)) / 1e6
     print(json.dumps({'per_leaf_backward': split, 'ray_tile': tile}))
+    # the backward's gathers by call site
+    with site_ranges(), torch.profiler.profile(activities=acts) as prof:
+        train_step(scene, cam, st, params, leaves, tile)
+    sites = by_site(prof)
+    for site, rec in sites.items():
+        print(json.dumps({'take_site': site, **rec}))
+    print(json.dumps({'take_sites_device_ms': sum(
+        r['device_ms'] for r in sites.values()), 'ray_tile': tile}))
     return 0
 
 
@@ -279,7 +414,8 @@ def main() -> int:
     ap.add_argument('--scene', default='sponza_standin',
                     choices=('sponza_standin', 'instanced_grid_standin',
                              'forest_standin', 'final_forest_standin',
-                             'final_forest_standin_no_trees'))
+                             'final_forest_standin_no_trees',
+                             'sponza_proxy_hd'))
     ap.add_argument('--tiles', default='17,19,21')
     ap.add_argument('--trace', default=None)
     ap.add_argument('--train', action='store_true')
@@ -298,8 +434,11 @@ def main() -> int:
         name, kw = 'sponza_standin', dict(n_spheres=12, intersector='pallas')
     if args.bvh:
         kw.update(bvh=True, intersector='bvh')
-    scene, cam, st = registry.make(name, width=1920, height=1080,
-                                   ray_tile=DEFAULT_TILE, **kw)
+    if name == 'sponza_proxy_hd':
+        name, kw = 'sponza_proxy', dict(kw, hd=True)
+    with bench.asset_tree():
+        scene, cam, st = registry.make(name, width=1920, height=1080,
+                                       ray_tile=DEFAULT_TILE, **kw)
     if args.train:
         return main_train(args, scene, cam, st)
     if args.edges:

@@ -12,7 +12,14 @@
 #     checkout's profile script (copied into PARENT_DIR), so that they take
 #     the same measurements.
 #
-#   scripts/torch_parent_vs_change.sh PARENT_DIR [OUT_DIR]
+#   scripts/torch_parent_vs_change.sh PARENT_DIR [OUT_DIR] [cells [NAMES]]
+#
+# With `cells`, each turn runs instead the benchmark's cells NAMES (default
+# its two one-card cells; python -m raytracer_tpu_torch.bench --workload
+# NAME: the timed runs and, on one card, the profiled run) and, when NAMES
+# holds the training cell, its profile with the backward's gathers by call
+# site (torch_frame_profile.py --train --scene sponza_proxy_hd). The
+# four-card cell needs a call on four cards.
 #
 # PARENT_DIR holds the parent commit's files (for example
 # `git archive HEAD | tar -x -C _parent` before committing, in a directory
@@ -23,13 +30,30 @@ set -u
 parent=$(cd "$1" && pwd)
 here=$(cd "$(dirname "$0")/.." && pwd)
 out=${2:-$here/chiprun_out/ab}
+what=${3:-all}
+cells=${4:-sponza_hd_train_1080p final_forest_frame_1080p}
 mkdir -p "$out"
+out=$(cd "$out" && pwd)
 cp "$here/scripts/torch_frame_profile.py" "$parent/scripts/"
 turn=0
 for tree in "$parent" "$here" "$here" "$parent"; do
   turn=$((turn + 1))
   if [ "$tree" = "$parent" ]; then tag=parent; else tag=change; fi
   cd "$tree" || exit 1
+  if [ "$what" = cells ]; then
+    for cell in $cells; do
+      log="$out/${turn}_${tag}_${cell}.txt"
+      python3 -m raytracer_tpu_torch.bench --workload "$cell" > "$log" 2>&1
+      echo "$turn $tag bench $cell rc=$?"
+    done
+    case " $cells " in *" sponza_hd_train_1080p "*)
+      log="$out/${turn}_${tag}_train_sites.txt"
+      python3 scripts/torch_frame_profile.py --train --scene sponza_proxy_hd \
+        --tiles 21 > "$log" 2>&1
+      echo "$turn $tag profile train sites rc=$?";;
+    esac
+    continue
+  fi
   log="$out/${turn}_${tag}_smoke.txt"
   python3 chip_smoke.py > "$log" 2>&1
   echo "$turn $tag chip_smoke rc=$?"

@@ -1,6 +1,8 @@
 """The CUDA trace kernels (cluster, segment and hierarchical instance trace,
 the brute-force Moller-Trumbore sweep and the wide-BVH walk) and the
-threefry random-number kernel against their plain PyTorch versions, and the trainer's loss and gradients, the edge-sampled boundary
+threefry random-number kernel against their plain PyTorch versions, the
+take-scatter kernel (the backward of core/vecmath.take) against
+index_add_, and the trainer's loss and gradients, the edge-sampled boundary
 terms, adaptive renders and the baked stone texture against the CPU's, on
 the card. Every test here needs an
 NVIDIA GPU and nvcc, and skips elsewhere.
@@ -23,6 +25,7 @@ import torch
 
 import raytracer_tpu_torch as rt
 from raytracer_tpu_torch.core import rng
+from raytracer_tpu_torch.core import vecmath as vm
 from raytracer_tpu_torch.ops import bundle
 from raytracer_tpu_torch.ops import cluster_trace as ct
 from raytracer_tpu_torch.ops import icluster_trace as ict
@@ -35,6 +38,7 @@ from raytracer_tpu_torch.ops.cuda import icluster_kernel as ick
 from raytracer_tpu_torch.ops.cuda import iseg_kernel as isk
 from raytracer_tpu_torch.ops.cuda import mt_kernel as mtk
 from raytracer_tpu_torch.ops.cuda import rng_kernel as rk
+from raytracer_tpu_torch.ops.cuda import take_kernel as tk
 from raytracer_tpu_torch.parallel import sharding as ts
 from raytracer_tpu_torch.render import camera as cam_mod
 from raytracer_tpu_torch.scenes import registry
@@ -1099,3 +1103,110 @@ def test_no_card_draw_reaches_the_int64_version(dev, monkeypatch):
     with pytest.raises(ValueError, match='int64'):
         rk.draw(torch.zeros(3, dtype=torch.int32, device=dev),
                 torch.zeros(3, dtype=torch.int32, device=dev), (2,), dev)
+
+
+# ------------------------------------------------ the take-scatter kernel
+# (kind, rows M, channels C, index columns K, index rows N): random rows,
+# sorted runs (a Morton-sorted wavefront's corners), every index on one row
+# (M = 1) and a permutation; small tables take table_shared, the 100,000-row
+# ones table_global
+TAKE_CASES = [('random', 40, 3, 1, 5000), ('random', 100_000, 3, 3, 70_001),
+              ('sorted', 40, 1, 1, 300_001), ('sorted', 100_000, 3, 3, 9000),
+              ('sorted', 5000, 1, 16, 4097), ('one_row', 1, 3, 1, 100_000),
+              ('one_row', 1, 1, 3, 33), ('permutation', 3000, 3, 1, 3000),
+              ('permutation', 200_000, 1, 1, 200_000)]
+
+
+def _take_case(kind, M, C, K, N, dtype, dev, seed=0):
+    """(grad (N, K, C) float32, idx (N, K)) on the card."""
+    rs = np.random.default_rng(seed)
+    if kind == 'permutation':
+        idx = rs.permutation(M).reshape(N, K)
+    elif kind == 'one_row':
+        idx = np.zeros((N, K), np.int64)
+    else:
+        idx = rs.integers(0, M, (N, K))
+        if kind == 'sorted':
+            idx = np.sort(idx, axis=0)
+    grad = rs.normal(size=(N, K, C)).astype(np.float32)
+    return (torch.from_numpy(grad).to(dev),
+            torch.from_numpy(idx).to(dtype).to(dev))
+
+
+def _hold_to_index_add(got, grad, idx, M):
+    """|kernel - index_add_| <= 1e-5 x the sum of |contributions| at each
+    entry: the two sum each entry in other orders (index_add_'s atomics in
+    an order that changes from run to run)."""
+    C = grad.shape[-1]
+    flat = idx.reshape(-1).long()
+    want = torch.zeros((M, C), device=grad.device).index_add_(
+        0, flat, grad.reshape(-1, C))
+    mag = torch.zeros((M, C), dtype=torch.float64,
+                      device=grad.device).index_add_(
+        0, flat, grad.reshape(-1, C).abs().double())
+    excess = (got.double() - want.double()).abs() - 1e-5 * mag
+    assert float(excess.max()) <= 0.0, float(excess.max())
+
+
+@pytest.mark.parametrize('dtype', [torch.int32, torch.int64])
+@pytest.mark.parametrize('case', TAKE_CASES)
+def test_take_scatter_kernel_matches_index_add(dev, case, dtype):
+    kind, M, C, K, N = case
+    grad, idx = _take_case(kind, M, C, K, N, dtype, dev)
+    n0, mode = tk.LAUNCHES, tk.mode(M, C)
+    modes0 = tk.MODES[mode]
+    got = tk.scatter(grad, idx, M)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES == n0 + 1 and tk.MODES[mode] == modes0 + 1
+    assert got.shape == (M, C) and got.dtype == torch.float32
+    _hold_to_index_add(got, grad, idx, M)
+
+
+def test_take_scatter_kernel_edges(dev):
+    """Both modes are taken; no index launches nothing; wrong inputs and
+    a float64 gradient through take on the card raise."""
+    assert tk.mode(40, 3) == 'table_shared'
+    assert tk.mode(100_000, 3) == 'table_global'
+    n0 = tk.LAUNCHES
+    out = tk.scatter(torch.zeros((0, 3, 3), device=dev),
+                     torch.zeros((0, 3), dtype=torch.int32, device=dev), 7)
+    assert tk.LAUNCHES == n0 and out.shape == (7, 3) and not out.any()
+    with pytest.raises(ValueError, match='float32'):
+        tk.scatter(torch.zeros((4, 1, 3), dtype=torch.float64, device=dev),
+                   torch.zeros((4, 1), dtype=torch.int64, device=dev), 2)
+    with pytest.raises(ValueError, match='idx'):
+        tk.scatter(torch.zeros((4, 1, 3), device=dev),
+                   torch.zeros((4, 2), dtype=torch.int64, device=dev), 2)
+    with pytest.raises(ValueError, match='CUDA'):
+        tk.scatter(torch.zeros((4, 1, 3)), torch.zeros((4, 1)).long(), 2)
+    x = torch.ones((5, 3), dtype=torch.float64, device=dev,
+                   requires_grad=True)
+    y = vm.take(x, torch.zeros(4, dtype=torch.int64, device=dev))
+    with pytest.raises(ValueError, match='float32'):
+        y.sum().backward()
+
+
+def test_step_take_grads_launch_the_kernel_only(dev, monkeypatch):
+    """A training step on the card scatters every take gradient with the
+    kernel, in both modes: index_add_ never runs there, and the leaves
+    agree with the CPU's step within phase 15's rule."""
+    def no_index_add(self, *args, **kw):
+        if self.is_cuda:
+            raise AssertionError('index_add_ ran on the card')
+        return index_add(self, *args, **kw)
+    index_add = torch.Tensor.index_add_
+    host, cam, st = registry.sponza_standin(32, 24, max_bounces=3,
+                                            n_spheres=12, device='cpu')
+    target = torch.zeros((st.height, st.width, 3))
+    want = ts.loss_and_grads_scanned(ts.get_params(host), host, cam, st,
+                                     target, rng.PRNGKey(4))
+    card = host.to(dev)
+    monkeypatch.setattr(torch.Tensor, 'index_add_', no_index_add)
+    counters.reset()
+    got = ts.loss_and_grads_scanned(ts.get_params(card), card, cam.to(dev),
+                                    st, target.to(dev), rng.PRNGKey(4))
+    torch.cuda.synchronize()
+    assert tk.MODES['table_shared'] > 0 and tk.MODES['table_global'] > 0
+    assert tk.LAUNCHES == sum(tk.MODES.values())
+    _assert_grads_close((got[0].cpu(), {k: g.cpu() for k, g in
+                                        got[1].items()}), want)
