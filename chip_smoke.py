@@ -240,15 +240,23 @@ through `parallel/sharding.loss_and_grads_scanned`, Adam steps through
  42. the take-scatter kernel (csrc/grad/take_scatter.cu, the backward of
      core/vecmath.take on the card): one 1080p 10-bounce fwd+bwd step of
      `sponza_standin` (bench.py's step), in which every take gradient
-     launches it, in both modes, and index_add_ (its plain version) never
-     runs on the card; then, on that step's own gradients and indices of
-     its first bounce (the triangle corners (R, 3) into the vertices, `kd`
-     and `spec_exp` by material) and on the wavefront sort's permutation of an (R, 3)
-     state tensor, the kernel against index_add_ on the card within 1e-5
-     x the sum of |contributions| at each entry, with CUDA-event times
-     (median of 5) of the kernel, the plain version and index_add_ alone,
-     and its bound (bytes over 3.35 TB/s); the sort's backward, the
-     gather by the inverse permutation, equal to index_add_, timed.
+     launches it, in both modes, 30 launches (each bounce one into the
+     vertices, its corners gathered once, and two into the material
+     rows), and index_add_ (its plain version) never runs on the card;
+     then, on every one of that step's gradients and indices (each
+     bounce's triangle corners (R, 3) into the vertices, `kd` and
+     `spec_exp` by material), on a synthetic hot row (sorted corners with
+     a fifth of the rows interleaved onto row 0 with +-0.0 gradients) and
+     on the wavefront sort's permutation of an (R, 3) state tensor, the
+     kernel within 1e-5 x the sum of |contributions| of the exact sum at
+     each entry, and of index_add_'s on the card, with entries that only
+     exact zeros reach +0.0, CUDA-event times (median of 5) of the
+     kernel, the plain version and index_add_ alone, its bound (bytes
+     over 3.35 TB/s), the zero share and the mean run length, one line a
+     bounce for the corners; the sort's backward, the gather by the
+     inverse permutation, equal to index_add_, timed; then the texel pool
+     of a 1080p fwd+bwd step of `final_forest_standin` (C = 1, 16-112
+     index columns a ray), every texel gradient held and timed alike.
 
 Each path (phases 5, 7, 9, 10, 13, 14, 16-18, 20, 22's frame, the
 motion-blurred prototype's trace, 30, 31, 34-36, 40-42) is driven with every
@@ -304,6 +312,7 @@ from raytracer_tpu_torch.render.renderer import render_pixels
 from raytracer_tpu_torch.scenes import assets, registry
 from raytracer_tpu_torch.shading import procedural
 from raytracer_tpu_torch.utils import counters, profiling
+from scripts.take_stats import stats, watched_takes
 
 WIDTH, HEIGHT, BOUNCES = 1920, 1080, 10
 N_RAYS = 32_768
@@ -2503,7 +2512,12 @@ def threefry_cell(dev, key) -> dict:
                 **total[2].bound(PEAK_INT_OPS))
 
 
-def take_case(tag, g, idx, shape) -> dict:
+# phase 42's synthetic hot row: a 1080p step's corner gradient shape, with
+# this share of its rows interleaved onto row 0 with +-0.0 gradients
+TAKE_HOT_SHARE = 0.2
+
+
+def take_case(tag, g, idx, shape, quiet=False) -> dict:
     """One take gradient (g, the output's gradient, for a table of `shape`
     read at idx) by the kernel and by index_add_ on the same card: the
     kernel within 1e-5 x the sum of |contributions| of the exact sum
@@ -2511,12 +2525,14 @@ def take_case(tag, g, idx, shape) -> dict:
     index_add_'s own error (the sums run in other orders, index_add_'s as
     one float32 atomic a contribution, in an order that changes from run
     to run: 2 M of them into one material row stray from the exact sum by
-    more than 1e-5 of the magnitudes); CUDA-event times (median of 5) of
-    the kernel (its wrapper, with the zeroed table), the plain version
+    more than 1e-5 of the magnitudes); entries that only exact zeros reach
+    are +0.0, bit for bit. CUDA-event times (median of 5) of the kernel
+    (its wrapper, with the zeroed table), of the plain version
     (scatter_rows' CPU branch: zeros, the index as int64, index_add_) and
-    index_add_ alone (one torch.index_add into zeros made before); the
+    of index_add_ alone (one torch.index_add into zeros made before); the
     bound, the bytes of the gradient, the index and the table written
-    once over 3.35 TB/s."""
+    once over 3.35 TB/s; take_stats.stats of the launch, printed unless
+    `quiet`."""
     rows = shape[0]
     K = idx.shape[-1] if idx.dim() >= 2 else 1
     C = math.prod(shape[1:])
@@ -2524,42 +2540,97 @@ def take_case(tag, g, idx, shape) -> dict:
     g3 = g.reshape(idx2.shape[0], K, C).contiguous()
     flat, g2 = idx.reshape(-1).long(), g3.reshape(-1, C)
     zeros = torch.zeros((rows, C), device=g.device)
-    ms, got = cuda_ms(lambda: tk.scatter(g3, idx2, rows))
     plain_ms, want = cuda_ms(lambda: g.new_zeros((rows, C)).index_add_(
         0, idx.reshape(-1).long(), g2))
     library_ms, _ = cuda_ms(lambda: torch.index_add(zeros, 0, flat, g2))
     zeros64 = torch.zeros((rows, C), dtype=torch.float64, device=g.device)
     mag = zeros64.index_add(0, flat, g2.abs().double())
     exact = zeros64.index_add(0, flat, g2.double())
-    err = (got.double() - want.double()).abs()
-    err_exact = (got.double() - exact).abs()
+    only_zeros = (mag == 0) & (zeros64.index_add(
+        0, flat, torch.ones_like(g2, dtype=torch.float64)) > 0)
     plain_err = (want.double() - exact).abs()
-    excess = float((err_exact - 1e-5 * mag).max())
+    ms, got = cuda_ms(lambda: tk.scatter(g3, idx2, rows))
+    excess = float(((got.double() - exact).abs() - 1e-5 * mag).max())
+    assert excess <= 0.0, f'take-scatter {tag}: differs from the exact sum'
+    assert not (got.view(torch.int32)[only_zeros]).any(), \
+        f'take-scatter {tag}: a zero-only entry is not +0.0'
+    err = (got.double() - want.double()).abs()
     excess_plain = float((err - 1e-5 * mag - plain_err).max())
+    assert excess_plain <= 0.0, f'take-scatter {tag}: differs'
     nbytes = 4 * g3.numel() + idx2.element_size() * idx2.numel() \
         + 4 * rows * C
+    st = stats(g3, idx2)
     rec = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by='bytes',
-               max_abs_err=float(err.max()))
-    phase('take_scatter_vs_index_add', case=tag, table=list(shape),
-          index=list(idx.shape), index_dtype=str(idx.dtype).split('.')[-1],
-          mode=tk.mode(rows, C), excess_over_tol=excess,
-          excess_over_tol_vs_index_add=excess_plain,
-          max_err_vs_exact=float(err_exact.max()),
-          index_add_max_err_vs_exact=float(plain_err.max()),
-          excess_of_1e5_rule_vs_index_add=float((err - 1e-5 * mag).max()),
-          **rec)
-    assert excess <= 0.0 and excess_plain <= 0.0, \
-        f'take-scatter {tag}: the kernel differs'
+               max_abs_err=float(err.max()),
+               zero_share=st['zero_entries'] / max(st['entries'], 1),
+               mean_run=st['mean_run'])
+    if not quiet:
+        phase('take_scatter_vs_index_add', case=tag, table=list(shape),
+              index=list(idx2.shape),
+              index_dtype=str(idx.dtype).split('.')[-1],
+              mode=tk.mode(rows, C), excess_over_tol=excess,
+              excess_over_tol_vs_index_add=excess_plain,
+              index_add_max_err_vs_exact=float(plain_err.max()),
+              only_zero_entries=int(only_zeros.sum()), stats=st, **rec)
     return rec
+
+
+def hot_row_case(dev, rows, n, rs) -> tuple:
+    """A 1080p step's corner gradient shape, (n, 3, 3) into (rows, 3):
+    sorted rows from 1 on, with TAKE_HOT_SHARE of the rows, interleaved,
+    on row 0 with +0.0 and -0.0 gradients (the live misses' triangle 0)."""
+    idx = torch.sort(torch.randint(1, rows, (n, 3), generator=rs,
+                                   device=dev, dtype=torch.int32), dim=0)[0]
+    g = torch.randn((n, 3, 3), generator=rs, device=dev)
+    hot = torch.rand(n, generator=rs, device=dev) < TAKE_HOT_SHARE
+    idx[hot] = 0
+    sign = torch.where(torch.rand((n, 3, 3), generator=rs, device=dev)
+                       < 0.5, -1.0, 1.0)
+    g = torch.where(hot[:, None, None], 0.0 * sign, g)
+    return g, idx
+
+
+def texel_cell(dev, key) -> None:
+    """Phase 42's textured step: one 1080p fwd+bwd step of
+    `final_forest_standin` at its defaults (5 bounces, one 2**21-ray tile),
+    whose texel pool takes each bounce's texture reads (the surface
+    batch's 16 entries a lookup, 112 a ray; the shadows' and the
+    reflections' 16-32) through the take-scatter kernel in table_global
+    with C = 1; every texel gradient of the step held and timed as
+    take_case holds and times the corners, one line each and their sum."""
+    scene, cam, st = registry.final_forest_standin(WIDTH, HEIGHT,
+                                                   device=dev)
+    target = torch.zeros((HEIGHT, WIDTH, 3), device=dev)
+    shape = tuple(scene.textures.data.shape)
+    with watched_takes({shape}) as seen:
+        (loss, _), wall = synced(lambda: ts.loss_and_grads_scanned(
+            ts.get_params(scene), scene, cam, st, target, key,
+            tile=bench.TRAIN_TILE))
+    assert bool(torch.isfinite(loss)), 'texel step: non-finite loss'
+    assert seen, 'texel step: no texel gradient'
+    del scene
+    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    for i, (_, g, idx) in enumerate(seen):
+        rec = take_case(f'texels#{i}', g, idx, shape, quiet=True)
+        for k in total:
+            total[k] += rec[k]
+        phase('take_texels_launch', launch=i, index=list(idx.shape),
+              ms=rec['ms'], bound_ms=rec['bound_ms'],
+              index_add_ms=rec['library_ms'], plain_ms=rec['plain_ms'],
+              zero_share=rec['zero_share'], mean_run=rec['mean_run'])
+    phase('take_texels_step', table=list(shape), launches=len(seen),
+          wall_s=wall, **total)
+    seen.clear()
 
 
 def take_cell(dev, key) -> dict:
     """Phase 42: the take-scatter kernel on the main path, then against
-    index_add_ at that path's shapes -> its record for the kernels line
-    (ms, plain_ms, library_ms and bound_ms of one bounce's four take
-    gradients: the corners twice, kd, spec_exp; launches in the driven
-    step)."""
+    index_add_ on every take gradient of that path -> its record for the
+    kernels line (ms, plain_ms, library_ms and bound_ms summed over the
+    driven step's take gradients, every bounce's corners, kd and
+    spec_exp; launches in the driven step). Then a synthetic hot row, the
+    sort's permutation and a textured step's texel gradients."""
     scene, cam, st = registry.sponza_standin(
         WIDTH, HEIGHT, max_bounces=BOUNCES, ray_tile=bench.TRAIN_TILE,
         device=dev)
@@ -2568,18 +2639,11 @@ def take_cell(dev, key) -> dict:
         ts.get_params(scene), scene, cam, st, target, key,
         tile=bench.TRAIN_TILE)
     synced(step)
-    # the step's take gradients (of each table and index shape the last
-    # the backward pass makes: the first bounce's, where every ray is
-    # alive), its sort's permutation, and every index_add_ on the card
-    seen, calls, perms, plain = {}, [0], [], [0]
-    scatter_rows, permute = vm.scatter_rows, vm.permute
-    index_add = torch.Tensor.index_add_
-
-    def watched_scatter(g, idx, shape):
-        calls[0] += 1
-        sig = (tuple(shape), tuple(idx.shape), idx.dtype)
-        seen[sig] = (g.detach().clone(), idx.clone())
-        return scatter_rows(g, idx, shape)
+    # the step's take gradients in the backward's order, its sort's
+    # permutation, the bounce steps run, and every index_add_ on the card
+    perms, plain, steps = [], [0], [0]
+    permute = vm.permute
+    index_add, bounce = torch.Tensor.index_add_, integrator._step
 
     def watched_permute(x, perm, inv):
         if not perms and inv is not None and x.dim() == 2:
@@ -2590,39 +2654,66 @@ def take_cell(dev, key) -> dict:
         plain[0] += self.is_cuda
         return index_add(self, *args, **kw)
 
+    def watched_step(*args, **kw):
+        steps[0] += 1
+        return bounce(*args, **kw)
+
     counters.reset()
-    vm.scatter_rows, vm.permute = watched_scatter, watched_permute
+    vm.permute = watched_permute
     torch.Tensor.index_add_ = watched_index_add
+    integrator._step = watched_step
     try:
-        (loss, grads), wall = synced(step)
+        with watched_takes() as seen:
+            (loss, grads), wall = synced(step)
     finally:
-        vm.scatter_rows, vm.permute = scatter_rows, permute
+        vm.permute = permute
         torch.Tensor.index_add_ = index_add
+        integrator._step = bounce
     check_only(ck, 'take_train_1080p')
     launches, modes = tk.LAUNCHES, dict(tk.MODES)
-    assert launches > 0 and launches == calls[0], \
-        f'take gradients {calls[0]}, kernel launches {launches}'
-    assert modes.get('table_shared') and modes.get('table_global'), modes
+    assert launches == len(seen) == 3 * steps[0] == 3 * BOUNCES, \
+        f'take gradients {len(seen)}, launches {launches}, steps {steps[0]}'
+    assert modes == {'table_global': steps[0],
+                     'table_shared': 2 * steps[0]}, modes
     assert plain[0] == 0, 'index_add_ ran on the card'
     assert bool(torch.isfinite(loss)), 'take step: non-finite loss'
     check_grads(grads, 'take_train_1080p')
     phase('take_train_1080p', wall_s=wall, launches=launches,
-          launches_by_mode=modes, take_gradients=calls[0],
-          index_add_on_card=plain[0], loss=float(loss))
+          launches_by_mode=modes, take_gradients=len(seen),
+          bounce_steps=steps[0], index_add_on_card=plain[0],
+          loss=float(loss))
     del grads
     geom, mats = scene.geom, scene.materials
-    cases = {'corners': (geom.vertices, 2), 'kd': (mats.kd, 1),
-             'spec_exp': (mats.spec_exp, 1)}
+    names = {tuple(geom.vertices.shape): 'corners',
+             tuple(mats.kd.shape): 'kd', tuple(mats.spec_exp.shape): 'spec_exp'}
     total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    corners = dict(total)
     err = 0.0
-    for tag, (table, times) in cases.items():
-        (g, idx), = [v for (shape, _, _), v in seen.items()
-                     if shape == tuple(table.shape)]
-        rec = take_case(tag, g, idx, tuple(table.shape))
+    # the backward runs the bounces last first; each bounce's gradients in
+    # its own order (spec_exp, kd, then the corners)
+    per = len(seen) // steps[0]
+    for i, (shape, g, idx) in enumerate(seen):
+        b = steps[0] - 1 - i // per
+        tag = names[shape]
+        rec = take_case(f'{tag}@bounce{b}', g, idx, shape)
         for k in total:
-            total[k] += times * rec[k]
+            total[k] += rec[k]
         err = max(err, rec['max_abs_err'])
-    del seen
+        if tag == 'corners':
+            for k in total:
+                corners[k] += rec[k]
+            phase('take_corners_bounce', bounce=b, ms=rec['ms'],
+                  bound_ms=rec['bound_ms'], index_add_ms=rec['library_ms'],
+                  plain_ms=rec['plain_ms'], zero_share=rec['zero_share'],
+                  mean_run=rec['mean_run'])
+    seen.clear()
+    phase('take_corners_step', launches=steps[0], **corners)
+    phase('take_step', launches=launches, max_abs_err=err, **total)
+    # the synthetic hot row, at the corners' shape
+    rs = torch.Generator(device=dev)
+    rs.manual_seed(KEY)
+    g, idx = hot_row_case(dev, geom.vertices.shape[0], bench.TRAIN_TILE, rs)
+    take_case('hot_row_zeros', g, idx, tuple(geom.vertices.shape))
     # the sort: its permutation through the kernel, then its backward (the
     # gather by the inverse permutation) against index_add_, exact
     perm, inv, shape = perms[0]
@@ -2634,6 +2725,8 @@ def take_cell(dev, key) -> dict:
     phase('sort_inverse_gather', shape=list(shape), ms=ms_inv,
           index_add_ms=ms_add, equal=True,
           bound_ms=(8 * shape[0] + 8 * math.prod(shape)) / PEAK_BYTES * 1e3)
+    del scene, g, perm, inv, perms
+    texel_cell(dev, key)
     return dict(name='take_scatter', route='cuda', source=TAKE_SOURCE,
                 replaces=TAKE_REPLACES, launches=launches, max_abs_err=err,
                 bound_by='bytes', **total)

@@ -102,7 +102,7 @@ def take(x: torch.Tensor, idx: torch.Tensor, site: str = 'take'
     sum each run of duplicates serially, which is slow when millions of
     rays read a few rows (a material table). `site` names the backward's
     profiler range under PROFILE_SITES (a plain label, as
-    `corners_refine` or `kd`). Tables that are not floating point, or
+    `corners` or `kd`). Tables that are not floating point, or
     need no gradient, take index_select and keep no graph."""
     if x.is_floating_point() and x.requires_grad and torch.is_grad_enabled():
         return _Take.apply(x, idx, site)

@@ -5,9 +5,12 @@ card, the scatter-add that XLA makes of the JAX package's gathers and that
 autograd makes of index_select (index_add, one global atomic an element).
 `scatter(grad, idx, rows)` adds a float32 gradient (N, K, C) into a zeroed
 (rows, C) table at the rows the index (N, K) names, one launch, summing
-each run of equal indices before it adds. Two modes: `table_shared` (the
-table fits in a block's shared memory: the material rows) and
-`table_global` (the vertices, the texel pool).
+each run of equal indices before it adds and adding nothing for an
+exactly zero sum. Two modes: `table_shared` (the table fits in a block's
+shared memory: the material rows) and `table_global` (the vertices, the
+texel pool), where a block sums its chunk's rows in a shared-memory table
+keyed by row and adds each row to the output once (C <= 4; wider rows add
+each run's sum to the output).
 
 The CUDA source is compiled with nvcc into a shared library with a plain C
 entry point on first use (ops/cuda/cluster_kernel.load, which the cluster
@@ -26,10 +29,11 @@ import torch
 
 LAUNCHES = 0
 MODES: collections.Counter = collections.Counter()
-# the kernel's warps a block, whose runs take 2 * WARPS * C floats of shared
-# memory beside a table_shared table, within SHARED_BYTES
-WARPS = 8
+# a table_shared table's bytes at most (the kernel's kDenseBytes)
 SHARED_BYTES = 47 * 1024
+# table_global: the slots of a block's row table and the index entries a
+# block's chunk takes at about (the kernel's kSlots, kChunkEntries)
+SLOTS, CHUNK_ENTRIES = 4096, 6144
 _lib = None
 _lock = threading.Lock()
 
@@ -48,8 +52,7 @@ def build() -> ctypes.CDLL:
 
 def mode(rows: int, C: int) -> str:
     """The mode of a launch into a (rows, C) table."""
-    floats = rows * C + 2 * WARPS * C
-    return 'table_shared' if 4 * floats <= SHARED_BYTES else 'table_global'
+    return 'table_shared' if 4 * rows * C <= SHARED_BYTES else 'table_global'
 
 
 def scatter(grad: torch.Tensor, idx: torch.Tensor, rows: int) -> torch.Tensor:

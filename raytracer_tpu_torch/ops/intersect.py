@@ -48,20 +48,28 @@ def mt_intersect(o, d, p0, p1, p2):
     return t, a, b, ok
 
 
-def gather_tri_verts(scene: Scene, tri, time):
+def gather_tri_verts(scene: Scene, tri, time, corners=None):
     """Triangle corners -> (..., 3, 3) [corner, xyz]. A motion-blurred
     scene lerps them by ray time, v0 + time (v1 - v0) (MBObject::intersect,
     src/MBObject.cpp:26-107); static triangles have v1 == v0. The corner
     index (..., 3) goes to take whole, so that the gradient's scatter
-    finds each corner's runs of equal vertices."""
+    finds each corner's runs of equal vertices. `corners`, where given, is
+    v0 (tri_corners(scene, tri)), gathered once for several readers."""
     f = vm.take(scene.geom.face_v, tri)
-    v0 = vm.take(scene.geom.vertices, f, 'corners_refine')
+    v0 = tri_corners(scene, tri) if corners is None else corners
     if scene.has_motion_blur:
-        v1 = vm.take(scene.geom.vertices_t1, f, 'corners_refine')
+        v1 = vm.take(scene.geom.vertices_t1, f, 'corners')
         w = torch.as_tensor(time, dtype=v0.dtype, device=v0.device)
         w = w.expand(tri.shape)[..., None, None]
         return v0 + w * (v1 - v0)
     return v0
+
+
+def tri_corners(scene: Scene, tri):
+    """The corners at time 0 of triangles tri -> (..., 3, 3) [corner,
+    xyz], through one take (site `corners`)."""
+    return vm.take(scene.geom.vertices, vm.take(scene.geom.face_v, tri),
+                   'corners')
 
 
 def alpha_of(scene: Scene, tri, a, b):
@@ -132,7 +140,7 @@ def brute_force_trace(scene: Scene, o, d, time, tmin, tmax,
                a=best_a, b=best_b)
 
 
-def refine_hit(scene: Scene, o, d, time, hit: Hit):
+def refine_hit(scene: Scene, o, d, time, hit: Hit, corners=None):
     """Differentiable (t, a, b) for the selected triangle.
 
     The forward values are pinned to the tracer's (recomputing t at a
@@ -144,10 +152,13 @@ def refine_hit(scene: Scene, o, d, time, hit: Hit):
     that a fixed ray meets head-on: against the clamped id 0 a ray in
     that triangle's plane has det == 0, and the 0 * inf of its dropped
     branch would make the vertex gradients NaN (a guard the JAX package
-    lacks)."""
+    lacks). `corners`, where given, are the time-0 corners of the
+    clamped ids (tri_corners(scene, hit.tri.clamp(min=0))), which the
+    bounce step gathers once for this and hit_attributes; the result is
+    the same, bit for bit, and so is the gradient."""
     v = hit.valid
     tri = torch.clamp(hit.tri, min=0)
-    p = gather_tri_verts(scene, tri, time)
+    p = gather_tri_verts(scene, tri, time, corners)
     if not scene.single_level:
         mi = scene.instances.m_inv[hit.inst.clamp(min=0).long()].detach()
         o, d = vm.transform_point(mi, o), vm.transform_vector(mi, d)

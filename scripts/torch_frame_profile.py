@@ -24,9 +24,16 @@ and the trace kernels' time; then the backward device time of each leaf
 alone (a profiled step whose only leaf that requires grad is that one);
 then the backward's gathers by call site: one profiled step with each
 take gradient's backward (core/vecmath.take and permute) in a profiler
-range named by its site (`sort`, `corners_refine`, `corners_geoN`, `kd`,
-`spec_exp`, `tex`), and per site the device ms, the kernels launched and
-the ms by kernel name. On a tree whose take has no sites (before the
+range named by its site (`sort`, `corners`, `kd`, `spec_exp`, `tex`; a
+tree that named the two corner gathers of a bounce `corners_refine` and
+`corners_geoN` has them summed under `corners`), and per site the device
+ms, the kernels launched and the ms by kernel name. Before the timed
+tiles' profile, step 1's corner gradients bounce by bounce: for each
+take-scatter launch into the vertex table, the bounce, R, the dead rays,
+the live rays that missed, the exactly zero entries, the distinct rows,
+the hot row, the mean run length along a warp's column, the adds of a
+tableless and of a block-table design, and the kernel's and index_add_'s
+ms on that gradient (CUDA events). On a tree whose take has no sites (before the
 take-scatter kernel), the script wraps its take calls itself, named by
 their caller, with the backward autograd gives index_select (zeros and
 index_add_), so that both trees are split alike. --scene
@@ -70,11 +77,14 @@ from raytracer_tpu_torch.core import rng  # noqa: E402
 from raytracer_tpu_torch.core import vecmath as vm  # noqa: E402
 from raytracer_tpu_torch.diff import edges  # noqa: E402
 from raytracer_tpu_torch.ops import cluster_trace as ct  # noqa: E402
+from raytracer_tpu_torch.ops import intersect as isect  # noqa: E402
+from raytracer_tpu_torch.ops.cuda import take_kernel as tk  # noqa: E402
 from raytracer_tpu_torch.parallel import sharding  # noqa: E402
 from raytracer_tpu_torch.render import integrator  # noqa: E402
 from raytracer_tpu_torch.render import camera as cam_mod  # noqa: E402
 from raytracer_tpu_torch.scenes import registry  # noqa: E402
 from raytracer_tpu_torch.shading import textures  # noqa: E402
+from scripts.take_stats import stats, watched_takes  # noqa: E402
 
 DEFAULT_TILE = 1 << 21      # chip_smoke.py's tile: the whole 1080p frame
 # the port's CUDA trace kernels, by the names of their __global__ functions
@@ -84,10 +94,12 @@ TRACE_KERNEL = re.compile(r'(cluster_trace|iseg_trace|icluster_trace|'
 
 
 # the take gradients' call sites, and the functions that call take there
-SITES = ('sort', 'corners_refine', 'corners_geoN', 'kd', 'spec_exp', 'tex')
-CALLERS = dict(_sort_wavefront='sort', gather_tri_verts='corners_refine',
-               hit_attributes='corners_geoN', tex_lookup='tex',
+SITES = ('sort', 'corners', 'kd', 'spec_exp', 'tex')
+CALLERS = dict(_sort_wavefront='sort', gather_tri_verts='corners',
+               hit_attributes='corners', tex_lookup='tex',
                tex_lookup_batch='tex')
+# a tree that gathered the corners twice a bounce named the two sites
+ALIASES = dict(corners_refine='corners', corners_geoN='corners')
 
 
 class _RangedTake(torch.autograd.Function):
@@ -145,6 +157,12 @@ def site_ranges():
         vm.take, integrator._take, textures.take = old
 
 
+def site_of(name: str):
+    """The site a profiler range's name stands for, or None."""
+    name = ALIASES.get(name, name)
+    return name if name in SITES else None
+
+
 def by_site(prof) -> dict:
     """Device ms, kernels and ms by kernel name of each site's ranges: the
     device kernels inside the spans that the ranges' annotations take on
@@ -152,8 +170,8 @@ def by_site(prof) -> dict:
     in the range)."""
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
-    spans = [(e.time_range.start, e.time_range.end, e.name) for e in dev
-             if e.name in SITES]
+    spans = [(e.time_range.start, e.time_range.end, site_of(e.name))
+             for e in dev if site_of(e.name)]
     out = {s: dict(device_ms=0.0, kernels=0, ranges=0, by_kernel={})
            for s in SITES}
     for _, _, name in spans:
@@ -165,8 +183,8 @@ def by_site(prof) -> dict:
         # range's host operations launched
         for e in prof.events():
             if e.device_type == torch.autograd.DeviceType.CPU \
-                    and e.name in SITES:
-                rec = out[e.name]
+                    and site_of(e.name):
+                rec = out[site_of(e.name)]
                 rec['ranges'] += 1
                 todo = [e]
                 while todo:
@@ -179,7 +197,7 @@ def by_site(prof) -> dict:
                             k.name[:60], 0.0) + k.duration / 1e3
         return out
     for e in dev:
-        if e.name in SITES or e.name in ('forward', 'backward'):
+        if site_of(e.name) or e.name in ('forward', 'backward'):
             continue
         i = bisect.bisect_right(starts, e.time_range.start) - 1
         if i < 0 or e.time_range.start > spans[i][1]:
@@ -255,6 +273,68 @@ def train_step(scene, cam, st, params, grad_leaves, tile, backward=True):
     torch.cuda.synchronize()
 
 
+def event_ms(fn, reps=5):
+    """Median CUDA-event time of fn() over `reps` runs after a warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def corner_counts(scene, cam, st, params, tile) -> list:
+    """Step 1's corner gradients, one record a take-scatter launch into the
+    vertex table, in bounce order: the bounce, R, the dead rays and the
+    live rays that missed at that bounce, take_stats.stats of the launch
+    (zero entries, distinct rows, the hot row, the mean run length along
+    a warp's column, a tableless design's adds, a table's adds a chunk),
+    and the CUDA-event ms (median of 5) of this tree's kernel and of
+    zeros + index_add_ on the same gradient."""
+    dead, missed = [], []
+    step, refine = integrator._step, isect.refine_hit
+    shape = tuple(scene.geom.vertices.shape)
+
+    def watched_step(sc, settings, tracer, state, *a, **kw):
+        dead.append(int((~state['alive']).sum()))
+        return step(sc, settings, tracer, state, *a, **kw)
+
+    def watched_refine(sc, o, d, time, hit, *a, **kw):
+        missed.append(int((~hit.valid).sum()) - dead[-1])
+        return refine(sc, o, d, time, hit, *a, **kw)
+    integrator._step, isect.refine_hit = watched_step, watched_refine
+    try:
+        with watched_takes({shape}) as seen:
+            train_step(scene, cam, st, params, set(sharding.PARAM_KEYS),
+                       tile)
+    finally:
+        integrator._step, isect.refine_hit = step, refine
+    bounces = len(dead)
+    per = len(seen) // max(bounces, 1)      # corner launches a bounce
+    recs = []
+    for i, (_, g, idx) in enumerate(reversed(seen)):  # backward: last first
+        b = i // per
+        K = idx.shape[-1]
+        g3 = g.reshape(-1, K, shape[1]).contiguous()
+        i2 = idx.reshape(-1, K).contiguous()
+        flat, g2 = i2.reshape(-1).long(), g3.reshape(-1, shape[1])
+        recs.append(dict(
+            corner_launch=i, bounce=b, R=int(i2.shape[0]), dead=dead[b],
+            live_missed=missed[b],
+            **stats(g3, i2, chunks=(512, 1024, 2048, 4096)),
+            kernel_ms=event_ms(lambda: tk.scatter(g3, i2, shape[0])),
+            index_add_ms=event_ms(lambda: g.new_zeros(shape).index_add_(
+                0, flat, g2)),
+            bound_ms=(g3.numel() * 4 + i2.numel() * i2.element_size()
+                      + shape[0] * shape[1] * 4) / 3.35e12 * 1e3))
+    return recs
+
+
 def main_train(args, scene, cam, st) -> int:
     W, H = st.width, st.height
     params = sharding.get_params(scene)
@@ -275,6 +355,15 @@ def main_train(args, scene, cam, st) -> int:
             'primary_rays_per_s': W * H / med,
             'peak_mem_gb': torch.cuda.max_memory_allocated() / 1e9}))
     tile = 1 << max(fits)
+    torch.cuda.empty_cache()
+    # step 1's corner gradients, bounce by bounce
+    recs = corner_counts(scene, cam, st, params, tile)
+    for rec in recs:
+        print(json.dumps(rec))
+    print(json.dumps({'corner_launches': len(recs),
+                      'corner_kernel_ms': sum(r['kernel_ms'] for r in recs),
+                      'corner_index_add_ms': sum(r['index_add_ms']
+                                                 for r in recs)}))
     torch.cuda.empty_cache()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]

@@ -13,13 +13,18 @@
 #     the same measurements.
 #
 #   scripts/torch_parent_vs_change.sh PARENT_DIR [OUT_DIR] [cells [NAMES]]
+#   scripts/torch_parent_vs_change.sh PARENT_DIR OUT_DIR sites [SCENES]
 #
 # With `cells`, each turn runs instead the benchmark's cells NAMES (default
 # its two one-card cells; python -m raytracer_tpu_torch.bench --workload
 # NAME: the timed runs and, on one card, the profiled run) and, when NAMES
 # holds the training cell, its profile with the backward's gathers by call
 # site (torch_frame_profile.py --train --scene sponza_proxy_hd). The
-# four-card cell needs a call on four cards.
+# four-card cell needs a call on four cards. With `sites`, each turn runs
+# only the training step's profile (torch_frame_profile.py --train --tiles
+# 21, with the backward's gathers by call site) on each of SCENES (default
+# sponza_proxy_hd final_forest_standin: the latter reads textures, so its
+# `tex` site holds the texel pool's take gradients).
 #
 # PARENT_DIR holds the parent commit's files (for example
 # `git archive HEAD | tar -x -C _parent` before committing, in a directory
@@ -34,12 +39,22 @@ what=${3:-all}
 cells=${4:-sponza_hd_train_1080p final_forest_frame_1080p}
 mkdir -p "$out"
 out=$(cd "$out" && pwd)
-cp "$here/scripts/torch_frame_profile.py" "$parent/scripts/"
+cp "$here/scripts/torch_frame_profile.py" "$here/scripts/take_stats.py" \
+  "$parent/scripts/"
 turn=0
 for tree in "$parent" "$here" "$here" "$parent"; do
   turn=$((turn + 1))
   if [ "$tree" = "$parent" ]; then tag=parent; else tag=change; fi
   cd "$tree" || exit 1
+  if [ "$what" = sites ]; then
+    for scene in ${4:-sponza_proxy_hd final_forest_standin}; do
+      log="$out/${turn}_${tag}_${scene}_sites.txt"
+      python3 scripts/torch_frame_profile.py --train --scene "$scene" \
+        --tiles 21 > "$log" 2>&1
+      echo "$turn $tag profile train sites $scene rc=$?"
+    done
+    continue
+  fi
   if [ "$what" = cells ]; then
     for cell in $cells; do
       log="$out/${turn}_${tag}_${cell}.txt"

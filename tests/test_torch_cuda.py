@@ -1109,26 +1109,56 @@ def test_no_card_draw_reaches_the_int64_version(dev, monkeypatch):
 # (kind, rows M, channels C, index columns K, index rows N): random rows,
 # sorted runs (a Morton-sorted wavefront's corners), every index on one row
 # (M = 1) and a permutation; small tables take table_shared, the 100,000-row
-# ones table_global
+# ones table_global. Then the redesign's edges: `hot_zeros`, sorted rows
+# with a fifth of the rows interleaved onto row 0 with +-0.0 gradients
+# (the live misses' triangle 0); `distinct`, more distinct rows in a block's
+# chunk than its row table holds (the overflow to global memory), also at
+# C = 1 with 48 index columns (a tile of 512 rows names 24,576 rows: the
+# table fills and the rest add to global memory); `runs1`, (R, 3) corners
+# whose runs along a column all have length 1; C = 1 and C = 3 through the
+# row table, C = 8 past it; the texel pool's 112 columns of sorted rows;
+# `nan`, a NaN contribution
 TAKE_CASES = [('random', 40, 3, 1, 5000), ('random', 100_000, 3, 3, 70_001),
               ('sorted', 40, 1, 1, 300_001), ('sorted', 100_000, 3, 3, 9000),
               ('sorted', 5000, 1, 16, 4097), ('one_row', 1, 3, 1, 100_000),
               ('one_row', 1, 1, 3, 33), ('permutation', 3000, 3, 1, 3000),
-              ('permutation', 200_000, 1, 1, 200_000)]
+              ('permutation', 200_000, 1, 1, 200_000),
+              ('hot_zeros', 100_000, 3, 3, 200_000),
+              ('distinct', 1_000_000, 3, 3, 100_000),
+              ('distinct', 1_000_000, 1, 48, 20_000),
+              ('runs1', 100_000, 3, 3, 200_000),
+              ('sorted', 100_000, 1, 3, 50_000),
+              ('sorted', 500_000, 1, 112, 20_000),
+              ('random', 100_000, 8, 2, 30_000),
+              ('nan', 100_000, 3, 3, 9000), ('nan', 40, 3, 1, 5000)]
 
 
 def _take_case(kind, M, C, K, N, dtype, dev, seed=0):
     """(grad (N, K, C) float32, idx (N, K)) on the card."""
     rs = np.random.default_rng(seed)
+    grad = rs.normal(size=(N, K, C)).astype(np.float32)
     if kind == 'permutation':
         idx = rs.permutation(M).reshape(N, K)
     elif kind == 'one_row':
         idx = np.zeros((N, K), np.int64)
+    elif kind == 'distinct':
+        idx = rs.permutation(M)[:N * K].reshape(N, K)
+    elif kind == 'runs1':
+        # neighbouring rows 7,919 apart (prime to M): no two equal
+        base = (int(rs.integers(M)) + 7919 * np.arange(N)) % M
+        idx = (base[:, None] + np.arange(K)) % M
+    elif kind == 'hot_zeros':
+        idx = np.sort(rs.integers(1, M, (N, K)), axis=0)
+        hot = rs.uniform(size=N) < 0.2
+        idx[hot] = 0
+        grad[hot] = np.where(rs.uniform(size=(hot.sum(), K, C)) < 0.5,
+                             -0.0, 0.0)
     else:
         idx = rs.integers(0, M, (N, K))
-        if kind == 'sorted':
+        if kind in ('sorted', 'nan'):
             idx = np.sort(idx, axis=0)
-    grad = rs.normal(size=(N, K, C)).astype(np.float32)
+    if kind == 'nan':
+        grad[N // 2, 0, C - 1] = np.nan
     return (torch.from_numpy(grad).to(dev),
             torch.from_numpy(idx).to(dtype).to(dev))
 
@@ -1136,7 +1166,7 @@ def _take_case(kind, M, C, K, N, dtype, dev, seed=0):
 def _hold_to_index_add(got, grad, idx, M):
     """|kernel - index_add_| <= 1e-5 x the sum of |contributions| at each
     entry: the two sum each entry in other orders (index_add_'s atomics in
-    an order that changes from run to run)."""
+    an order that changes from run to run). A NaN entry is NaN in both."""
     C = grad.shape[-1]
     flat = idx.reshape(-1).long()
     want = torch.zeros((M, C), device=grad.device).index_add_(
@@ -1144,8 +1174,10 @@ def _hold_to_index_add(got, grad, idx, M):
     mag = torch.zeros((M, C), dtype=torch.float64,
                       device=grad.device).index_add_(
         0, flat, grad.reshape(-1, C).abs().double())
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
     excess = (got.double() - want.double()).abs() - 1e-5 * mag
-    assert float(excess.max()) <= 0.0, float(excess.max())
+    assert float(excess[~nan].max()) <= 0.0, float(excess[~nan].max())
 
 
 @pytest.mark.parametrize('dtype', [torch.int32, torch.int64])
@@ -1159,7 +1191,18 @@ def test_take_scatter_kernel_matches_index_add(dev, case, dtype):
     torch.cuda.synchronize()
     assert tk.LAUNCHES == n0 + 1 and tk.MODES[mode] == modes0 + 1
     assert got.shape == (M, C) and got.dtype == torch.float32
+    assert got.is_contiguous()
     _hold_to_index_add(got, grad, idx, M)
+    if kind == 'hot_zeros':
+        # row 0 only zeros reach: +0.0, bit for bit
+        assert not got[0].view(torch.int32).any()
+    if kind == 'nan':
+        assert bool(torch.isnan(got[idx[N // 2, 0], C - 1]))
+        assert int(torch.isnan(got).sum()) == 1
+    if kind == 'distinct':
+        # a block's chunk (about CHUNK_ENTRIES entries, all distinct here)
+        # names more rows than its table has slots
+        assert tk.CHUNK_ENTRIES > tk.SLOTS and mode == 'table_global'
 
 
 def test_take_scatter_kernel_edges(dev):
@@ -1189,7 +1232,12 @@ def test_take_scatter_kernel_edges(dev):
 def test_step_take_grads_launch_the_kernel_only(dev, monkeypatch):
     """A training step on the card scatters every take gradient with the
     kernel, in both modes: index_add_ never runs there, and the leaves
-    agree with the CPU's step within phase 15's rule."""
+    agree with the CPU's step within phase 15's rule (at 3 bounces: the
+    sorted wavefront turns ulp-level differences into other random
+    numbers, and over more bounces into other losses). A step of 10
+    bounces makes 30 launches: each bounce one into the vertex table (its
+    corners, gathered once for refine_hit and hit_attributes) and two
+    into the material table (kd, spec_exp)."""
     def no_index_add(self, *args, **kw):
         if self.is_cuda:
             raise AssertionError('index_add_ ran on the card')
@@ -1206,7 +1254,15 @@ def test_step_take_grads_launch_the_kernel_only(dev, monkeypatch):
     got = ts.loss_and_grads_scanned(ts.get_params(card), card, cam.to(dev),
                                     st, target.to(dev), rng.PRNGKey(4))
     torch.cuda.synchronize()
-    assert tk.MODES['table_shared'] > 0 and tk.MODES['table_global'] > 0
-    assert tk.LAUNCHES == sum(tk.MODES.values())
+    assert dict(tk.MODES) == {'table_global': 3, 'table_shared': 6}
+    assert tk.LAUNCHES == 9
+    _, _, st10 = registry.sponza_standin(32, 24, max_bounces=10,
+                                         n_spheres=12, device='cpu')
+    counters.reset()
+    ts.loss_and_grads_scanned(ts.get_params(card), card, cam.to(dev), st10,
+                              target.to(dev), rng.PRNGKey(4))
+    torch.cuda.synchronize()
+    assert dict(tk.MODES) == {'table_global': 10, 'table_shared': 20}
+    assert tk.LAUNCHES == 30
     _assert_grads_close((got[0].cpu(), {k: g.cpu() for k, g in
                                         got[1].items()}), want)
