@@ -12,7 +12,9 @@ through `parallel/sharding.loss_and_grads_scanned`, Adam steps through
      kernel of core/vecmath.take's backward; one nvcc each, all started
      together) and the native host library, all compiled from
      this checkout; each kernel's registers, spills and shared memory
-     (ptxas -v);
+     (ptxas -v), and for each of the BVH kernel's eight instances its
+     registers, spills and stack frame (no spill, a frame under 128
+     bytes, or the phase fails);
   3. scene: the 174,724-triangle `sponza_standin` atrium, built on the
      card;
   4. the cluster kernel against its plain PyTorch version, both on the
@@ -107,7 +109,12 @@ through `parallel/sharding.loss_and_grads_scanned`, Adam steps through
      on `instanced_teapots_standin` (two levels), `mb_bullet_standin`
      (motion blur), `alpha_leaf_standin` (alpha maps in the walk) and
      `mb_prototype_standin` (a motion-blurred prototype), which 'auto'
-     must send to the BVH kernel; the 100,000-instance grid's build with
+     must send to the BVH kernel; on `sponza_standin` also at the main
+     path's wavefront size, the 1080p frame's camera rays (nearest) and
+     one sorted bounce from their hits (any-hit), as phase 4: t, tri,
+     inst, a, b and the counters bit for bit, with CUDA-event ms, the
+     tests a ray and the least time of the work; the 100,000-instance
+     grid's build with
      its Python TLAS; then the 1080p, 10-bounce frame with intersector
      'bvh' (the BVH kernel carries every trace; median wall of 3, peak
      memory); its centre-of-pixel camera rays' nearest t bit for bit
@@ -277,6 +284,7 @@ import glob
 import json
 import math
 import os
+import re
 import statistics
 from concurrent.futures import ThreadPoolExecutor
 import subprocess
@@ -491,6 +499,24 @@ def compare_kernel(scene, cam, dev):
     return max_err, ms_k, ms_p, work.bound()
 
 
+def sorted_bounce(o, d, first, dev) -> dict:
+    """One bounce from the hits `first` of camera rays o, d: random
+    directions, sorted as the integrator sorts a wavefront (dead rays last,
+    then octant, then the origin's Morton code), stopping at 0.5-12 units;
+    rays without a hit dead (tmax -1) -> the sorted state ('o', 'd',
+    'tmax', ...)."""
+    R = o.shape[0]
+    rs = np.random.default_rng(KEY + 7)
+    f = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    alive = first.tri >= 0
+    d2 = rs.normal(size=(R, 3))
+    d2 /= np.linalg.norm(d2, axis=-1, keepdims=True)
+    return integrator._sort_wavefront({
+        'o': torch.where(alive[:, None], o + first.t[:, None] * d, o),
+        'd': f(d2), 'alive': alive,
+        'tmax': torch.where(alive, f(rs.uniform(0.5, 12.0, R)), -1.0)})
+
+
 def compare_wavefront(tag, trace_k, trace_p, o, d, dev) -> float:
     """A kernel against its plain version at a wavefront size of the main
     path: camera rays o, d (nearest), then one bounce from their hits,
@@ -501,16 +527,7 @@ def compare_wavefront(tag, trace_k, trace_p, o, d, dev) -> float:
     warm-up; the kernels line keeps the 32k-ray cases."""
     R = o.shape[0]
     far = torch.full((R,), 1e12, device=dev)
-    rs = np.random.default_rng(KEY + 7)
-    f = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
-    first = trace_p(o, d, 1e-3, far, False)
-    alive = first.tri >= 0
-    d2 = rs.normal(size=(R, 3))
-    d2 /= np.linalg.norm(d2, axis=-1, keepdims=True)
-    bounce = integrator._sort_wavefront({
-        'o': torch.where(alive[:, None], o + first.t[:, None] * d, o),
-        'd': f(d2), 'alive': alive,
-        'tmax': torch.where(alive, f(rs.uniform(0.5, 12.0, R)), -1.0)})
+    bounce = sorted_bounce(o, d, trace_p(o, d, 1e-3, far, False), dev)
     max_err = 0.0
     for mode, (oo, dd, tmax, any_hit) in (
             ('nearest', (o, d, far, False)),
@@ -1344,6 +1361,37 @@ def bvh_rays(scene, cam, dev, fan: bool):
             'incoherent': (f(o2), f(d2), times())}
 
 
+def bvh_table_bytes(scene) -> int:
+    """The bytes of the tables the BVH walk reads, each once."""
+    bvh, g = scene.blas, scene.geom
+    xs = [bvh.node_min, bvh.node_max, bvh.child, bvh.count, bvh.prim_order,
+          g.face_v, g.vertices] + ([g.vertices_t1]
+                                   if scene.has_motion_blur else [])
+    return sum(x.numel() * x.element_size() for x in xs)
+
+
+def hold_bvh(tag, R, got, want, **fields) -> float:
+    """The BVH kernel's (hit, counters) `got` against the plain walk's
+    `want` for R rays: t, tri, inst, a, b and the counters bit for bit,
+    printed with `fields` and the tests a ray -> max |error|."""
+    (hk, sk), (hp, sp) = got, want
+    box, tri = int(sp['ray_aabb'].sum()), int(sp['ray_tri'].sum())
+    hits = int((hp.tri >= 0).sum())
+    differ = int(((hk.tri != hp.tri) | (hk.inst != hp.inst)).sum())
+    counts = int(((sk['ray_aabb'] != sp['ray_aabb'])
+                  | (sk['ray_tri'] != sp['ray_tri'])).sum())
+    errs = {f: float((getattr(hk, f) - getattr(hp, f)).abs().max())
+            for f in ('t', 'a', 'b')}
+    phase(tag, n=R, hits=hits, tri_inst_mismatch=differ,
+          counter_mismatch=counts,
+          **{f'max_abs_d{f}': e for f, e in errs.items()}, **fields,
+          box_tests_per_ray=box / R, tri_tests_per_ray=tri / R)
+    assert differ == 0 and counts == 0, f'{tag}: ids differ'
+    assert max(errs.values()) == 0.0, f'{tag}: t, a, b differ'
+    assert hits > R // 20, 'too few hits to compare'
+    return max(errs.values())
+
+
 def compare_bvh(scene, cam, dev, tag, fan=False):
     """Phase 22: the BVH kernel against its plain version, both on the
     card, at 32,768 coherent and incoherent rays, nearest and any-hit,
@@ -1354,11 +1402,7 @@ def compare_bvh(scene, cam, dev, tag, fan=False):
     geometry byte once, and the rays' inputs and outputs."""
     max_err, ms_k, ms_p = 0.0, 0.0, 0.0
     work = Work()
-    bvh, g = scene.blas, scene.geom
-    table_bytes = sum(x.numel() * x.element_size() for x in (
-        bvh.node_min, bvh.node_max, bvh.child, bvh.count, bvh.prim_order,
-        g.face_v, g.vertices)) + (g.vertices_t1.numel() * 4
-                                  if scene.has_motion_blur else 0)
+    table_bytes = bvh_table_bytes(scene)
     mb = scene.has_motion_blur
     rs = np.random.default_rng(KEY + 9)
     for kind, (o, d, tm) in bvh_rays(scene, cam, dev, fan).items():
@@ -1369,32 +1413,53 @@ def compare_bvh(scene, cam, dev, tag, fan=False):
                                     dtype=torch.float32, device=dev)
                 tmax = torch.clamp(hp.t * u, max=1e12)
             args = (o, d, tm, 1e-3, tmax, any_hit, True)
-            t_k, (hk, sk) = cuda_ms(lambda: bvk.bvh_trace(scene, *args))
-            t_p, (hp, sp) = cuda_ms(lambda: ttr.bvh_trace(scene, *args),
-                                    reps=2)
+            t_k, got = cuda_ms(lambda: bvk.bvh_trace(scene, *args))
+            t_p, want = cuda_ms(lambda: ttr.bvh_trace(scene, *args), reps=2)
             ms_k += t_k
             ms_p += t_p
+            hp, sp = want
             box, tri = int(sp['ray_aabb'].sum()), int(sp['ray_tri'].sum())
             # o, d, time, tmin, tmax in; t, tri, inst, a, b out
             work.add(box * BOX_OPS + tri * (MT_OPS + (LERP_OPS if mb else 0)),
                      table_bytes + N_RAYS * 56)
-            hits = int((hp.tri >= 0).sum())
-            differ = int(((hk.tri != hp.tri) | (hk.inst != hp.inst)).sum())
-            counts = int(((sk['ray_aabb'] != sp['ray_aabb'])
-                          | (sk['ray_tri'] != sp['ray_tri'])).sum())
-            errs = {f: float((getattr(hk, f) - getattr(hp, f)).abs().max())
-                    for f in ('t', 'a', 'b')}
-            max_err = max(max_err, *errs.values())
-            phase(tag, rays=kind, mode='any' if any_hit else 'nearest',
-                  n=N_RAYS, hits=hits, tri_inst_mismatch=differ,
-                  counter_mismatch=counts,
-                  **{f'max_abs_d{f}': e for f, e in errs.items()},
-                  kernel_ms=t_k, plain_ms=t_p, box_tests_per_ray=box / N_RAYS,
-                  tri_tests_per_ray=tri / N_RAYS)
-            assert differ == 0 and counts == 0, f'{tag} {kind}: ids differ'
-            assert max(errs.values()) == 0.0, f'{tag} {kind}: t, a, b differ'
-            assert hits > N_RAYS // 20, 'too few hits to compare'
+            max_err = max(max_err, hold_bvh(
+                tag, N_RAYS, got, want, rays=kind,
+                mode='any' if any_hit else 'nearest', kernel_ms=t_k,
+                plain_ms=t_p))
     return max_err, ms_k, ms_p, work.bound()
+
+
+def compare_bvh_frame(scene, cam, dev) -> float:
+    """Phase 22b: the BVH kernel against its plain version at the main
+    path's wavefront size, the 1080p frame's 2,073,600 camera rays
+    (nearest) and one sorted bounce from their hits (any-hit;
+    sorted_bounce), held as compare_bvh holds them, with the kernel's
+    CUDA-event ms (median of 5) and the least time of its work (counted as
+    compare_bvh counts it) -> max |error|."""
+    o, d, _ = cam_mod.center_rays(cam, WIDTH, HEIGHT)
+    o, d = o.to(dev), d.to(dev)
+    R = o.shape[0]
+    far = torch.full((R,), 1e12, device=dev)
+    bounce = sorted_bounce(o, d, ttr.bvh_trace(scene, o, d, 0.0, 1e-3, far),
+                           dev)
+    max_err = 0.0
+    for mode, (oo, dd, tmax, any_hit) in (
+            ('nearest', (o, d, far, False)),
+            ('any', (bounce['o'], bounce['d'], bounce['tmax'], True))):
+        args = (oo, dd, 0.0, 1e-3, tmax, any_hit)
+        t_k, _ = cuda_ms(lambda: bvk.bvh_trace(scene, *args))
+        got = bvk.bvh_trace(scene, *args, True)
+        want = ttr.bvh_trace(scene, *args, True)
+        sp = want[1]
+        work = Work()
+        work.add(int(sp['ray_aabb'].sum()) * BOX_OPS
+                 + int(sp['ray_tri'].sum()) * MT_OPS,
+                 bvh_table_bytes(scene) + R * 56)
+        bound = {k: v for k, v in work.bound().items() if k != 'library_ms'}
+        max_err = max(max_err, hold_bvh('bvh_kernel_vs_plain_1080p', R, got,
+                                        want, mode=mode, kernel_ms=t_k,
+                                        **bound))
+    return max_err
 
 
 def sorted_divergence(scene, cam, st, key):
@@ -1479,6 +1544,7 @@ def bvh_cell(dev, key, records, frame_auto) -> None:
           stack_bound=ttr.stack_bound(scene.blas),
           **profiling.bvh_stats(scene.blas))
     err, t_k, t_p, bnd = compare_bvh(scene, cam, dev, 'bvh_kernel_vs_plain')
+    err = max(err, compare_bvh_frame(scene, cam, dev))
     record = dict(name='bvh_trace', route='cuda',
                   source='raytracer_tpu_torch/csrc/bvh_trace.cu',
                   replaces='raytracer_tpu/ops/traverse.py:36 (XLA, not a '
@@ -2732,6 +2798,36 @@ def take_cell(dev, key) -> dict:
                 bound_by='bytes', **total)
 
 
+def ptxas_summary(log: str, kernel: str) -> dict:
+    """ptxas -v's figures for each instance of the template `kernel` in a
+    build log -> {its template arguments ('two_level=0,mb=1,alpha=0'
+    from the mangled name's bools): {registers, stack_frame,
+    spill_stores, spill_loads}}."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r'Function properties for (\S+)', line)
+        if m:
+            name = m.group(1)
+            cur = None
+            if kernel in name:
+                flags = re.findall(r'Lb([01])E', name)
+                cur = ','.join(f'{k}={v}' for k, v in zip(
+                    ('two_level', 'mb', 'alpha'), flags))
+                out[cur] = {}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r'(\d+) bytes stack frame, (\d+) bytes spill stores, '
+                      r'(\d+) bytes spill loads', line)
+        if m:
+            out[cur].update(zip(('stack_frame', 'spill_stores',
+                                 'spill_loads'), map(int, m.groups())))
+        m = re.search(r'Used (\d+) registers', line)
+        if m:
+            out[cur]['registers'] = int(m.group(1))
+    return out
+
+
 def check_image(img, shape) -> None:
     assert tuple(img.shape) == shape, img.shape
     assert bool(torch.isfinite(img).all()), 'non-finite pixels'
@@ -2775,6 +2871,15 @@ def main(dev=None) -> int:
                       for name in ('cluster_trace', 'iseg_trace',
                                    'icluster_trace', 'mt_trace',
                                    'bvh_trace', 'threefry', 'take_scatter')})
+
+    # every instance of the BVH kernel: no spills, a stack frame under 128
+    # bytes (its traversal stack lives in shared memory)
+    bvh_ptxas = ptxas_summary(ck.build_log('bvh_trace'), 'bvh_kernel')
+    phase('ptxas_bvh_kernel', instances=bvh_ptxas)
+    assert len(bvh_ptxas) == 8, bvh_ptxas
+    for name, v in bvh_ptxas.items():
+        assert v['stack_frame'] < 128 and v['spill_stores'] == 0 \
+            and v['spill_loads'] == 0, f'bvh_kernel<{name}>: {v}'
 
     # ----------------------------------------------------------- 3. scene
     t0 = time.perf_counter()

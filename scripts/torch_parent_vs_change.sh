@@ -14,6 +14,7 @@
 #
 #   scripts/torch_parent_vs_change.sh PARENT_DIR [OUT_DIR] [cells [NAMES]]
 #   scripts/torch_parent_vs_change.sh PARENT_DIR OUT_DIR sites [SCENES]
+#   scripts/torch_parent_vs_change.sh PARENT_DIR OUT_DIR bvh
 #
 # With `cells`, each turn runs instead the benchmark's cells NAMES (default
 # its two one-card cells; python -m raytracer_tpu_torch.bench --workload
@@ -24,7 +25,12 @@
 # only the training step's profile (torch_frame_profile.py --train --tiles
 # 21, with the backward's gathers by call site) on each of SCENES (default
 # sponza_proxy_hd final_forest_standin: the latter reads textures, so its
-# `tex` site holds the texel pool's take gradients).
+# `tex` site holds the texel pool's take gradients). With `bvh`, each turn
+# runs only the wide-BVH kernel's cases (scripts/torch_bvh_cases.py: 32k
+# rays and the 1080p frame's wavefront, kernel against the plain walk) and
+# the profiles of the 1080p sponza_standin frame traced through it
+# (torch_frame_profile.py --bvh --tiles 21) and through the cluster kernel
+# ('auto', --tiles 21).
 #
 # PARENT_DIR holds the parent commit's files (for example
 # `git archive HEAD | tar -x -C _parent` before committing, in a directory
@@ -40,7 +46,7 @@ cells=${4:-sponza_hd_train_1080p final_forest_frame_1080p}
 mkdir -p "$out"
 out=$(cd "$out" && pwd)
 cp "$here/scripts/torch_frame_profile.py" "$here/scripts/take_stats.py" \
-  "$parent/scripts/"
+  "$here/scripts/torch_bvh_cases.py" "$parent/scripts/"
 turn=0
 for tree in "$parent" "$here" "$here" "$parent"; do
   turn=$((turn + 1))
@@ -53,6 +59,18 @@ for tree in "$parent" "$here" "$here" "$parent"; do
         --tiles 21 > "$log" 2>&1
       echo "$turn $tag profile train sites $scene rc=$?"
     done
+    continue
+  fi
+  if [ "$what" = bvh ]; then
+    log="$out/${turn}_${tag}_bvh_cases.txt"
+    python3 scripts/torch_bvh_cases.py > "$log" 2>&1
+    echo "$turn $tag bvh cases rc=$?"
+    log="$out/${turn}_${tag}_bvh_frame.txt"
+    python3 scripts/torch_frame_profile.py --bvh --tiles 21 > "$log" 2>&1
+    echo "$turn $tag profile bvh frame rc=$?"
+    log="$out/${turn}_${tag}_auto_frame.txt"
+    python3 scripts/torch_frame_profile.py --tiles 21 > "$log" 2>&1
+    echo "$turn $tag profile auto frame rc=$?"
     continue
   fi
   if [ "$what" = cells ]; then

@@ -878,8 +878,10 @@ def test_bvh_kernel_matches_plain(bvh_scene, dev, any_hit):
 
 
 def test_bvh_kernel_refuses_a_deep_stack(dev):
-    """A BVH whose stack bound exceeds the kernel's fixed stack raises
-    before the launch; it is never cut short."""
+    """A BVH whose stack bound exceeds the kernel's limit (bvk.STACK
+    entries, the first bvk.SHARED of them in shared memory) raises before
+    the launch, naming the limit; it is never cut short. The deepest bound
+    it takes launches, its stack mostly in the spill tensor."""
     import dataclasses
     host = cpu(registry.triangle_sphere, size=8, bvh=True)[0]
     card = host.to(dev)
@@ -889,7 +891,7 @@ def test_bvh_kernel_refuses_a_deep_stack(dev):
     o = torch.zeros(4, 3, device=dev)
     d = torch.ones(4, 3, device=dev)
     n0 = bvk.LAUNCHES
-    with pytest.raises(ValueError, match='stack'):
+    with pytest.raises(ValueError, match=f'stack.*at most {bvk.STACK}'):
         bvk.bvh_trace(deep, o, d, 0.0, 1e-3, 1e12)
     assert bvk.LAUNCHES == n0
     ok = dataclasses.replace(card, blas=dataclasses.replace(
@@ -897,6 +899,67 @@ def test_bvh_kernel_refuses_a_deep_stack(dev):
     assert ttr.stack_bound(ok.blas) <= bvk.STACK
     bvk.bvh_trace(ok, o, d, 0.0, 1e-3, 1e12)
     assert bvk.LAUNCHES == n0 + 1
+
+
+@pytest.mark.parametrize('name', ['sponza_full', 'mb_bullet', 'teapots'])
+def test_bvh_kernel_after_an_in_place_vertex_update(name, dev):
+    """A trainer's in-place step on the vertices (and on the t1 pose of a
+    motion-blurred scene): the kernel's records are rebuilt, and its
+    results are the plain walk's on the updated scene, bit for bit."""
+    make, kw = BVH_SCENES[name]
+    card = cpu(make, bvh=True, **kw)[0].to(dev)
+    o, d, tm, dist = scene_rays(card, R, 8)
+    t = lambda x: torch.from_numpy(x).to(dev)
+    tmin, tmax = ray_bounds(dist, False)
+    rays = (t(o), t(d), t(tm), t(tmin), t(tmax))
+    before = bvk.bvh_trace(card, *rays)
+    g = card.geom
+    rs = np.random.default_rng(3)
+    g.vertices.add_(t(rs.normal(scale=0.02, size=tuple(g.vertices.shape))
+                      .astype(np.float32)))
+    if card.has_motion_blur:
+        g.vertices_t1.mul_(1.01)
+    hk, sk = bvk.bvh_trace(card, *rays, collect_stats=True)
+    hp, sp = ttr.bvh_trace(card, *rays, collect_stats=True)
+    torch.cuda.synchronize()
+    assert not torch.equal(hk.t, before.t)
+    for f in ('t', 'tri', 'inst', 'a', 'b'):
+        assert torch.equal(getattr(hk, f), getattr(hp, f)), f
+    for k in ('ray_aabb', 'ray_tri'):
+        assert torch.equal(sk[k], sp[k]), k
+
+
+@pytest.mark.parametrize('shared', ['default', 4])
+@pytest.mark.parametrize('any_hit', [False, True])
+def test_bvh_kernel_wavefront_at_scale(dev, any_hit, shared, monkeypatch):
+    """2^18 rays on the full atrium, with dead rays (tmax -1), finished
+    ones (tmin = tmax) and live ones mixed: every ray of the persistent
+    warps' fetches traced, bit for bit with the plain walk, counters
+    included; with 4 stack entries a thread in shared memory, the rest of
+    each stack runs through the spill tensor."""
+    if shared != 'default':
+        monkeypatch.setattr(bvk, 'SHARED', shared)
+    make, kw = BVH_SCENES['sponza_full']
+    card = cpu(make, bvh=True, **kw)[0].to(dev)
+    S, K = bvk.stack_split(card.blas)
+    assert K < S
+    n = 1 << 18
+    o, d, tm, dist = scene_rays(card, n, 9)
+    tmin, tmax = ray_bounds(dist, any_hit)
+    lane = np.arange(n)
+    tmax = np.where(lane % 5 == 2, -1.0, tmax).astype(np.float32)
+    tmin = np.where(lane % 7 == 4, tmax, tmin).astype(np.float32)
+    rays = [torch.from_numpy(x).to(dev) for x in (o, d, tm, tmin, tmax)]
+    n0 = bvk.LAUNCHES
+    hk, sk = bvk.bvh_trace(card, *rays, any_hit=any_hit, collect_stats=True)
+    hp, sp = ttr.bvh_trace(card, *rays, any_hit=any_hit, collect_stats=True)
+    torch.cuda.synchronize()
+    assert bvk.LAUNCHES == n0 + 1
+    assert int((hp.tri >= 0).sum()) > n // 8
+    for f in ('t', 'tri', 'inst', 'a', 'b'):
+        assert torch.equal(getattr(hk, f), getattr(hp, f)), f
+    for k in ('ray_aabb', 'ray_tri'):
+        assert torch.equal(sk[k], sp[k]), k
 
 
 def test_bvh_render_on_card_matches_cpu(dev):
