@@ -27,7 +27,10 @@ through `parallel/sharding.loss_and_grads_scanned`, Adam steps through
   5. the full 1080p, 10-bounce path-traced render with intersector 'auto':
      the kernel must carry every trace (launch count > 0, plain-version
      calls 0) and the threefry kernel every draw (as in every render
-     phase); then the median wall time of 3 renders;
+     phase); then the median wall time of 3 renders; then the frame with
+     every bounce step over the whole wavefront (the loop before steps ran
+     on the live prefix), which must equal it bit for bit, each timed
+     once, with the rows each bounce step ran;
   6. the same key rendered at 64x48, 3 bounces, on the CPU (plain version)
      and on the card (kernel): the images must agree;
   7. two-level instancing, for `instanced_grid_standin` (100,000
@@ -692,6 +695,55 @@ def render_cell(scene, cam, st, key, kernel, tag, also=(), **fields):
                             for m, c in modes.items()},
           alpha_march=march, **fields)
     return launches, modes, img
+
+
+def whole_wavefront_radiance(scene, settings, o, d, time, base_key,
+                             kind0=integrator.KIND_PRIMARY, prev_mat0=0,
+                             gi_bounces0=0, segment=None):
+    """integrator.radiance with every bounce step over all R rows: the
+    loop as it ran before steps ran on the live prefix."""
+    tracer = integrator.trace_fn(scene, settings)
+    state = integrator.initial_state(o, d, time, kind0, prev_mat0,
+                                     gi_bounces0)
+    for step_idx in range(settings.max_wavefront_steps):
+        if not bool(state['alive'].any()):
+            break
+        state = integrator._step(scene, settings, tracer, state, step_idx,
+                                 base_key, segment)
+    return integrator.final_radiance(state, settings)
+
+
+def live_prefix_cell(scene, cam, st, key, frame) -> None:
+    """Phase 5's frame rendered again with its bounce steps watched, and
+    with every step over the whole wavefront: both equal to `frame` bit
+    for bit; each one's wall and the rows each of its steps ran."""
+    step, radiance = integrator._step, integrator.radiance
+    ran = []
+
+    def watched(sc, settings, tracer, state, *a, **kw):
+        ran[-1].append(state['o'].shape[0])
+        return step(sc, settings, tracer, state, *a, **kw)
+
+    walls, imgs = [], []
+    integrator._step = watched
+    try:
+        for whole in (False, True):
+            ran.append([])
+            integrator.radiance = whole_wavefront_radiance if whole \
+                else radiance
+            img, wall = synced(lambda: rt.render(scene, cam, st, key))
+            walls.append(wall)
+            imgs.append(img)
+    finally:
+        integrator._step, integrator.radiance = step, radiance
+    differ = [int((img != frame).any(-1).sum()) for img in imgs]
+    phase('render_1080p_live_prefix', rows_by_step=ran[0],
+          whole_rows_by_step=ran[1], wall_s=walls[0], whole_wall_s=walls[1],
+          pixels_differ=differ[0], whole_pixels_differ=differ[1])
+    assert differ == [0, 0], \
+        'the frame on the live prefix is not the whole wavefront loop\'s'
+    assert len(ran[0]) == len(ran[1]) and min(ran[0]) < ran[0][0], \
+        'the bounce steps did not run on the live prefix'
 
 
 def mb_rays(cl, cam, dev):
@@ -1473,9 +1525,10 @@ def sorted_divergence(scene, cam, st, key):
     the 'auto' frame is also run through the BVH kernel on the same rays
     -> (per trace: rays, t differing, equal t on another triangle (a
     tie), the same hit with other barycentrics, any-hit existence
-    differing; per bounce: slots holding another pixel's ray, rays whose
-    origin or live flag differs, rays whose sort key differs; the two
-    images). The first few rays of a
+    differing; per bounce: the rows each frame's step ran, slots holding
+    another pixel's ray or run in one frame only, rays whose origin or
+    live flag differs, rays whose sort key differs, where a ray a step did
+    not run reads as dead at 0; the two images). The first few rays of a
     trace whose t differs come with their origin, direction, both t and
     both triangles."""
     traces, kept = [], {}
@@ -1504,10 +1557,15 @@ def sorted_divergence(scene, cam, st, key):
         return h
 
     def keep(*args, **kw):
+        # a step on the live prefix returns its rows only: each ray's
+        # state goes to its pixel's row of the whole wavefront, and a ray
+        # the step did not run (dead before it) reads as dead at 0
         state = real_step(*args, **kw)
-        kept[mode].append(dict(key=integrator.sort_key(state),
-                               **{k: state[k].clone()
-                                  for k in ('pix', 'o', 'alive')}))
+        pix = state['pix'].long()
+        kept[mode].append(dict(slot_pix=state['pix'].clone(), **{
+            k: v.new_zeros((kw['rows'], *v.shape[1:])).index_copy_(0, pix, v)
+            for k, v in (('key', integrator.sort_key(state)),
+                         ('o', state['o']), ('alive', state['alive']))}))
         return state
 
     imgs = {}
@@ -1522,16 +1580,17 @@ def sorted_divergence(scene, cam, st, key):
         integrator._step, ck.cluster_trace = real_step, real_trace
     steps = []
     for ka, kb in zip(kept['auto'], kept['bvh']):
-        # each ray's state by its pixel, whatever slot it sorted to
-        by_pix = [{f: torch.empty_like(k[f]).index_copy_(
-            0, k['pix'].long(), k[f]) for f in ('o', 'alive', 'key')}
-            for k in (ka, kb)]
+        # slots that hold another pixel's ray, or that one step ran and
+        # the other did not
+        pa, pb = ka['slot_pix'], kb['slot_pix']
+        n = min(pa.shape[0], pb.shape[0])
         steps.append(dict(
-            slots_moved=int((ka['pix'] != kb['pix']).sum()),
-            rays_differ=int(((by_pix[0]['o'] != by_pix[1]['o']).any(-1)
-                             | (by_pix[0]['alive'] != by_pix[1]['alive']))
-                            .sum()),
-            keys_differ=int((by_pix[0]['key'] != by_pix[1]['key']).sum())))
+            rows=[pa.shape[0], pb.shape[0]],
+            slots_moved=int((pa[:n] != pb[:n]).sum())
+            + abs(pa.shape[0] - pb.shape[0]),
+            rays_differ=int(((ka['o'] != kb['o']).any(-1)
+                             | (ka['alive'] != kb['alive'])).sum()),
+            keys_differ=int((ka['key'] != kb['key']).sum())))
     return traces, steps, imgs
 
 
@@ -2920,6 +2979,7 @@ def main(dev=None) -> int:
     key = rng.PRNGKey(KEY)
     records[0]['launches'], _, frame_auto = render_cell(
         scene, cam, st, key, ck, 'render_1080p')
+    live_prefix_cell(scene, cam, st, key, frame_auto)
     frame_auto = frame_auto.cpu()       # held by phases 22 and 23
 
     # ------------------------------------------------- 6. CPU/GPU parity

@@ -47,6 +47,8 @@ pair that the flat scan keeps.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from ..core.types import Scene
@@ -67,6 +69,9 @@ CALLS = 0
 # alpha-march passes traced (each one tracer call) and host syncs taken
 MARCH_PASSES = 0
 MARCH_SYNCS = 0
+# while set (march_rows), the wavefront size that budgets the passes of
+# every alpha march
+MARCH_ROWS: int | None = None
 # with COUNT_TESTS set, the (ray, box) slab tests (group boxes included)
 # and (ray, triangle-lane) Moller-Trumbore tests that the plain tracers
 # (this one, the segment and the hierarchical one) perform in their group
@@ -470,6 +475,21 @@ def merge_hits(h1: Hit, h2: Hit) -> Hit:
                  for f in ('t', 'tri', 'inst', 'a', 'b')))
 
 
+@contextlib.contextmanager
+def march_rows(rows: int):
+    """Inside, every alpha march budgets its passes by `rows`
+    (alpha_aware_trace), capped at the rays it is given: a bounce step on
+    the live prefix of a wavefront of `rows` rays (render/integrator._step)
+    reaches its marches through tracers whose signature has no room for
+    it."""
+    global MARCH_ROWS
+    outer, MARCH_ROWS = MARCH_ROWS, rows
+    try:
+        yield
+    finally:
+        MARCH_ROWS = outer
+
+
 def alpha_aware_trace(scene: Scene, trace_once, o, d, time, tmin, tmax,
                       any_hit: bool = False, max_passes: int = 12,
                       any_live=None) -> Hit:
@@ -488,11 +508,17 @@ def alpha_aware_trace(scene: Scene, trace_once, o, d, time, tmin, tmax,
     bool(flag.any()) by default; a ring tracer gives its ranks' shared
     one, so that they stop together and a rank whose rays are all settled
     traces the pass with them dead. Each pass's row budget depends only
-    on R, which is equal on every rank."""
+    on R, which is equal on every rank.
+
+    Inside march_rows(rows), the budgets are those of a march of `rows`
+    rays, capped at the R given: rays given as the first R of a wavefront
+    of `rows` whose other rays are dead (they would settle as misses in
+    pass 0) get the hits they get in a march of the whole wavefront."""
     global MARCH_PASSES, MARCH_SYNCS
     if any_live is None:
         any_live = lambda flag: bool(flag.any())
     R = o.shape[0]
+    rows = R if MARCH_ROWS is None else MARCH_ROWS
     time, tmin0, tmax_b = isect.ray_inputs(o, time, tmin, tmax)
     dev = o.device
     # the march state, updated in place
@@ -541,8 +567,8 @@ def alpha_aware_trace(scene: Scene, trace_once, o, d, time, tmin, tmax,
         MARCH_SYNCS += 1
         if not any_live(~s['done']):
             break
-        Rp = min(R, max(4096, R >> (p + 1)))
-        Rp = -(-Rp // 256) * 256 if Rp < R else R
+        Rp = min(rows, max(4096, rows >> (p + 1)))
+        Rp = min(R, -(-Rp // 256) * 256 if Rp < rows else rows)
         sel = torch.argsort(s['done'].to(torch.int32), stable=True)[:Rp]
         tmax_eff = torch.where(s['done'][sel], -1.0, tmax_b[sel])
         update(trace_once(o[sel], d[sel], time[sel], s['tmin'][sel],

@@ -8,9 +8,12 @@ one continuation ray (diffuse GI, reflection or refraction) is spawned per
 step. The RNG keys, splits and draws are the JAX package's, so one key
 renders the same image on both. The loop stops early once every ray has
 terminated (the JAX package's lax.cond step skip); under 'ring', once
-every ray of every rank has. With RenderSettings.remat, each step runs
-under torch.utils.checkpoint and the backward pass recomputes it (the
-JAX package's jax.checkpoint of its scan body; `_remat_step`).
+every ray of every rank has. After the first step, each step runs on the
+sorted wavefront's live prefix only (`radiance`), with the whole
+wavefront's random numbers and march budgets, so the image is the one the
+whole wavefront gives. With RenderSettings.remat, each step runs under
+torch.utils.checkpoint and the backward pass recomputes it (the JAX
+package's jax.checkpoint of its scan body; `_remat_step`).
 """
 from __future__ import annotations
 
@@ -37,8 +40,17 @@ IOR_STACK = 12  # the reference's IORList depth (src/Ray.h:151-178)
 # None, or a list that radiance() adds into while it is set: entry i
 # gains the radiance bounce step i added, summed over the rays ((3,)
 # float64 on the rays' device). The benchmark's gate reads it to see every
-# path depth (raytracer_tpu_torch/bench.py)
+# path depth (raytracer_tpu_torch/bench.py). The sum runs in slot order,
+# and the dead rays keep their slots once a step runs on the live prefix,
+# so it may differ from a whole-wavefront loop's in the last ulps
 DEPTH_RADIANCE: list | None = None
+# a step on the live prefix runs on its first n rows rounded up to this
+# (dead rows pass through a step unchanged): the CPU's vectorized loops
+# leave the last len % 32 elements of a float32 operation to the scalar
+# version of its function, whose acos, pow and atan2 may differ from the
+# vector version's in the last ulp, so every live row has to sit in a
+# vector block, as it does in the whole wavefront
+LIVE_BLOCK = 32
 KIND_PRIMARY, KIND_GI, KIND_REFLECT, KIND_REFRACT = 0, 1, 2, 3
 # under vecmath.PROFILE_PARTS: the rays that entered radiance() ('rays')
 # and, summed on their device over those calls, the rays alive at the
@@ -333,14 +345,82 @@ def radiance(scene: Scene, settings: RenderSettings, o, d, time,
     to end, each traced as radiance() would trace it alone with this key
     (its own random numbers and its own sort), which is what
     render_adaptive's chunks are. Not for scenes with alpha maps, whose
-    march budgets its passes by the wavefront's size."""
+    march budgets its passes by the wavefront's size.
+
+    Each step reads the count n of live rays (one host sync) and the loop
+    stops at 0. The wavefront sort puts the live rays first, so from the
+    second step on, a step runs on the prefix of the first n rows (rounded
+    up to LIVE_BLOCK) and the rest, dead, is carried over unchanged. The
+    step draws what the whole wavefront's step draws and budgets its alpha
+    marches by R, so every ray gets the slot, the random numbers and the
+    hits it gets when every step runs on all R rows, and the image is the
+    same bit for bit."""
     R = o.shape[0]
     if segment is not None and (R % segment or scene.has_alpha_maps):
         raise ValueError(f'segment {segment}: R = {R} must be a multiple, '
                          f'in a scene without alpha maps')
+    tracer = trace_fn(scene, settings)
+    state = initial_state(o, d, time, kind0, prev_mat0, gi_bounces0)
+    ring_tracer = isinstance(tracer, ring.RingTracer)
+    # Every step runs on all R rows where the live rays are no prefix:
+    # with `segment`, each segment sorts within itself; without the sort,
+    # they stay where they are; and under 'ring' every rank traces all its
+    # rows, as its ranks share one stop test and one march budget
+    # (ops/ring_trace.py)
+    compact = segment is None and settings.sort_rays and not ring_tracer
+    step = _remat_step if settings.remat and torch.is_grad_enabled() \
+        else _step
+    total = 0.0
+    if vm.PROFILE_PARTS:
+        LIVE_RAYS['rays'] += R
+    for step_idx in range(settings.max_wavefront_steps):
+        with vm.part('stop'):
+            if vm.PROFILE_PARTS:
+                _count_live(state['alive'], step_idx,
+                            settings.max_wavefront_steps)
+            if ring_tracer:
+                n = R if tracer.any_live(state['alive']) else 0
+            else:
+                n = int(state['alive'].sum())
+            if n == 0:
+                break
+        m = min(R, -(-n // LIVE_BLOCK) * LIVE_BLOCK)
+        if compact and m < R:
+            # the first step has every ray alive, so m < R only after a
+            # sort; the dead rows' fields all pass through a step as they
+            # are, so carrying them over is what the step would do. The
+            # cut and the carry belong to the wavefront's order ('sort')
+            with vm.part('sort'):
+                live = {k: v[:m] for k, v in state.items()}
+            head = step(scene, settings, tracer, live, step_idx, base_key,
+                        segment, rows=R)
+            with vm.part('sort'):
+                state = {k: torch.cat((head[k], v[m:]))
+                         for k, v in state.items()}
+            del live, head
+        else:
+            state = step(scene, settings, tracer, state, step_idx, base_key,
+                         segment, rows=R)
+        if DEPTH_RADIANCE is not None:
+            with vm.part('depth'):
+                # a sum over the rays does not see the wavefront's sort
+                now = state['L'].detach().double().sum(0)
+                if step_idx < len(DEPTH_RADIANCE):
+                    DEPTH_RADIANCE[step_idx] = DEPTH_RADIANCE[step_idx] \
+                        + (now - total)
+                else:
+                    DEPTH_RADIANCE.append(now - total)
+                total = now
+    return final_radiance(state, settings)
+
+
+def initial_state(o, d, time, kind0=KIND_PRIMARY, prev_mat0=0,
+                  gi_bounces0=0) -> dict:
+    """The wavefront of camera rays (o, d) at the first bounce step, seeded
+    with kind0, prev_mat0 and gi_bounces0 as radiance() seeds it."""
+    R = o.shape[0]
     dev = o.device
     f32 = o.dtype
-    tracer = trace_fn(scene, settings)
     zi = torch.zeros(R, dtype=torch.int32, device=dev)
 
     def seed(x):
@@ -348,7 +428,7 @@ def radiance(scene: Scene, settings: RenderSettings, o, d, time,
     ior_stack = torch.zeros((R, IOR_STACK), dtype=f32, device=dev)
     ior_stack[:, 0] = 1.0
     ior_stack[:, 1] += 1.001
-    state = dict(
+    return dict(
         o=o, d=d,
         tp=torch.ones((R, 3), dtype=f32, device=dev),
         L=torch.zeros((R, 3), dtype=f32, device=dev),
@@ -363,33 +443,9 @@ def radiance(scene: Scene, settings: RenderSettings, o, d, time,
         pix=torch.arange(R, dtype=torch.int32, device=dev),
     )
 
-    # a ring's ranks stop together (ops/ring_trace.py)
-    any_live = tracer.any_live if isinstance(tracer, ring.RingTracer) \
-        else lambda flag: bool(flag.any())
-    step = _remat_step if settings.remat and torch.is_grad_enabled() \
-        else _step
-    total = 0.0
-    if vm.PROFILE_PARTS:
-        LIVE_RAYS['rays'] += R
-    for step_idx in range(settings.max_wavefront_steps):
-        with vm.part('stop'):
-            if vm.PROFILE_PARTS:
-                _count_live(state['alive'], step_idx,
-                            settings.max_wavefront_steps)
-            if not any_live(state['alive']):
-                break
-        state = step(scene, settings, tracer, state, step_idx, base_key,
-                     segment)
-        if DEPTH_RADIANCE is not None:
-            with vm.part('depth'):
-                # a sum over the rays does not see the wavefront's sort
-                now = state['L'].detach().double().sum(0)
-                if step_idx < len(DEPTH_RADIANCE):
-                    DEPTH_RADIANCE[step_idx] = DEPTH_RADIANCE[step_idx] \
-                        + (now - total)
-                else:
-                    DEPTH_RADIANCE.append(now - total)
-                total = now
+
+def final_radiance(state: dict, settings: RenderSettings) -> torch.Tensor:
+    """Each ray's radiance in the order the rays entered radiance()."""
     if settings.sort_rays:
         with vm.part('gather'):
             # scatter radiance back to the original ray order
@@ -400,7 +456,7 @@ def radiance(scene: Scene, settings: RenderSettings, o, d, time,
 
 
 def _remat_step(scene: Scene, settings: RenderSettings, tracer, state,
-                step_idx, base_key, segment=None):
+                step_idx, base_key, segment=None, rows=None):
     """_step under torch.utils.checkpoint (RenderSettings.remat, the JAX
     package's jax.checkpoint of its scan body): autograd keeps the step's
     incoming state and nothing of its inside, and the backward pass
@@ -415,6 +471,8 @@ def _remat_step(scene: Scene, settings: RenderSettings, tracer, state,
         march's `(~done).any()`, the plain tracers' loops and masked
         selections) reads the same values; the determinism check stays
         on and refuses a replay whose intermediates change shape;
+      * radiance() cuts the live prefix from the step's incoming state,
+        which the replay gets back as it was, so it runs on the same rows;
       * the state's tensors go in as the checkpoint's own inputs, so
         autograd's version counters refuse a backward pass after an
         in-place write to one of them (the step, the tracers and the
@@ -432,7 +490,7 @@ def _remat_step(scene: Scene, settings: RenderSettings, tracer, state,
     def run(*tensors):
         nonlocal replay
         args = (scene, settings, tracer, dict(zip(keys, tensors)), step_idx,
-                base_key, segment)
+                base_key, segment, rows)
         if not replay:
             replay = True
             return _step(*args)
@@ -447,17 +505,24 @@ def _remat_step(scene: Scene, settings: RenderSettings, tracer, state,
 
 
 def _step(scene: Scene, settings: RenderSettings, tracer, state, step_idx,
-          base_key, segment=None):
+          base_key, segment=None, rows=None):
     """One bounce of the whole wavefront (the JAX package's scan body), or
-    of each of its segments (radiance's `segment`)."""
+    of each of its segments (radiance's `segment`), or of the first R rows
+    of a wavefront of `rows` rays (default R), whose other rows are dead:
+    every ray draws the random numbers it draws in a step of all `rows`,
+    and every alpha march budgets its passes by `rows`
+    (cluster_trace.march_rows: the tracers' signature has no room for it),
+    so that each ray gets the hits it gets there."""
     R = state['o'].shape[0]
+    rows = R if rows is None else rows
     dev = state['o'].device
     f32 = state['o'].dtype
     mats = scene.materials
     with vm.part('draws'):
         key = rng.fold_in(base_key, step_idx)
         k_rr, k_gl, k_gi, k_disp, k_l1, k_l2 = rng.split(key, 6)
-        # rr1, rr2, disp; glossy; GI cosine
+        # rr1, rr2, disp; glossy; GI cosine. A draw's counters are flat
+        # indices, so the first R rows of a draw of `rows` are a draw of R
         rnd = rng.uniform_segmented(k_rr, (R, 3), segment, 0, dev)
         rnd_gl = rng.uniform_segmented(k_gl, (R, 2), segment, 0, dev)
         rnd_gi = rng.uniform_segmented(k_gi, (R, 2), segment, 0, dev)
@@ -465,7 +530,7 @@ def _step(scene: Scene, settings: RenderSettings, tracer, state, step_idx,
                           state['alive'])
     kind = state['kind']
     time = state['time']
-    with vm.part('trace'):
+    with vm.part('trace'), ct.march_rows(rows):
         # dead lanes trace with tmax < 0, which every tracer culls at once
         tmax_live = torch.where(alive, MIRO_TMAX, -1.0).to(f32)
         hit = tracer(o, d, time, EPSILON, tmax_live, False)
@@ -585,7 +650,7 @@ def _step(scene: Scene, settings: RenderSettings, tracer, state, step_idx,
         # unconditional per-hit terms: Le, and ka scaled by rrRecip
         L = L + torch.where(found[:, None],
                             tp * (le + ka * rr_recip[:, None]), 0.0)
-    with vm.part('nee'):
+    with vm.part('nee'), ct.march_rows(rows):
         # -------------------------------------------- diffuse branch: NEE
         # shadow rays only for lanes whose terms survive
         # secondary (non-primary) rays draw one dome sample
@@ -593,7 +658,8 @@ def _step(scene: Scene, settings: RenderSettings, tracer, state, step_idx,
         lpw, specw3, lp_back = lt.sample_all_lights(
             scene, tracer, P, the_n, rvec, spec_exp, time, k_l1, False,
             settings, want_back=scene.has_translucency, active=diffuse_branch,
-            secondary_mask=(kind != KIND_PRIMARY), segment=segment)
+            secondary_mask=(kind != KIND_PRIMARY), segment=segment,
+            rows=rows)
 
         w_d = (tp * rr_recip[:, None]) * diffuse_branch[:, None]
         spec_term = ks * spec_amt[:, None] * specw3

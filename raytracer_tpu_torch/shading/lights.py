@@ -12,7 +12,12 @@ same samples. Secondary rays draw one dome sample
 sampler takes `tracer(o, d, time, tmin, tmax, any_hit) -> Hit`. With
 `segment`, the rays are a batch of wavefronts of that many rays each, and
 every wavefront draws the samples it would draw alone
-(rng.uniform_segmented).
+(rng.uniform_segmented). With `rows`, the R rays given are the first R of
+a wavefront of `rows` rays, and draw what they draw in it: a light's
+samples are a (num_samples, rows, 2) draw, whose counters run over the
+rows within each sample, so the R rays take its first R rows. (Their
+shadow traces' alpha marches budget by the caller's
+ops/cluster_trace.march_rows.)
 """
 from __future__ import annotations
 
@@ -126,7 +131,7 @@ def _rect_area_power(v1, v2, v3, power):
 def sample_rect_lights(scene: Scene, tracer, P, N, rvec, spec_exp, time, key,
                        num_samples: int, segments: int = 4,
                        want_back: bool = False, active=None,
-                       noise_cutoff: float = 0.0, segment=None):
+                       noise_cutoff: float = 0.0, segment=None, rows=None):
     """Sum over rectangle lights -> (irradiance, spec, back); spec applies
     pow once per light to the sample-averaged spec dot
     (src/RectangleLight.cpp:135-136)."""
@@ -138,7 +143,7 @@ def sample_rect_lights(scene: Scene, tracer, P, N, rvec, spec_exp, time, key,
     for i in range(rl.v1.shape[0]):
         p_eff = _rect_area_power(rl.v1[i], rl.v2[i], rl.v3[i], rl.power[i])
         key, sub = rng.split(key)
-        e = rng.uniform_segmented(sub, (num_samples, R, 2), segment, 1, dev)
+        e = _draw_samples(sub, num_samples, R, rows, segment, dev)
         acc = z
         acc_s = torch.zeros(R, dtype=dt, device=dev)
         acc_b = z
@@ -184,6 +189,14 @@ def sample_rect_lights(scene: Scene, tracer, P, N, rvec, spec_exp, time, key,
     return power_sum, spec_sum, back_sum
 
 
+def _draw_samples(key, num_samples: int, R: int, rows, segment, dev):
+    """A light's (num_samples, R, 2) uniforms: the first R rows of each
+    sample's draw over `rows` rays (default R)."""
+    rows = R if rows is None else rows
+    e = rng.uniform_segmented(key, (num_samples, rows, 2), segment, 1, dev)
+    return e if rows == R else e[:, :R]
+
+
 def _sample_cdf_rows(cdf2, rows, u):
     """Distribution1D::sample (src/DomeLight.h:31-38) over per-ray rows.
 
@@ -217,7 +230,7 @@ def sample_dome_light(scene: Scene, tracer, P, N, rvec, spec_exp, time, key,
                       num_samples: int, segments: int = 4,
                       want_back: bool = False, active=None,
                       noise_cutoff: float = 0.0, single_mask=None,
-                      segment=None):
+                      segment=None, rows=None):
     """HDR dome importance sampling -> (irradiance, spec, back), each
     (R, 3) (src/DomeLight.cpp:80-161): u from the marginal CDF, v from its
     column's CDF, the direction from the table angles at floor indices,
@@ -233,7 +246,7 @@ def sample_dome_light(scene: Scene, tracer, P, N, rvec, spec_exp, time, key,
     nu = dome.u_func.shape[0]
     nv = dome.v_func.shape[1]
     key, sub = rng.split(key)
-    e = rng.uniform_segmented(sub, (num_samples, R, 2), segment, 1, dev)
+    e = _draw_samples(sub, num_samples, R, rows, segment, dev)
     tex_id = torch.full((R,), dome.tex, dtype=torch.int32, device=dev)
     acc, acc_b = z, z
     acc_s = torch.zeros(R, dtype=dt, device=dev)
@@ -284,7 +297,8 @@ def sample_dome_light(scene: Scene, tracer, P, N, rvec, spec_exp, time, key,
 
 def sample_all_lights(scene: Scene, tracer, P, N, rvec, spec_exp, time, key,
                       secondary: bool, settings, want_back: bool = False,
-                      active=None, secondary_mask=None, segment=None):
+                      active=None, secondary_mask=None, segment=None,
+                      rows=None):
     """The per-hit light loop (src/Blinn.cpp:213-221) -> (lightPower,
     lightSpec, backPower), each (R, 3). secondary_mask (R,) marks the rays
     that draw one dome sample (src/DomeLight.cpp:89; rect lights ignore
@@ -306,7 +320,7 @@ def sample_all_lights(scene: Scene, tracer, P, N, rvec, spec_exp, time, key,
             p, s, b = sample_rect_lights(scene, tracer, P, N, rvec, spec_exp,
                                          time, sub, ns, segs, want_back,
                                          active, settings.light_noise_cutoff,
-                                         segment)
+                                         segment, rows)
             total, spec, back = total + p, spec + s, back + b
     if scene.dome is not None:
         if not settings.light_secondary_single:
@@ -317,6 +331,6 @@ def sample_all_lights(scene: Scene, tracer, P, N, rvec, spec_exp, time, key,
             p, s, b = sample_dome_light(scene, tracer, P, N, rvec, spec_exp,
                                         time, sub, ns, segs, want_back,
                                         active, settings.light_noise_cutoff,
-                                        secondary_mask, segment)
+                                        secondary_mask, segment, rows)
             total, spec, back = total + p, spec + s, back + b
     return total, spec, back
